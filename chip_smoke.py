@@ -6,23 +6,38 @@
 Phases, each fatal on failure (nothing is caught and passed over):
 
 1. device: name, count, versions, `nvidia-smi` name and power limit;
-2. build: the BF8 traversal kernels (nvcc, sm_90a, with -Xptxas -v) and
-   the native SBVH library (g++), started together;
-3. kernel parity at full size: the Heightfield (n=224) SBVH→BF8, 16,384
-   rays each from the real bounce-0 and bounce-1 wavefronts and 16,384
-   seeded random rays; K1 (closest_bf8) and K2 (occluded_bf8, and
-   opaque_only on a structure with every other triangle non-opaque)
-   against their plain PyTorch versions on the card;
-4. main path: `Renderer(device="cuda")` on the Heightfield at 512², 5
-   bounces, 4 spp: one warm render, then 3 timed renders with the launch
+2. build: every traversal kernel (one nvcc per source for sm_90a, with
+   -Xptxas -v) and the native SBVH library (g++), all started together;
+3. kernel parity at full size, each kernel against its plain PyTorch version
+   on the card: K1 (closest_bf8) and K2 (occluded_bf8, and opaque_only on a
+   structure with every other triangle non-opaque) over the Heightfield
+   (n=224) SBVH→BF8; K3 (closest_v4) and K4 (occluded_v4) over the Morton
+   tree of the Animated Heightfield; 16,384 rays each from real wavefronts
+   (bounce 0, a later bounce, and a later bounce with the lanes the
+   integrator has killed) and 16,384 seeded random rays;
+4. main path, static: `Renderer(device="cuda")` on the Heightfield at 512²,
+   5 bounces, 4 spp: one warm render, then 3 timed renders with the launch
    counters set to 0 just before and read just after; film checks, a PNG
-   through `postprocess` + `write_image`, ms per render step, Mrays/s,
-   peak memory, 3 more blocks of 3 steps for the spread within the call,
-   a torch.profiler breakdown of one sample, and each
-   kernel's CUDA-event time on the real bounce-0 and bounce-2 wavefronts
-   against its plain version and its bound;
-5. cross-device film: the Heightfield (n=64) at 64², 1 spp, 3 bounces on
-   the card (kernels) and on the CPU (plain versions): film MSE < 1e-3.
+   through `postprocess` + `write_image`, ms per render step, Mrays/s, peak
+   memory, one more block of 3 steps for the spread within the call, a
+   torch.profiler breakdown of one sample, and K1/K2's CUDA-event time on
+   the real bounce-0 and bounce-2 wavefronts against plain version and bound;
+5. main path, animated: the Animated Heightfield (99,458 triangles on a
+   keyframed node) at 512², 5 bounces, 4 spp, 5 frames of `scene.update(1/24)`
+   → `update_scene_data` → rebuild → `render()`, the last 4 counted (launch
+   counters as above): per frame the rebuild's CUDA-event ms (from the second
+   counted frame on with host syncs forbidden), the render step's ms, Mrays/s
+   and peak memory; the tree must change and the film be reset every frame;
+   a PNG; torch.profiler breakdowns of one sample and of one rebuild; K3/K4's
+   time on the real bounce-0 and bounce-2 wavefronts against plain version
+   and bound;
+6. alpha variants at 256², 3 bounces: the animated one (the ground plus
+   5,200 alpha-tested card triangles: single-tree re-trace loops over K3)
+   and the static one (split trees, K1/K2), with checks that decals and
+   accepted alpha hits occur;
+7. cross-device film, card (kernels) against CPU (plain versions), MSE <
+   1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
+   alpha frames and the static alpha variant at 32².
 
 Prints the kernels' JSON line, then the `nvidia-smi` line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -48,20 +63,37 @@ OUT_DIR = ROOT / "chip_smoke_out"          # git-ignored
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # f32 operations per unit of traversal work, counted from
-# pt_torch/accel/csrc/bf8_traverse.cuh: a slab test is 6 sub + 6 mul +
+# pt_torch/accel/csrc/rt_common.cuh: a slab test is 6 sub + 6 mul +
 # 10 min/max + 3 compares; a Woop test is 18 (o') + 15 (d') + 2 (t) +
 # 4 (u, v) + 1 (u+v) + 5 compares
 OPS_PER_SLAB = 25
 OPS_PER_WOOP = 45
-# bytes of structure the function needs: per wide node its 8 child slots
-# (lo, hi: 3 f32 each; entry: i32), per triangle W (9 f32), b (3 f32) and
-# its id (i32). The page's second copy of W (rows 4-6), its padding and the
-# leaf boxes (copies of the parent's child boxes) are not counted.
+# bytes of structure the function needs: per BF8 wide node its 8 child slots
+# (lo, hi: 3 f32 each; entry: i32), per binary node its bounds, skip link and
+# leaf id, per triangle W (9 f32), b (3 f32) and its id (i32). The page's
+# second copy of W (rows 4-6), its padding and the BF8 leaf boxes (copies of
+# the parent's child boxes) are not counted.
 BYTES_PER_NODE = 8 * (12 + 12 + 4)
+BYTES_PER_NODE_V4 = 12 + 12 + 4 + 4
 BYTES_PER_TRI = (9 + 3 + 1) * 4
 
 N_PARITY = 16384
-BLOCKS = 4          # blocks of 3 timed render steps (the first is counted)
+BLOCKS = 2          # blocks of 3 timed render steps (the first is counted)
+ANIM_FRAMES = 4     # counted animated frames, after one warm frame
+N_CARDS = 2600      # alpha-tested quads of the alpha variants (5,200 tris)
+
+REPLACES = {
+    "closest_bf8": "pt/accel/pallas_bvh.py:1427 packet_closest_bf8",
+    "occluded_bf8": "pt/accel/pallas_bvh.py:1471 packet_occluded_bf8",
+    "closest_v4": "pt/accel/pallas_bvh.py:1388 packet_closest_v4",
+    "occluded_v4": "pt/accel/pallas_bvh.py:1512 packet_occluded_v4",
+}
+SOURCES = {
+    "closest_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
+    "occluded_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
+    "closest_v4": "pt_torch/accel/csrc/v4_kernels.cu",
+    "occluded_v4": "pt_torch/accel/csrc/v4_kernels.cu",
+}
 
 
 def fail(msg: str) -> None:
@@ -76,6 +108,99 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# ------------------------------------------------------------------ scenes
+
+
+def port_namespace():
+    """The scene-building names of `pt_torch` that `build_animated_scene`
+    uses, as one namespace."""
+    import types
+    from pt_torch.scene import builder, examples, graph
+    from pt_torch.scene import types as stypes
+    return types.SimpleNamespace(
+        SceneBuilder=builder.SceneBuilder,
+        create_heightfield_scene=examples.create_heightfield_scene,
+        Animation=graph.Animation, AnimationNode=graph.AnimationNode,
+        KeySequence=graph.KeySequence, Geometry=stypes.Geometry,
+        MeshInfo=stypes.MeshInfo,
+        MetallicRoughnessMaterial=stypes.MetallicRoughnessMaterial,
+        TextureInfo=stypes.TextureInfo, TextureType=stypes.TextureType)
+
+
+def alpha_mask_texture(seed: int, size: int = 64) -> np.ndarray:
+    """(size, size, 4) uint8 RGBA mask made from a seed: blocks of 8x8
+    texels with α = 0.2 (skipped: decals), α = 0.7 (accepted, translucent to
+    shadow rays) and α = 1 (opaque), a third each, over random colours."""
+    rng = np.random.default_rng(seed)
+    cells = size // 8
+    levels = np.asarray([51, 178, 255], np.uint8)
+    alpha = levels[rng.permutation(cells * cells) % 3].reshape(cells, cells)
+    rgb = rng.integers(40, 256, (cells, cells, 3), dtype=np.uint8)
+    mask = np.concatenate([rgb, alpha[..., None]], axis=-1)
+    return np.repeat(np.repeat(mask, 8, axis=0), 8, axis=1)
+
+
+def build_animated_scene(ns, n: int = 224, n_cards: int = 0,
+                         animate: bool = True, seed: int = 7):
+    """The Heightfield (n x n grid) built through `ns.SceneBuilder`, user
+    code as an importer would write it. With `animate`, its instance node
+    carries a keyframed rotation about y and a translation (24 ticks per
+    second), so every `scene.update(1 / 24)` moves all of it. With
+    `n_cards` > 0, that many alpha-tested quads (two triangles each) stand
+    on the same node, textured with `alpha_mask_texture(seed)`. `ns` names
+    the package's scene classes (see `port_namespace`)."""
+    b = ns.SceneBuilder("Animated Heightfield" if animate
+                        else "Static Heightfield")
+    ns.create_heightfield_scene(b, n)
+    node = len(b.node_parents) - 1
+    if n_cards:
+        rng = np.random.default_rng(seed)
+        base = np.stack([rng.uniform(-8, 8, n_cards),
+                         rng.uniform(0.3, 1.6, n_cards),
+                         rng.uniform(-8, 8, n_cards)], axis=-1)
+        yaw = rng.uniform(0, np.pi, n_cards)
+        right = np.stack([np.cos(yaw), np.zeros(n_cards), np.sin(yaw)],
+                         axis=-1) * rng.uniform(0.3, 0.6, (n_cards, 1))
+        up = np.asarray([0.0, 1.0, 0.0]) * rng.uniform(0.5, 1.0, (n_cards, 1))
+        corners = np.stack([base - right, base + right, base + right + up,
+                            base - right + up], axis=1)        # (C, 4, 3)
+        nrm = np.cross(right, up)
+        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        uv = np.tile(np.asarray([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32),
+                     (n_cards, 1, 1))
+        quad = np.asarray([0, 1, 2, 2, 3, 0])
+        idx = (np.arange(n_cards)[:, None] * 4 + quad[None]).ravel()
+        vbase = b.add_vertices(corners.reshape(-1, 3), uv.reshape(-1, 2),
+                               np.repeat(nrm, 4, axis=0))
+        ibase = b.add_indices(idx)
+        geo = b.add_geometry(ns.Geometry(vbase, 4 * n_cards, ibase, len(idx),
+                                         is_opaque=False))
+        tex = b.add_texture(ns.TextureInfo(
+            "card mask", ns.TextureType.COLOR,
+            pixels=alpha_mask_texture(seed), is_srgb=True))
+        mat = b.add_material("cards", ns.MetallicRoughnessMaterial(
+            color=(1.0, 1.0, 1.0, 1.0), roughness=0.8, color_idx=tex))
+        b.models[-1].meshes.append(ns.MeshInfo(geo, mat))
+    if animate:
+        half = 0.25                       # half of a 0.5 rad turn about y
+        b.add_animation(ns.Animation(nodes=[ns.AnimationNode(
+            scene_node_index=node,
+            positions=ns.KeySequence(
+                ticks=np.asarray([0.0, 24.0, 48.0]),
+                values=np.asarray([[0.0, 0.0, 0.0], [0.5, 0.2, 0.0],
+                                   [0.0, 0.0, 0.0]])),
+            rotations=ns.KeySequence(
+                ticks=np.asarray([0.0, 24.0, 48.0]),
+                values=np.asarray([[1.0, 0.0, 0.0, 0.0],
+                                   [np.cos(half), 0.0, np.sin(half), 0.0],
+                                   [1.0, 0.0, 0.0, 0.0]]),
+                is_rotation=True),
+            scales=ns.KeySequence(ticks=np.asarray([0.0]),
+                                  values=np.asarray([[1.0, 1.0, 1.0]])))],
+            ticks_per_second=24.0, duration=48.0))
+    return b.create_scene()
 
 
 # ------------------------------------------------------------------ timing
@@ -141,15 +266,26 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def _renderer(n: int, width: int, spp: int, bounces: int, device: str):
+def _renderer(scene, width: int, spp: int, bounces: int, device: str):
+    """A Renderer on `device` for `scene` (an int n: the static Heightfield
+    of that grid size)."""
     from pt_torch.render.integrator import PathTracingSettings
     from pt_torch.run.renderer import Renderer
     from pt_torch.scene.examples import make_heightfield_scene
     r = Renderer(PathTracingSettings(sample_count=spp, bounce_count=bounces),
                  device=device)
-    r.set_scene(make_heightfield_scene(n))
+    r.set_scene(make_heightfield_scene(scene) if isinstance(scene, int)
+                else scene)
     r.on_resize(width, width)
     return r
+
+
+def _step_frame(r) -> bool:
+    """One animated frame up to the rebuild: advance the scene by 1/24 s and
+    hand the change to the renderer. Returns whether anything moved."""
+    changed = r.scene.update(1.0 / 24.0)
+    r.update_scene_data(scene_changed=changed)
+    return changed
 
 
 class _Recorder:
@@ -189,10 +325,10 @@ def _sample_rows(arrays, k, rng, live=None):
     return [a[sel].contiguous() for a in arrays]
 
 
-def _compare_closest(bvh, o, d, t, what):
+def _compare_closest(bvh, o, d, t, what, name="closest_bf8"):
     from pt_torch.accel import kernels
-    hk = kernels.closest_bf8(bvh, o, d, t)
-    hp = kernels.closest_bf8_plain(bvh, o, d, t)
+    hk = getattr(kernels, name)(bvh, o, d, t)
+    hp = getattr(kernels, name + "_plain")(bvh, o, d, t)
     same = hk.tri == hp.tri
     frac = float(same.float().mean())
     dt = (hk.t - hp.t).abs()[same]
@@ -200,26 +336,27 @@ def _compare_closest(bvh, o, d, t, what):
     du = (hk.u - hp.u).abs()[same]
     dv = (hk.v - hp.v).abs()[same]
     err = float(torch_max(dt))
-    log(f"[parity] K1 {what}: {o.shape[0]} rays, ids agree {frac:.6f}, "
+    log(f"[parity] {name} {what}: {o.shape[0]} rays, ids agree {frac:.6f}, "
         f"hits {int((hp.tri >= 0).sum())}, max|dt| {err:.3e}, "
         f"max|du| {float(torch_max(du)):.3e}, "
         f"max|dv| {float(torch_max(dv)):.3e}")
-    check(frac >= 0.999, f"K1 {what}: ids agree on {frac:.6f} < 0.999")
-    check(bool((dt <= tol_t).all()), f"K1 {what}: |dt| above 1e-5*max(1,t)")
+    check(frac >= 0.999, f"{name} {what}: ids agree on {frac:.6f} < 0.999")
+    check(bool((dt <= tol_t).all()),
+          f"{name} {what}: |dt| above 1e-5*max(1,t)")
     check(bool((du <= 1e-4).all()) and bool((dv <= 1e-4).all()),
-          f"K1 {what}: |du| or |dv| above 1e-4")
+          f"{name} {what}: |du| or |dv| above 1e-4")
     return err
 
 
-def _compare_occluded(bvh, o, d, dist, what, opaque_only=False):
+def _compare_occluded(bvh, o, d, dist, what, name="occluded_bf8", **kw):
     from pt_torch.accel import kernels
-    ok_ = kernels.occluded_bf8(bvh, o, d, dist, opaque_only=opaque_only)
-    op = kernels.occluded_bf8_plain(bvh, o, d, dist, opaque_only=opaque_only)
+    ok_ = getattr(kernels, name)(bvh, o, d, dist, **kw)
+    op = getattr(kernels, name + "_plain")(bvh, o, d, dist, **kw)
     diff = ok_ != op
     frac = 1.0 - float(diff.float().mean())
-    log(f"[parity] K2 {what}{' opaque_only' if opaque_only else ''}: "
+    log(f"[parity] {name} {what}{' opaque_only' if kw else ''}: "
         f"{o.shape[0]} rays, agree {frac:.6f}, occluded {int(op.sum())}")
-    check(frac >= 0.999, f"K2 {what}: agree on {frac:.6f} < 0.999")
+    check(frac >= 0.999, f"{name} {what}: agree on {frac:.6f} < 0.999")
     return float(diff.any())
 
 
@@ -273,7 +410,55 @@ def phase_parity():
         errs["occluded_bf8"] = max(errs["occluded_bf8"], _compare_occluded(
             half, o, d, dist, "random/half-alpha", opaque_only=flag))
     torch.cuda.synchronize()
-    log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
+    log(f"[parity] K1/K2 done in {time.perf_counter() - t0:.1f} s")
+    errs.update(_parity_v4(rng))
+    return errs
+
+
+def _parity_v4(rng):
+    """K3/K4 against their plain versions over the Morton tree of the
+    Animated Heightfield's second frame, on real wavefronts."""
+    import torch
+    t0 = time.perf_counter()
+    scene = build_animated_scene(port_namespace(), 224)
+    r = _renderer(scene, 512, 1, 3, "cuda")
+    _step_frame(r)
+    _step_frame(r)
+    with _Recorder() as rec:
+        r.render(1)
+    bvh = r.accel.bvh
+    check(type(bvh).__name__ == "PacketBVH", "animated scene: no PacketBVH")
+    log(f"[parity] Animated Heightfield n=224: {r.ds.num_triangles} "
+        f"triangles, {bvh.pages.shape[0]} leaves of block {bvh.block}, "
+        f"{bvh.n_top} top nodes")
+    live2 = (rec.closest[2][2] > 1e-4).cpu().numpy()
+    check(0 < (~live2).sum(), "bounce 2 has no killed lanes")
+    lo, hi = bvh.root_lo.cpu().numpy(), bvh.root_hi.cpu().numpy()
+    ro = rng.uniform(lo - 2.0, hi + 2.0, (N_PARITY, 3)).astype(np.float32)
+    rd = rng.normal(size=(N_PARITY, 3))
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    sets = (("bounce0", _sample_rows(rec.closest[0], N_PARITY, rng)),
+            ("bounce2", _sample_rows(rec.closest[2], N_PARITY, rng, live2)),
+            ("bounce2 with killed lanes",
+             _sample_rows(rec.closest[2], N_PARITY, rng)),
+            ("random", [torch.as_tensor(ro, device="cuda"),
+                        torch.as_tensor(rd, device="cuda"),
+                        torch.full((N_PARITY,), 1e4, device="cuda")]))
+    errs = {"closest_v4": 0.0, "occluded_v4": 0.0}
+    for what, (o, d, t) in sets:
+        errs["closest_v4"] = max(errs["closest_v4"], _compare_closest(
+            bvh, o, d, t, what, name="closest_v4"))
+        dist = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
+                               .astype(np.float32), device="cuda")
+        errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
+            bvh, o, d, dist, what, name="occluded_v4"))
+    # the shadow wavefronts as the integrator sends them (killed lanes too)
+    for b in (0, 2):
+        o, d, t = _sample_rows(rec.occluded[b], N_PARITY, rng)
+        errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
+            bvh, o, d, t, f"shadow rays of bounce {b}", name="occluded_v4"))
+    torch.cuda.synchronize()
+    log(f"[parity] K3/K4 done in {time.perf_counter() - t0:.1f} s")
     return errs
 
 
@@ -282,12 +467,18 @@ def _bound(n, out_bytes, counts):
     bytes (rays read once, results written once, and each wide node and
     triangle that any ray visited read once) over the HBM rate vs the
     counted f32 operations over the f32 rate."""
-    nodes, leaf_boxes, tris = (int(c) for c in counts.totals.tolist())
+    totals = [int(c) for c in counts.totals.tolist()]
     nodes_seen = int(counts.node_seen.sum())
     tris_seen = int(counts.tri_seen.sum())
+    if len(totals) == 3:        # BF8: 8 child slabs a visit + leaf retests
+        nodes, leaf_boxes, tris = totals
+        slabs, node_bytes = 8 * nodes + leaf_boxes, BYTES_PER_NODE
+    else:                       # binary tree: one slab a visit
+        nodes, tris = totals
+        slabs, node_bytes = nodes, BYTES_PER_NODE_V4
     nbytes = (n * (12 + 12 + 4) + n * out_bytes
-              + nodes_seen * BYTES_PER_NODE + tris_seen * BYTES_PER_TRI)
-    ops = (8 * nodes + leaf_boxes) * OPS_PER_SLAB + tris * OPS_PER_WOOP
+              + nodes_seen * node_bytes + tris_seen * BYTES_PER_TRI)
+    ops = slabs * OPS_PER_SLAB + tris * OPS_PER_WOOP
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -297,6 +488,9 @@ def _bound(n, out_bytes, counts):
 
 
 def _time_kernel(name, bvh, args):
+    """Time kernel `name` and its plain version on one recorded wavefront,
+    at the shape the main path gave it, work out the launch's bound from a
+    counted launch, and hold the two results against each other."""
     import torch
     from pt_torch.accel import kernels
     k_fn = getattr(kernels, name)
@@ -304,23 +498,33 @@ def _time_kernel(name, bvh, args):
     counts = kernels.work_counts(bvh)
     k_fn(bvh, *args, counts=counts)
     n = args[0].shape[0]
-    bound = _bound(n, 16 if name == "closest_bf8" else 1, counts)
-    ms = cuda_ms(lambda: k_fn(bvh, *args), reps=5)
-    plain_ms = cuda_ms(lambda: p_fn(bvh, *args), reps=1)
-    return dict(ms=ms, plain_ms=plain_ms, n=n, **bound)
+    bound = _bound(n, 16 if name.startswith("closest") else 1, counts)
+    out = {}
+    ms = cuda_ms(lambda: out.update(k=k_fn(bvh, *args)), reps=5)
+    plain_ms = cuda_ms(lambda: out.update(p=p_fn(bvh, *args)), reps=1)
+    if name.startswith("closest"):
+        differ = int((out["k"].tri != out["p"].tri).sum())
+        err = float((out["k"].t - out["p"].t).abs().max())
+    else:
+        differ = int((out["k"] != out["p"]).sum())
+        err = float(differ > 0)
+    check(differ <= n // 1000,
+          f"{name}: {differ} of {n} lanes differ from the plain version")
+    return dict(ms=ms, plain_ms=plain_ms, n=n, differ=differ, err=err,
+                **bound)
 
 
-def _profile_sample(r) -> None:
-    """Where one sample's time goes: torch.profiler over render(1) —
-    device kernel time by name, kernel launches, and the device busy share
-    (summed kernel time over the host wall clock of the profiled sample;
-    the profiler's own host overhead makes this a lower bound)."""
+def _profile(fn, what: str, top: int = 12) -> None:
+    """Where the time of `fn()` goes: torch.profiler over one call — device
+    kernel time by name, kernel launches, and the device busy share (summed
+    kernel time over the host wall clock of the profiled call; the
+    profiler's own host overhead makes this a lower bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        r.render(1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -340,11 +544,10 @@ def _profile_sample(r) -> None:
     if not rows:
         log("[profile] torch.profiler recorded no device time")
         return
-    log(f"[profile] one sample (5 bounces, 262144 lanes): wall "
-        f"{wall_ms:.1f} ms under the profiler, device kernel time "
-        f"{busy_ms:.1f} ms (busy share {busy_ms / wall_ms:.3f}), "
-        f"{launches} device kernels")
-    for ms, n, key in sorted(rows, reverse=True)[:12]:
+    log(f"[profile] {what}: wall {wall_ms:.1f} ms under the profiler, "
+        f"device kernel time {busy_ms:.1f} ms (busy share "
+        f"{busy_ms / wall_ms:.3f}), {launches} device kernels")
+    for ms, n, key in sorted(rows, reverse=True)[:top]:
         log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {key[:90]}")
 
 
@@ -367,7 +570,7 @@ def phase_main():
         r.render()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    counts = dict(kernels.launches)
+    counts = {k: kernels.launches[k] for k in ("closest_bf8", "occluded_bf8")}
     rays = r.rays_traced - rays0
     peak = torch.cuda.max_memory_allocated() / 2**20
     film = r.film_mean()
@@ -399,43 +602,266 @@ def phase_main():
     check(png.stat().st_size > 1000, "PNG not written")
     log(f"[main] wrote {png.relative_to(ROOT)} ({png.stat().st_size} bytes)")
 
-    _profile_sample(r)
+    _profile(lambda: r.render(1),
+             "static, one sample (5 bounces, 262144 lanes)")
 
-    # kernel times on the real bounce-0 and bounce-2 wavefronts (outside
-    # the counted run)
-    with _Recorder() as rec:
-        r.render(1)
-    bvh = r.accel.bvh
-    times = {}
-    for name, calls in (("closest_bf8", rec.closest),
-                        ("occluded_bf8", rec.occluded)):
-        for b in (0, 2):
-            tm = _time_kernel(name, bvh, calls[b])
-            times[(name, b)] = tm
-            log(f"[main] {name} bounce {b}: {tm['n']} lanes, "
-                f"{tm['ms']:.3f} ms (plain {tm['plain_ms']:.1f} ms), bound "
-                f"{tm['bound_ms']:.5f} ms by {tm['bound_by']} "
-                f"({tm['bound_bytes']} bytes); {tm['node_visits']} node "
-                f"visits, {tm['tri_tests']} triangle tests; "
-                f"{tm['nodes_seen']} distinct nodes, {tm['tris_seen']} "
-                f"distinct triangles")
+    times = _kernel_times(r, (("closest_bf8", "closest"),
+                              ("occluded_bf8", "occluded")), "main")
     return counts, times, dict(ms_per_step=dt / 3 * 1e3,
                                mrays=rays / dt / 1e6, peak_mib=peak,
                                ms_per_step_blocks=blocks)
 
 
-def phase_cross_device():
+def _kernel_times(r, pairs, tag):
+    """CUDA-event time, plain time and bound of each (kernel name, recorded
+    calls) pair on the bounce-0 and bounce-2 wavefronts of one more sample
+    (outside any counted run)."""
+    with _Recorder() as rec:
+        r.render(1)
+    bvh = r.accel.bvh
+    times = {}
+    for name, which in pairs:
+        calls = getattr(rec, which)
+        for b in (0, 2):
+            tm = _time_kernel(name, bvh, calls[b])
+            times[(name, b)] = tm
+            log(f"[{tag}] {name} bounce {b}: {tm['n']} lanes, "
+                f"{tm['ms']:.3f} ms (plain {tm['plain_ms']:.1f} ms), bound "
+                f"{tm['bound_ms']:.5f} ms by {tm['bound_by']} "
+                f"({tm['bound_bytes']} bytes); {tm['node_visits']} node "
+                f"visits, {tm['tri_tests']} triangle tests; "
+                f"{tm['nodes_seen']} distinct nodes, {tm['tris_seen']} "
+                f"distinct triangles; {tm['differ']} lanes differ from the "
+                f"plain version, max|dt| {tm['err']:.3e}")
+    return times
+
+
+def _tree_signature(bvh):
+    """(root lo, root hi, checksum of the pages' W rows) of a structure, on
+    the host. The b rows are left out: padding columns hold 1e30 there."""
+    return (bvh.root_lo.cpu().numpy().copy(), bvh.root_hi.cpu().numpy().copy(),
+            float(bvh.pages[:, :3, :3 * bvh.block].double().abs().sum()))
+
+
+def phase_animated():
+    """The animated frame loop at full width: scene.update → update_scene_data
+    → rebuild → render, ANIM_FRAMES counted frames after one warm frame."""
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.out.saver import write_image
     t0 = time.perf_counter()
-    films = {}
-    for dev in ("cuda", "cpu"):
-        r = _renderer(64, 64, 1, 3, dev)
+    scene = build_animated_scene(port_namespace(), 224)
+    check(scene.has_animated_instances, "the scene is not animated")
+    r = _renderer(scene, 512, 4, 5, "cuda")
+    check(_step_frame(r), "scene.update reported no change")
+    r.render()                                        # warm frame
+    torch.cuda.synchronize()
+    log(f"[anim] Animated Heightfield n=224: {r.ds.num_triangles} triangles; "
+        f"warm frame {time.perf_counter() - t0:.1f} s")
+    sig = _tree_signature(r.accel.bvh)
+    frames = []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_all = time.perf_counter()
+    for f in range(ANIM_FRAMES):
+        th = time.perf_counter()
+        check(_step_frame(r), "scene.update reported no change")
+        host_ms = (time.perf_counter() - th) * 1e3
+        check(r.total_samples == 0 and float(r.accum.abs().sum()) == 0.0,
+              "the film was not reset by the scene change")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # from the second counted frame on nothing in the rebuild may wait
+        # for the card (the first uploads nothing new either, but leaves the
+        # allocator free to grow)
+        if f > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        start.record()
+        r._ensure_accel()
+        end.record()
+        torch.cuda.set_sync_debug_mode("default")
+        t1 = time.perf_counter()
         r.render()
-        films[dev] = r.film_mean()
-    mse = float(np.mean((films["cuda"] - films["cpu"]) ** 2))
-    log(f"[cross] Heightfield n=64, 64x64, 1 spp, 3 bounces: film MSE "
-        f"cuda vs cpu {mse:.3e} (limit 1e-3), "
-        f"{time.perf_counter() - t0:.1f} s")
-    check(bool(np.isfinite(mse)) and mse < 1e-3, f"film MSE {mse} >= 1e-3")
+        torch.cuda.synchronize()
+        render_ms = (time.perf_counter() - t1) * 1e3
+        rays = r.rays_traced
+        check(r.total_samples == 4, f"frame {f}: {r.total_samples} samples")
+        new_sig = _tree_signature(r.accel.bvh)
+        moved = (not np.array_equal(sig[0], new_sig[0])
+                 or not np.array_equal(sig[1], new_sig[1]))
+        check(moved and sig[2] != new_sig[2],
+              f"frame {f}: the tree did not change")
+        sig = new_sig
+        frames.append(dict(update_host_ms=host_ms,
+                           rebuild_ms=start.elapsed_time(end),
+                           render_ms=render_ms, rays=rays,
+                           mrays=rays / render_ms / 1e3))
+        log(f"[anim] frame {f}: update_seg_transforms (host) "
+            f"{host_ms:.2f} ms, rebuild {frames[-1]['rebuild_ms']:.3f} ms, "
+            f"render step {render_ms:.1f} ms, {rays} rays, "
+            f"{frames[-1]['mrays']:.3f} useful Mrays/s, root hi "
+            f"{new_sig[1].round(3).tolist()}")
+    wall = time.perf_counter() - t_all
+    counts = {k: kernels.launches[k] for k in ("closest_v4", "occluded_v4")}
+    other = {k: v for k, v in kernels.launches.items() if k not in counts}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for k, v in counts.items():
+        check(v == 20 * ANIM_FRAMES,
+              f"kernel {k}: {v} launches in {ANIM_FRAMES} frames, not "
+              f"{20 * ANIM_FRAMES}")
+    check(not any(other.values()), f"BF8 kernels ran on the animated path: "
+          f"{other}")
+    film = r.film_mean()
+    check(film.shape == (512, 512, 3), f"film shape {film.shape}")
+    check(bool(np.isfinite(film).all()), "film has non-finite values")
+    check(float(np.abs(film).max()) > 0.0, "film is all zero")
+    log(f"[anim] {ANIM_FRAMES} frames, 512x512, 5 bounces, 4 spp: "
+        f"{wall / ANIM_FRAMES * 1e3:.1f} ms per frame in all (checks "
+        f"included), peak memory {peak:.0f} MiB, launches {counts}, film "
+        f"mean {float(film.mean()):.5f}")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    png = OUT_DIR / "animated_heightfield_512.png"
+    write_image(str(png), r.snapshot())
+    check(png.stat().st_size > 1000, "PNG not written")
+    log(f"[anim] wrote {png.relative_to(ROOT)} ({png.stat().st_size} bytes)")
+    _profile(lambda: r.render(1),
+             "animated, one sample (5 bounces, 262144 lanes)", top=6)
+
+    def rebuild():
+        r._accel_dirty = True
+        r._ensure_accel()
+    _profile(rebuild, "animated, one rebuild (99458 triangles)", top=8)
+    times = _kernel_times(r, (("closest_v4", "closest"),
+                              ("occluded_v4", "occluded")), "anim")
+    mean = lambda k: float(np.mean([fr[k] for fr in frames]))  # noqa: E731
+    return counts, times, dict(frames=frames, peak_mib=peak,
+                               rebuild_ms=mean("rebuild_ms"),
+                               render_ms=mean("render_ms"),
+                               mrays=mean("mrays"))
+
+
+def _alpha_hits(r):
+    """Counts over one bounce-0 wavefront of an alpha scene: lanes with a
+    decal (an α < 0.5 surface skipped) and lanes whose final hit is an
+    alpha-tested triangle (an α ≥ 0.5 surface accepted)."""
+    from pt_torch.render import integrator as ti
+    inv_view, inv_proj = r._camera_mats()
+    state = ti.init_rng_state(r._px, r._py, r.width, 0)
+    _, o, d, _ = ti.raygen(r._px, r._py, r.width, r.height, inv_view,
+                           inv_proj, state, r.settings)
+    alive = o.new_ones(o.shape[0], dtype=bool)
+    hit, _, _, has = ti.trace_closest_alpha(r.ds, r.tex, r.accel, o, d, alive)
+    on_alpha = hit.is_hit & ~r.ds.tri_opaque[hit.tri.clamp(min=0).long()]
+    return int(has.sum()), int(on_alpha.sum())
+
+
+def phase_alpha():
+    """The two alpha variants at 256², 3 bounces."""
+    import torch
+    from pt_torch.accel import kernels
+    mask = alpha_mask_texture(7)[..., 3]
+    check(bool((mask < 128).any() and ((mask >= 128) & (mask < 255)).any()
+               and (mask == 255).any()),
+          "the mask texture lacks one of the three alpha classes")
+    # animated: single-tree loops, every trace a K3 launch
+    t0 = time.perf_counter()
+    scene = build_animated_scene(port_namespace(), 224, N_CARDS)
+    r = _renderer(scene, 256, 2, 3, "cuda")
+    n_alpha = int((~r.ds.tri_opaque).sum())
+    check(r.ds.has_alpha and n_alpha >= 5000 and not r.tex.all_constant,
+          f"alpha scene: {n_alpha} alpha triangles")
+    _step_frame(r)
+    r.render()                                        # warm frame
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    frames = 2
+    t1 = time.perf_counter()
+    for _ in range(frames):
+        check(_step_frame(r), "scene.update reported no change")
+        r.render()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / frames * 1e3
+    counts = dict(kernels.launches)
+    check(type(r.accel.bvh).__name__ == "PacketBVH"
+          and r.accel.alpha_split is None, "animated alpha: wrong accel")
+    # per sample and bounce: 4 rounds of the closest loop and 4 of the
+    # shadow loop, each a closest-hit trace of the whole tree
+    check(counts["closest_v4"] == frames * 2 * 3 * 8
+          and counts["closest_bf8"] == counts["occluded_bf8"] == 0,
+          f"animated alpha launches {counts}")
+    decals, accepted = _alpha_hits(r)
+    check(decals > 0 and accepted > 0,
+          f"animated alpha: {decals} decals, {accepted} accepted alpha hits")
+    film = r.film_mean()
+    check(bool(np.isfinite(film).all()) and float(film.max()) > 0,
+          "animated alpha film")
+    log(f"[alpha] animated, {r.ds.num_triangles} triangles ({n_alpha} "
+        f"alpha-tested), 256x256, 3 bounces, 2 spp: {ms:.1f} ms per frame "
+        f"(rebuild + render), launches {counts}; bounce 0: {decals} lanes "
+        f"with a decal, {accepted} accepted alpha hits; film mean "
+        f"{float(film.mean()):.5f}; {time.perf_counter() - t0:.1f} s")
+    # static: SBVH -> BF8 split trees, K1/K2
+    t0 = time.perf_counter()
+    scene = build_animated_scene(port_namespace(), 224, N_CARDS,
+                                 animate=False)
+    r = _renderer(scene, 256, 1, 3, "cuda")
+    r.render()                                        # builds the trees
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    r.render()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    counts = dict(kernels.launches)
+    sp = r.accel.alpha_split
+    check(sp is not None, "static alpha: no split trees")
+    names = {type(b).__name__ for b in (r.accel.bvh, sp.bvh_opaque,
+                                        sp.bvh_alpha)}
+    # per bounce: 1 opaque + 4 alpha closest traces, then 1 opaque occlusion
+    # + 4 alpha closest traces
+    check(names == {"BF8BVH"} and counts["closest_bf8"] == 3 * 9
+          and counts["occluded_bf8"] == 3 and counts["closest_v4"] == 0,
+          f"static alpha: trees {names}, launches {counts}")
+    decals, accepted = _alpha_hits(r)
+    check(decals > 0 and accepted > 0,
+          f"static alpha: {decals} decals, {accepted} accepted alpha hits")
+    film = r.film_mean()
+    check(bool(np.isfinite(film).all()) and float(film.max()) > 0,
+          "static alpha film")
+    log(f"[alpha] static split, 256x256, 3 bounces, 1 spp: trees built in "
+        f"{build_s:.1f} s (opaque {sp.bvh_opaque.n_leaves} leaves, alpha "
+        f"{sp.bvh_alpha.n_leaves} leaves), {ms:.1f} ms per step, launches "
+        f"{counts}; bounce 0: {decals} decals, {accepted} accepted alpha "
+        f"hits; film mean {float(film.mean()):.5f}")
+
+
+def _film(scene_fn, width, bounces, frames, dev):
+    r = _renderer(scene_fn(), width, 1, bounces, dev)
+    for _ in range(frames):
+        _step_frame(r)
+        r.render()
+    return r.film_mean()
+
+
+def phase_cross_device():
+    ns = port_namespace()
+    paths = (
+        ("Heightfield n=64, 64x64, 3 bounces", lambda: 64, 64, 1),
+        ("animated alpha n=16 + 60 cards, 32x32, 3 bounces, frame 2",
+         lambda: build_animated_scene(ns, 16, 60), 32, 2),
+        ("static alpha split n=16 + 60 cards, 32x32, 3 bounces",
+         lambda: build_animated_scene(ns, 16, 60, animate=False), 32, 1),
+    )
+    for what, scene_fn, width, frames in paths:
+        t0 = time.perf_counter()
+        films = {dev: _film(scene_fn, width, 3, frames, dev)
+                 for dev in ("cuda", "cpu")}
+        mse = float(np.mean((films["cuda"] - films["cpu"]) ** 2))
+        log(f"[cross] {what}, 1 spp: film MSE cuda vs cpu {mse:.3e} (limit "
+            f"1e-3), {time.perf_counter() - t0:.1f} s")
+        check(bool(np.isfinite(mse)) and mse < 1e-3,
+              f"{what}: film MSE {mse} >= 1e-3")
 
 
 def main() -> None:
@@ -450,24 +876,28 @@ def main() -> None:
     phase_build()
     errs = phase_parity()
     counts, times, main_stats = phase_main()
+    a_counts, a_times, anim_stats = phase_animated()
+    phase_alpha()
     phase_cross_device()
-    replaces = {"closest_bf8": "pt/accel/pallas_bvh.py:1427 packet_closest_bf8",
-                "occluded_bf8": "pt/accel/pallas_bvh.py:1471 packet_occluded_bf8"}
+    counts.update(a_counts)
+    times.update(a_times)
     rows = []
-    for k in ("closest_bf8", "occluded_bf8"):
+    for k in ("closest_bf8", "occluded_bf8", "closest_v4", "occluded_v4"):
         tm = times[(k, 0)]
-        rows.append({"name": k, "route": "cuda",
-                     "source": "pt_torch/accel/csrc/bf8_kernels.cu",
-                     "replaces": replaces[k], "launches": counts[k],
-                     "max_abs_err": errs[k], "ms": tm["ms"],
+        rows.append({"name": k, "route": "cuda", "source": SOURCES[k],
+                     "replaces": REPLACES[k], "launches": counts[k],
+                     "max_abs_err": max(errs[k], tm["err"],
+                                        times[(k, 2)]["err"]),
+                     "ms": tm["ms"],
                      "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                      "bound_by": tm["bound_by"], "library_ms": None,
                      "wavefront": "bounce 0",
                      "ms_bounce2": times[(k, 2)]["ms"],
                      "plain_ms_bounce2": times[(k, 2)]["plain_ms"],
                      "bound_ms_bounce2": times[(k, 2)]["bound_ms"]})
-    log(f"[done] {time.perf_counter() - t_start:.1f} s; main path "
-        f"{json.dumps(main_stats)}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; static main path "
+        f"{json.dumps(main_stats)}; animated main path "
+        f"{json.dumps(anim_stats)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

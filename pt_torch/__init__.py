@@ -4,14 +4,17 @@ A port of the `pt` package (JAX/XLA/Pallas) to PyTorch with hand-written
 Hopper (sm_90a) kernels for the BVH traversal. It mirrors `pt`'s layout
 and names, so each module sits at the same path as its counterpart:
 
-  pt_torch.core   — cameras
-  pt_torch.scene  — scene data model, builder, graph, flattening, examples
-  pt_torch.accel  — brute oracle, native SAH/SBVH build, BF8 collapse and
-                    the CUDA traversal kernels (accel/csrc)
+  pt_torch.core   — cameras, configuration
+  pt_torch.scene  — scene data model, builder, graph, flattening (with
+                    skinning), the texture pool of a scene, examples
+  pt_torch.accel  — brute oracle, native SAH/SBVH build, BF8 collapse, the
+                    per-frame Morton build and the CUDA traversal kernels
+                    (accel/csrc)
   pt_torch.render — RNG, rays, BSDF, lights, materials, textures, integrator
+                    (with the alpha re-trace loops)
   pt_torch.post   — bloom, tone mapping
   pt_torch.out    — image files (PNG without Pillow, Radiance HDR)
-  pt_torch.run    — the progressive renderer
+  pt_torch.run    — the progressive renderer and its per-frame scene update
 
 Every entry point takes a `device` argument. It defaults to `cuda:0`; on a
 machine without a CUDA device it raises unless the caller asks for the CPU

@@ -1,9 +1,12 @@
-"""Host builds of the static acceleration structures.
+"""Builds of the acceleration structures.
 
-Port of the host half of `pt.accel.pallas_bvh`: the native SAH/SBVH build
-into a binary `PacketBVH` with Woop leaf pages (`build_packet_bvh_sah`,
-`_woop_pages`) and its collapse into the branching-factor-8 `BF8BVH`
-(`build_bf8`) that the traversal kernels walk.
+Port of the build half of `pt.accel.pallas_bvh`. For static scenes, on the
+host: the native SAH/SBVH build into a binary `PacketBVH` with Woop leaf
+pages (`build_packet_bvh_sah`, `_woop_pages`) and its collapse into the
+branching-factor-8 `BF8BVH` (`build_bf8`). For animated scenes, on the
+scene's device and once per frame: the Morton-ordered `PacketBVH`
+(`build_packet_bvh`, `_woop_pages_device`, `_finish_build`), which reads no
+device value back to the host.
 
 The caps stay exactly `pt`'s, so that both packages build array-equal
 structures from the same input: `MAX_TOP_LEAVES`, the block doubling and
@@ -48,6 +51,19 @@ class PacketBVH:
     pages: torch.Tensor         # (n_leaves, 8, _page_cols(block)) f32
     n_top: int = 0
     block: int = TRIS_PER_BLOCK
+
+    @property
+    def device(self) -> torch.device:
+        return self.pages.device
+
+    @property
+    def root_lo(self) -> torch.Tensor:
+        """Scene root AABB: the bounds of the preorder root."""
+        return self.top_lo[0]
+
+    @property
+    def root_hi(self) -> torch.Tensor:
+        return self.top_hi[0]
 
 
 @dataclasses.dataclass
@@ -220,6 +236,136 @@ def _woop_pages(v0, e1, e2, tri_ids, n_leaves, block, tri_alpha=None):
             pages[:, 4 + j, col] = wl[:, :, k, j]
     pages[:, 0, 6 * block:7 * block] = id_bits.reshape(n_leaves, block)
     return pages
+
+
+def _woop_pages_device(v0, e1, e2, tri_ids, n_leaves: int, block: int,
+                       tri_alpha=None) -> torch.Tensor:
+    """`_woop_pages` as f32 tensor code on the triangles' device (pt's
+    traced `xp=jnp` arm): the same W, b and degenerate-row rules, packed
+    into (n_leaves, 8, _page_cols(block)) f32 pages. v0/e1/e2 (T_pad, 3)
+    f32 in leaf order, tri_ids (T_pad,) int32 with -1 padding, tri_alpha
+    (T_pad,) bool or None."""
+    cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)  # noqa: E731
+    n = cross(e1, e2)
+    det = torch.sum(n * n, dim=-1)
+    ok = torch.abs(det) > 1e-30
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)[:, None]
+    w = torch.stack([cross(e2, n) * inv_det, cross(n, e1) * inv_det,
+                     n * inv_det], dim=1)                  # (T, 3, 3) rows
+    b = -torch.sum(w * v0[:, None, :], dim=-1)
+    far = torch.zeros_like(b)
+    far[:, 2] = 1e30
+    b = torch.where(ok[:, None], b, far)
+    w = torch.where(ok[:, None, None], w, 0.0)
+
+    ids32 = tri_ids.to(torch.int32)
+    if tri_alpha is not None:
+        mark = (ids32 >= 0) & tri_alpha
+        ids32 = torch.where(mark, ids32 | ALPHA_TRI_BIT, ids32)
+
+    pages = torch.zeros((n_leaves, 8, _page_cols(block)),
+                        dtype=torch.float32, device=v0.device)
+    wl = w.reshape(n_leaves, block, 3, 3)
+    bl = b.reshape(n_leaves, block, 3)
+    for k in range(3):       # o'_k operand: rows [Wk(3), bk, 0...]
+        col = slice(k * block, (k + 1) * block)
+        pages[:, 0:3, col] = wl[:, :, k, :].transpose(1, 2)
+        pages[:, 3, col] = bl[:, :, k]
+    for k in range(3):       # d'_k operand: rows [0,0,0,0, Wk(3), 0]
+        col = slice((3 + k) * block, (4 + k) * block)
+        pages[:, 4:7, col] = wl[:, :, k, :].transpose(1, 2)
+    pages[:, 0, 6 * block:7 * block] = \
+        ids32.view(torch.float32).reshape(n_leaves, block)
+    return pages
+
+
+def _finish_build(blo, bhi, n_leaves: int, pages, block: int) -> PacketBVH:
+    """Leaf bounds (n_leaves, 3) → the preorder top tree: pairwise unions
+    level by level, then the gather into preorder. Subtrees that hold only
+    padding carry inverted ±inf boxes out of the unions; a slab test reads
+    an inverted box as a hit, so they become the far point box
+    lo = hi = 1e30, which every ray misses."""
+    from pt_torch.accel.lbvh import topology_tensors
+    levels_lo, levels_hi = [blo], [bhi]
+    while levels_lo[-1].shape[0] > 1:
+        levels_lo.append(levels_lo[-1].reshape(-1, 2, 3).amin(dim=1))
+        levels_hi.append(levels_hi[-1].reshape(-1, 2, 3).amax(dim=1))
+    heap_lo = torch.cat(levels_lo[::-1], dim=0)
+    heap_hi = torch.cat(levels_hi[::-1], dim=0)
+    empty = heap_lo[:, :1] > heap_hi[:, :1]
+    heap_lo = torch.where(empty, 1e30, heap_lo)
+    heap_hi = torch.where(empty, 1e30, heap_hi)
+    heap_of_preorder, miss_next, leaf_id = topology_tensors(n_leaves,
+                                                            pages.device)
+    return PacketBVH(top_lo=heap_lo[heap_of_preorder],
+                     top_hi=heap_hi[heap_of_preorder], top_miss=miss_next,
+                     top_leaf=leaf_id, pages=pages, n_top=2 * n_leaves - 1,
+                     block=block)
+
+
+def morton_leaf_shape(t_count: int, block: int = TRIS_PER_BLOCK):
+    """(n_leaves, block) of the Morton build over `t_count` triangles: the
+    leaf count is the next power of two of ceil(T / block), and the block
+    doubles until it is within MAX_TOP_LEAVES. Static: it follows from the
+    triangle count alone."""
+    block = max(32, -(-block // 32) * 32)   # page-group granularity
+
+    def leaves(blk):
+        return 1 << max(0, (max(1, -(-t_count // blk)) - 1).bit_length())
+    while leaves(block) > MAX_TOP_LEAVES:
+        block *= 2
+    return leaves(block), block
+
+
+def build_packet_bvh(positions: torch.Tensor, tri_idx: torch.Tensor,
+                     block: int = TRIS_PER_BLOCK,
+                     tri_opaque=None) -> PacketBVH:
+    """Morton-block build on the positions' device, the per-frame rebuild of
+    animated scenes: triangles sorted by the Morton code of their centroid
+    (stable, as `pt`'s argsort), cut into leaf blocks, Woop pages packed and
+    the implicit tree's bounds reduced. positions (V, 3) f32, tri_idx (T, 3)
+    integer, tri_opaque (T,) bool or None. Nothing here reads a device value
+    back: the leaf count and block size follow from T."""
+    from pt_torch.accel.lbvh import morton_codes
+    t_count = tri_idx.shape[0]
+    n_leaves, block = morton_leaf_shape(t_count, block)
+    idx = tri_idx.long()
+    v0 = positions[idx[:, 0]]
+    v1 = positions[idx[:, 1]]
+    v2 = positions[idx[:, 2]]
+    centroids = (v0 + v1 + v2) / 3.0
+    scene_lo = torch.minimum(torch.minimum(v0, v1), v2).amin(dim=0)
+    scene_hi = torch.maximum(torch.maximum(v0, v1), v2).amax(dim=0)
+    order = torch.sort(morton_codes(centroids, scene_lo, scene_hi),
+                       stable=True).indices
+
+    t_pad = n_leaves * block
+    dev = positions.device
+    order_p = torch.cat([order.to(torch.int32),
+                         torch.full((t_pad - t_count,), -1,
+                                    dtype=torch.int32, device=dev)])
+    safe = torch.clamp(order_p, min=0).long()
+    valid = (order_p >= 0)[:, None]
+    sv0 = torch.where(valid, v0[safe], 0.0)
+    se1 = torch.where(valid, (v1 - v0)[safe], 0.0)
+    se2 = torch.where(valid, (v2 - v0)[safe], 0.0)
+
+    bv0 = sv0.reshape(n_leaves, block, 3)
+    bv1 = (sv0 + se1).reshape(n_leaves, block, 3)
+    bv2 = (sv0 + se2).reshape(n_leaves, block, 3)
+    bvalid = valid.reshape(n_leaves, block, 1)
+    inf = float("inf")
+    blo = torch.where(bvalid, torch.minimum(torch.minimum(bv0, bv1), bv2),
+                      inf).amin(dim=1)
+    bhi = torch.where(bvalid, torch.maximum(torch.maximum(bv0, bv1), bv2),
+                      -inf).amax(dim=1)
+
+    tri_alpha = None
+    if tri_opaque is not None:
+        tri_alpha = valid[:, 0] & ~tri_opaque.bool()[safe]
+    pages = _woop_pages_device(sv0, se1, se2, order_p, n_leaves, block,
+                               tri_alpha=tri_alpha)
+    return _finish_build(blo, bhi, n_leaves, pages, block)
 
 
 def build_packet_bvh_sah(positions_np, tri_idx_np,

@@ -33,20 +33,21 @@
 // This first design does nothing about that yet.
 #pragma once
 
-#include <math.h>
-#include <stdint.h>
-#include <string.h>
+#include "rt_common.cuh"
 
-#ifdef __CUDACC__
-#define BF8_HD __host__ __device__ __forceinline__
-#else
-#define BF8_HD inline
-#endif
+#define BF8_HD RT_HD
 
 namespace bf8 {
 
+using rt::Ray;
+using rt::accept;
+using rt::float_bits;
+using rt::kAlphaTriBit;
+using rt::make_ray;
+using rt::slab;
+using rt::woop;
+
 constexpr int32_t kLeafBit = 1 << 24;
-constexpr int32_t kAlphaTriBit = 1 << 30;
 constexpr int kStackDepth = 128;
 
 struct Tree {
@@ -87,74 +88,6 @@ BF8_HD void count_tri(Counts* c, const Tree& tree, int32_t lid, int j) {
         ++c->tris;
         c->tri_seen[(size_t)lid * tree.block + j] = 1;
     }
-}
-
-struct Ray {
-    float ox, oy, oz;
-    float dx, dy, dz;
-    float ix, iy, iz;   // clamped reciprocal directions
-};
-
-// pt's safe_inv: |a| < 1e-12 is clamped to +-1e-12 before the reciprocal
-BF8_HD float safe_inv(float a) {
-    float s = fabsf(a) < 1e-12f ? (a < 0.0f ? -1e-12f : 1e-12f) : a;
-    return 1.0f / s;
-}
-
-BF8_HD Ray make_ray(float ox, float oy, float oz, float dx, float dy,
-                    float dz) {
-    Ray r;
-    r.ox = ox; r.oy = oy; r.oz = oz;
-    r.dx = dx; r.dy = dy; r.dz = dz;
-    r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
-    return r;
-}
-
-// Slab test of box [lo, hi] against the ray up to t_limit; writes tnear.
-BF8_HD bool slab(const float* lo, const float* hi, const Ray& r,
-                 float t_limit, float* tnear_out) {
-    float t0x = (lo[0] - r.ox) * r.ix;
-    float t1x = (hi[0] - r.ox) * r.ix;
-    float t0y = (lo[1] - r.oy) * r.iy;
-    float t1y = (hi[1] - r.oy) * r.iy;
-    float t0z = (lo[2] - r.oz) * r.iz;
-    float t1z = (hi[2] - r.oz) * r.iz;
-    float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                        fminf(t0z, t1z));
-    float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                       fmaxf(t0z, t1z));
-    *tnear_out = tnear;
-    return tnear <= tfar && tfar > 0.0f && tnear < t_limit;
-}
-
-BF8_HD int32_t float_bits(float f) {
-    int32_t i;
-    memcpy(&i, &f, sizeof(i));
-    return i;
-}
-
-// Woop test of triangle j of page `page`. Returns t (u, v written); the
-// caller applies the acceptance rule.
-BF8_HD float woop(const float* page, int cols, int block, int j,
-                  const Ray& r, float* u_out, float* v_out) {
-    float op[3], dp[3];
-    for (int k = 0; k < 3; ++k) {
-        int c = k * block + j;
-        op[k] = ((page[0 * cols + c] * r.ox + page[1 * cols + c] * r.oy)
-                 + page[2 * cols + c] * r.oz) + page[3 * cols + c];
-        int cd = (3 + k) * block + j;
-        dp[k] = (page[4 * cols + cd] * r.dx + page[5 * cols + cd] * r.dy)
-                + page[6 * cols + cd] * r.dz;
-    }
-    float t = -op[2] / dp[2];
-    *u_out = op[0] + t * dp[0];
-    *v_out = op[1] + t * dp[1];
-    return t;
-}
-
-BF8_HD bool accept(float t, float u, float v, float tmin, float tmax) {
-    return t > tmin && t < tmax && u >= 0.0f && v >= 0.0f
-           && u + v <= 1.0f;
 }
 
 // Closest hit of one ray. Children that pass the slab test are pushed

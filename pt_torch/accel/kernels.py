@@ -1,18 +1,21 @@
-"""BF8 traversal kernels K1 (closest hit) and K2 (occlusion).
+"""Traversal kernels K1/K2 (BF8 tree) and K3/K4 (binary PacketBVH).
 
-K1 `closest_bf8` replaces pt/accel/pallas_bvh.py:packet_closest_bf8 and K2
-`occluded_bf8` replaces pt/accel/pallas_bvh.py:packet_occluded_bf8. The
-kernels are CUDA C++ for sm_90a (csrc/bf8_kernels.cu over the per-ray code
-of csrc/bf8_traverse.cuh), built with nvcc at first use into the port's
-git-ignored build directory and bound through ctypes. They are bound by
-dependent global loads of node and page rows, not by FLOPs: one thread per
-ray walks its own stack, and this first design does nothing about that yet.
+K1 `closest_bf8` replaces pt/accel/pallas_bvh.py:packet_closest_bf8, K2
+`occluded_bf8` replaces :packet_occluded_bf8, K3 `closest_v4` replaces
+:packet_closest_v4 and K4 `occluded_v4` replaces :packet_occluded_v4. The
+kernels are CUDA C++ for sm_90a (csrc/bf8_kernels.cu over csrc/bf8_traverse.cuh,
+csrc/v4_kernels.cu over csrc/v4_traverse.cuh, both over csrc/rt_common.cuh),
+built with nvcc at first use into the port's git-ignored build directory, one
+library per source, and bound through ctypes. They are bound by dependent
+global loads of node and page rows, not by FLOPs: one thread per ray walks
+its own stack (K1/K2) or the preorder skip links (K3/K4), and this first
+design does nothing about that yet.
 
 Beside each kernel sits its plain PyTorch version (`closest_bf8_plain`,
-`occluded_bf8_plain`): every valid page column decoded into (W, b, id) and
-all rays tested against all of them in chunks, with the kernel's Woop
-arithmetic and tie rule. The BVH is conservative, so it computes the same
-function as the traversal.
+`occluded_bf8_plain`, `closest_v4_plain`, `occluded_v4_plain`): every valid
+page column decoded into (W, b, id) and all rays tested against all of them
+in chunks, with the kernel's Woop arithmetic and tie rule. The trees are
+conservative, so it computes the same function as the traversal.
 
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises. Each
@@ -26,25 +29,32 @@ import os
 import pathlib
 import shutil
 import threading
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from pt_torch.accel.bvh8 import ALPHA_TRI_BIT, BF8BVH
+from pt_torch.accel.bvh8 import ALPHA_TRI_BIT, BF8BVH, PacketBVH
 from pt_torch.accel.intersect import Hit
 from pt_torch.accel.native import BUILD_DIR, compile_shared
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_CU_SOURCES = (CSRC / "bf8_kernels.cu", CSRC / "bf8_traverse.cuh")
-_CUDA_LIB = BUILD_DIR / "libpt_bf8_sm90a.so"
+_COMMON = CSRC / "rt_common.cuh"
+# library name -> (output, sources; the first is the one nvcc compiles)
+_CUDA_LIBS = {
+    "bf8": (BUILD_DIR / "libpt_bf8_sm90a.so",
+            (CSRC / "bf8_kernels.cu", CSRC / "bf8_traverse.cuh", _COMMON)),
+    "v4": (BUILD_DIR / "libpt_v4_sm90a.so",
+           (CSRC / "v4_kernels.cu", CSRC / "v4_traverse.cuh", _COMMON)),
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # launch counts per kernel: each wrapper adds one where it launches
-launches = {"closest_bf8": 0, "occluded_bf8": 0}
+launches = {"closest_bf8": 0, "occluded_bf8": 0, "closest_v4": 0,
+            "occluded_v4": 0}
 
 _lock = threading.Lock()
-_cuda_handle: Optional[ctypes.CDLL] = None
+_cuda_handles: Dict[str, ctypes.CDLL] = {}
 _RAY_TRI_BUDGET = 1 << 24   # rays*columns elements per plain-version chunk
 _INT32_MAX = 0x7FFFFFFF
 
@@ -59,51 +69,80 @@ def _nvcc() -> str:
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError("nvcc not found: the BF8 kernels need the CUDA "
-                           "toolkit to build")
+        raise RuntimeError("nvcc not found: the traversal kernels need the "
+                           "CUDA toolkit to build")
     return path
 
 
 def build_kernels(ptxas_verbose: bool = False) -> str:
-    """Compile csrc/bf8_kernels.cu for sm_90a into the build directory
-    (always, when `ptxas_verbose`; else only when the sources are newer).
-    Returns the compiler's output (`-Xptxas -v` reports registers, local
-    memory and spills per kernel)."""
-    global _cuda_handle
+    """Compile every kernel source for sm_90a into the build directory, one
+    nvcc per source, all started together (always, when `ptxas_verbose`;
+    else only the libraries older than their sources). Returns the
+    compilers' output (`-Xptxas -v` reports registers, local memory and
+    spills per kernel)."""
     with _lock:
-        stale = (not _CUDA_LIB.exists() or _CUDA_LIB.stat().st_mtime
-                 < max(s.stat().st_mtime for s in _CU_SOURCES))
-        if not (stale or ptxas_verbose):
+        todo = [name for name, (lib, srcs) in _CUDA_LIBS.items()
+                if ptxas_verbose or not lib.exists() or lib.stat().st_mtime
+                < max(s.stat().st_mtime for s in srcs)]
+        if not todo:
             return ""
         flags = NVCC_FLAGS + (["-Xptxas", "-v"] if ptxas_verbose else [])
-        log = compile_shared([_nvcc()] + flags, [_CU_SOURCES[0]], _CUDA_LIB,
-                             timeout=900)
-        _cuda_handle = None
-        return log
+        nvcc = _nvcc()
+        logs: Dict[str, str] = {}
+        errors = []
+
+        def build(name):
+            lib, srcs = _CUDA_LIBS[name]
+            try:
+                logs[name] = compile_shared([nvcc] + flags, [srcs[0]], lib,
+                                            timeout=900)
+            except Exception as e:   # re-raised below, on the caller's thread
+                errors.append(e)
+        threads = [threading.Thread(target=build, args=(n,)) for n in todo]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for name in todo:
+            _cuda_handles.pop(name, None)
+        if errors:
+            raise errors[0]
+        return "".join(logs[n] for n in todo)
 
 
-def _lib() -> ctypes.CDLL:
-    global _cuda_handle
+def _lib(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name` ("bf8" or "v4"), built if stale."""
     build_kernels()
     with _lock:
-        if _cuda_handle is None:
-            lib = ctypes.CDLL(str(_CUDA_LIB))
+        lib = _cuda_handles.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_CUDA_LIBS[name][0]))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.pt_bf8_closest.restype = i
-            lib.pt_bf8_closest.argtypes = [p, p, p, p, p, p, i, i, p, p, p,
-                                           f, i, p, p, p, p, p, p, p, p]
-            lib.pt_bf8_occluded.restype = i
-            lib.pt_bf8_occluded.argtypes = [p, p, p, p, p, p, i, i, p, p, p,
-                                            f, i, i, p, p, p, p, p]
+            rays = [p, p, p, f]                  # origins, dirs, limit, tmin
+            if name == "bf8":
+                tree = [p, p, p, p, p, p, i, i]
+                lib.pt_bf8_closest.restype = i
+                lib.pt_bf8_closest.argtypes = (tree + rays
+                                               + [i, p, p, p, p, p, p, p, p])
+                lib.pt_bf8_occluded.restype = i
+                lib.pt_bf8_occluded.argtypes = (tree + rays
+                                                + [i, i, p, p, p, p, p])
+            else:
+                tree = [p, p, p, p, p, i, i, i]
+                lib.pt_v4_closest.restype = i
+                lib.pt_v4_closest.argtypes = (tree + rays
+                                              + [i, p, p, p, p, p, p, p, p])
+                lib.pt_v4_occluded.restype = i
+                lib.pt_v4_occluded.argtypes = tree + rays + [i, p, p, p, p, p]
             lib.pt_cuda_error_string.restype = ctypes.c_char_p
             lib.pt_cuda_error_string.argtypes = [i]
-            _cuda_handle = lib
-        return _cuda_handle
+            _cuda_handles[name] = lib
+        return lib
 
 
-def _check(bvh8: BF8BVH, origins, dirs, limit, what: str):
-    """Validate the rays against what the kernel takes; returns N."""
-    dev = bvh8.device
+def _check_rays(bvh, origins, dirs, limit, what: str) -> int:
+    """Validate the rays against what the kernels take; returns N."""
+    dev = bvh.device
     n = origins.shape[0] if origins.dim() == 2 else -1
     for name, a, shape, dtype in (("origins", origins, (n, 3), torch.float32),
                                   ("dirs", dirs, (n, 3), torch.float32),
@@ -117,11 +156,16 @@ def _check(bvh8: BF8BVH, origins, dirs, limit, what: str):
             raise ValueError(f"{name} is on {a.device}, the BVH on {dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no traversal kernel for device {dev}")
+    return n
+
+
+def _check(bvh8: BF8BVH, origins, dirs, limit, what: str) -> int:
+    n = _check_rays(bvh8, origins, dirs, limit, what)
     if bvh8.stack_bound > 128:
         raise ValueError(f"BF8 tree depth {bvh8.depth} needs a stack of "
                          f"{bvh8.stack_bound} entries; the kernels hold 128")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no BF8 kernel for device {dev}")
     return n
 
 
@@ -138,34 +182,61 @@ def _tree_args(bvh8: BF8BVH):
             bvh8.pages.shape[-1])
 
 
+def _tree_args_v4(pbvh: PacketBVH):
+    n_top = pbvh.n_top
+    for a, shape, dtype in ((pbvh.top_lo, (n_top, 3), torch.float32),
+                            (pbvh.top_hi, (n_top, 3), torch.float32),
+                            (pbvh.top_miss, (n_top,), torch.int32),
+                            (pbvh.top_leaf, (n_top,), torch.int32)):
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise TypeError(f"PacketBVH: expected {shape} {dtype}, got "
+                            f"{tuple(a.shape)} {a.dtype}")
+        if not a.is_contiguous() or a.device != pbvh.device:
+            raise ValueError("PacketBVH tensors must be contiguous and on "
+                             "one device")
+    if pbvh.pages.dtype != torch.float32 or not pbvh.pages.is_contiguous():
+        raise TypeError("PacketBVH: pages must be contiguous float32")
+    if n_top < 1 or pbvh.pages.shape[-1] < 7 * pbvh.block:
+        raise ValueError("PacketBVH: empty tree or pages narrower than "
+                         "7 * block")
+    return (pbvh.top_lo.data_ptr(), pbvh.top_hi.data_ptr(),
+            pbvh.top_miss.data_ptr(), pbvh.top_leaf.data_ptr(),
+            pbvh.pages.data_ptr(), n_top, pbvh.block, pbvh.pages.shape[-1])
+
+
 class WorkCounts(NamedTuple):
     """What a counted launch did, for bounds from the run's own data.
-    `totals` (3,) int64: wide-node visits, leaf-box retests and triangle
-    tests, summed over rays. `node_seen` (n8,) and `tri_seen` (L*block,)
-    uint8: 1 where any ray visited the wide node or tested the page column
-    (leaf * block + j)."""
+    `totals` int64, summed over rays: for a BF8BVH (3,) wide-node visits,
+    leaf-box retests and triangle tests; for a PacketBVH (2,) node visits
+    and triangle tests. `node_seen` (n8,) or (n_top,) and `tri_seen`
+    (L*block,) uint8: 1 where any ray visited the node or tested the page
+    column (leaf * block + j)."""
     totals: torch.Tensor
     node_seen: torch.Tensor
     tri_seen: torch.Tensor
 
 
-def work_counts(bvh8: BF8BVH) -> WorkCounts:
-    """Zeroed WorkCounts for launches over `bvh8`, on its device."""
+def work_counts(bvh) -> WorkCounts:
+    """Zeroed WorkCounts for launches over `bvh` (a BF8BVH or a PacketBVH),
+    on its device."""
     def zeros(n, dtype):
-        return torch.zeros(n, dtype=dtype, device=bvh8.device)
-    return WorkCounts(zeros(3, torch.int64), zeros(bvh8.n8, torch.uint8),
-                      zeros(bvh8.pages.shape[0] * bvh8.block, torch.uint8))
+        return torch.zeros(n, dtype=dtype, device=bvh.device)
+    n_totals, n_nodes = ((3, bvh.n8) if isinstance(bvh, BF8BVH)
+                         else (2, bvh.n_top))
+    return WorkCounts(zeros(n_totals, torch.int64),
+                      zeros(n_nodes, torch.uint8),
+                      zeros(bvh.pages.shape[0] * bvh.block, torch.uint8))
 
 
-def _counts_ptrs(counts: Optional[WorkCounts], bvh8: BF8BVH):
+def _counts_ptrs(counts: Optional[WorkCounts], bvh):
     """Launcher arguments for `counts`: three null pointers when None,
     which selects the uncounted kernel variant."""
     if counts is None:
         return None, None, None
-    for a, want in zip(counts, work_counts(bvh8)):
+    for a, want in zip(counts, work_counts(bvh)):
         if (a.shape != want.shape or a.dtype != want.dtype
                 or a.device != want.device or not a.is_contiguous()):
-            raise ValueError("counts must be shaped as work_counts(bvh8)")
+            raise ValueError("counts must be shaped as work_counts(bvh)")
     return tuple(a.data_ptr() for a in counts)
 
 
@@ -173,6 +244,28 @@ def _raise_on(lib, code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.pt_cuda_error_string(code).decode()}")
+
+
+def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
+                    tmax, tmin: float, n: int,
+                    counts: Optional[WorkCounts]) -> Hit:
+    """Allocate the outputs and launch closest kernel `name` on the rays'
+    stream; adds one to its launch count."""
+    t = torch.empty(n, dtype=torch.float32, device=origins.device)
+    tri = torch.empty(n, dtype=torch.int32, device=origins.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    if n == 0:
+        return Hit(t, tri, u, v)
+    lib = _lib(lib_name)
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    code = getattr(lib, f"pt_{lib_name}_closest")(
+        *tree_args, origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(),
+        float(tmin), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), *_counts_ptrs(counts, bvh), stream)
+    _raise_on(lib, code, name)
+    launches[name] += 1
+    return Hit(t, tri, u, v)
 
 
 def closest_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
@@ -185,22 +278,8 @@ def closest_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
     n = _check(bvh8, origins, dirs, tmax, "tmax")
     if origins.device.type == "cpu":
         return closest_bf8_plain(bvh8, origins, dirs, tmax, tmin)
-    t = torch.empty(n, dtype=torch.float32, device=origins.device)
-    tri = torch.empty(n, dtype=torch.int32, device=origins.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    if n == 0:
-        return Hit(t, tri, u, v)
-    lib = _lib()
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_bf8_closest(*_tree_args(bvh8), origins.data_ptr(),
-                              dirs.data_ptr(), tmax.data_ptr(), float(tmin),
-                              n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-                              v.data_ptr(), *_counts_ptrs(counts, bvh8),
-                              stream)
-    _raise_on(lib, code, "closest_bf8")
-    launches["closest_bf8"] += 1
-    return Hit(t, tri, u, v)
+    return _launch_closest("closest_bf8", "bf8", _tree_args(bvh8), bvh8,
+                           origins, dirs, tmax, tmin, n, counts)
 
 
 def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
@@ -217,7 +296,7 @@ def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
     out = torch.empty(n, dtype=torch.uint8, device=origins.device)
     if n == 0:
         return out.view(torch.bool)
-    lib = _lib()
+    lib = _lib("bf8")
     stream = torch.cuda.current_stream(origins.device).cuda_stream
     code = lib.pt_bf8_occluded(*_tree_args(bvh8), origins.data_ptr(),
                                dirs.data_ptr(), dist.data_ptr(), float(tmin),
@@ -228,16 +307,51 @@ def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
     return out.view(torch.bool)
 
 
+def closest_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
+               tmax: torch.Tensor, tmin: float = 1e-5,
+               counts: Optional[WorkCounts] = None) -> Hit:
+    """Closest hit of N rays over a binary PacketBVH (the Morton tree of an
+    animated frame, or a static SAH tree whose BF8 collapse did not fit).
+    Arguments and result as closest_bf8."""
+    n = _check_rays(pbvh, origins, dirs, tmax, "tmax")
+    if origins.device.type == "cpu":
+        return closest_v4_plain(pbvh, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v4", "v4", _tree_args_v4(pbvh), pbvh,
+                           origins, dirs, tmax, tmin, n, counts)
+
+
+def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
+                dist: torch.Tensor, tmin: float = 1e-5,
+                counts: Optional[WorkCounts] = None) -> torch.Tensor:
+    """Any hit with tmin < t < dist for N rays over a PacketBVH; bool (N,).
+    An alpha-tagged triangle occludes like any other."""
+    n = _check_rays(pbvh, origins, dirs, dist, "dist")
+    if origins.device.type == "cpu":
+        return occluded_v4_plain(pbvh, origins, dirs, dist, tmin)
+    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
+    if n == 0:
+        return out.view(torch.bool)
+    lib = _lib("v4")
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    code = lib.pt_v4_occluded(*_tree_args_v4(pbvh), origins.data_ptr(),
+                              dirs.data_ptr(), dist.data_ptr(), float(tmin),
+                              n, out.data_ptr(),
+                              *_counts_ptrs(counts, pbvh), stream)
+    _raise_on(lib, code, "occluded_v4")
+    launches["occluded_v4"] += 1
+    return out.view(torch.bool)
+
+
 # ---------------------------------------------------------------- plain
 
 
-def decode_pages(bvh8: BF8BVH):
-    """Every valid page column as (W (T,3,3), b (T,3), Wd (T,3,3),
-    id (T,) int32 with its ALPHA_TRI_BIT): W and b from rows 0-3 of column
-    groups 0-2, Wd from rows 4-6 of groups 3-5, ids from row 0 of group 6.
-    Columns with id -1 (padding) are dropped."""
-    pages = bvh8.pages
-    b = bvh8.block
+def decode_pages(bvh):
+    """Every valid page column of a BF8BVH or PacketBVH as (W (T,3,3),
+    b (T,3), Wd (T,3,3), id (T,) int32 with its ALPHA_TRI_BIT): W and b from
+    rows 0-3 of column groups 0-2, Wd from rows 4-6 of groups 3-5, ids from
+    row 0 of group 6. Columns with id -1 (padding) are dropped."""
+    pages = bvh.pages
+    b = bvh.block
     ids = pages[:, 0, 6 * b:7 * b].contiguous().view(torch.int32).reshape(-1)
     valid = ids >= 0
     groups = pages[:, :, :6 * b].reshape(pages.shape[0], 8, 6, b)
@@ -268,20 +382,20 @@ def _woop_chunk(o, d, w, bias, wd, tmin, limit):
     return t, u, v, ok
 
 
-def _plain_decoded(bvh8: BF8BVH):
-    """decode_pages, kept on the structure: its pages never change."""
-    cache = getattr(bvh8, "_plain_cache", None)
+def _plain_decoded(bvh):
+    """decode_pages, kept on the structure: its pages never change (an
+    animated frame builds a new structure)."""
+    cache = getattr(bvh, "_plain_cache", None)
     if cache is None:
-        cache = decode_pages(bvh8)
-        bvh8._plain_cache = cache
+        cache = decode_pages(bvh)
+        bvh._plain_cache = cache
     return cache
 
 
-def closest_bf8_plain(bvh8: BF8BVH, origins, dirs, tmax,
-                      tmin: float = 1e-5) -> Hit:
+def closest_bf8_plain(bvh, origins, dirs, tmax, tmin: float = 1e-5) -> Hit:
     """Plain PyTorch closest hit: all rays against all decoded triangles.
     Smallest t wins; on an exact tie the smallest id, with u/v from it."""
-    w, bias, wd, ids = _plain_decoded(bvh8)
+    w, bias, wd, ids = _plain_decoded(bvh)
     idc = (ids & ~ALPHA_TRI_BIT).to(torch.int64)[None, :]
     no_id = torch.full((), _INT32_MAX, dtype=torch.int64, device=idc.device)
     chunk = max(1, _RAY_TRI_BUDGET // max(ids.shape[0], 1))
@@ -307,11 +421,10 @@ def closest_bf8_plain(bvh8: BF8BVH, origins, dirs, tmax,
     return Hit(*(torch.cat(p) for p in zip(*out)))
 
 
-def occluded_bf8_plain(bvh8: BF8BVH, origins, dirs, dist,
-                       tmin: float = 1e-5,
+def occluded_bf8_plain(bvh, origins, dirs, dist, tmin: float = 1e-5,
                        opaque_only: bool = False) -> torch.Tensor:
     """Plain PyTorch occlusion: any accepted hit among all triangles."""
-    w, bias, wd, ids = _plain_decoded(bvh8)
+    w, bias, wd, ids = _plain_decoded(bvh)
     if opaque_only:
         keep = (ids & ALPHA_TRI_BIT) == 0
         w, bias, wd = w[keep], bias[keep], wd[keep]
@@ -323,3 +436,18 @@ def occluded_bf8_plain(bvh8: BF8BVH, origins, dirs, dist,
                                   w, bias, wd, tmin, dist[s:s + chunk])
         out.append(ok.any(dim=1))
     return torch.cat(out)
+
+
+def closest_v4_plain(pbvh: PacketBVH, origins, dirs, tmax,
+                     tmin: float = 1e-5) -> Hit:
+    """Plain PyTorch version of K3. The function does not depend on the
+    tree over the pages, so it is the BF8 plain version on the PacketBVH's
+    pages."""
+    return closest_bf8_plain(pbvh, origins, dirs, tmax, tmin)
+
+
+def occluded_v4_plain(pbvh: PacketBVH, origins, dirs, dist,
+                      tmin: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of K4 (no `opaque_only`: every triangle
+    occludes)."""
+    return occluded_bf8_plain(pbvh, origins, dirs, dist, tmin)

@@ -2,8 +2,9 @@
 
 In a path tracer the scene and accel arrays play the part of weights: to
 hold the port against `pt` on identical state, `pt`'s DeviceScene,
-DeviceTextures, PacketBVH and BF8BVH are read out as mappings of field name
-→ numpy array (or Python scalar for static metadata) and converted here.
+DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH and AlphaSplit are
+read out as mappings of field name → numpy array (or Python scalar for
+static metadata) and converted here.
 Arrays keep their bits: bf16 texel rows arrive as numpy `bfloat16` (or raw
 uint16) and are reinterpreted, and the f32 page id rows are copied as raw
 bits. This module imports neither JAX nor `pt`.
@@ -19,8 +20,9 @@ import torch
 
 from pt_torch import default_device
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, bf8_depth
+from pt_torch.render.integrator import AlphaSplit
 from pt_torch.render.textures import DeviceTextures
-from pt_torch.scene.flatten import ANIMATED_SLICE, DeviceScene
+from pt_torch.scene.flatten import DeviceScene
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -45,9 +47,7 @@ def _convert(cls, fields: Mapping, device):
 
 
 def device_scene(fields: Mapping, device=None) -> DeviceScene:
-    """`pt.scene.flatten.DeviceScene` fields → DeviceScene (static)."""
-    if fields.get("has_skinning"):
-        raise NotImplementedError(f"skinned scenes need {ANIMATED_SLICE}")
+    """`pt.scene.flatten.DeviceScene` fields → DeviceScene."""
     return _convert(DeviceScene, fields, device)
 
 
@@ -67,3 +67,15 @@ def bf8_bvh(fields: Mapping, device=None) -> BF8BVH:
     out = _convert(BF8BVH, fields, device)
     out.depth = bf8_depth(np.asarray(fields["c_ent"]))
     return out
+
+
+def alpha_split(bvh_opaque, sel_opaque, bvh_alpha, sel_alpha,
+                device=None) -> AlphaSplit:
+    """`pt.render.integrator.AlphaSplit` → AlphaSplit: the two subset trees
+    as already converted structures (`bf8_bvh` / `packet_bvh`), the
+    selections as numpy arrays of global triangle ids. `pt`'s `tri_opaque` /
+    `tri_alpha` rows serve its brute backend only and are not carried."""
+    return AlphaSplit(bvh_opaque, to_tensor(np.asarray(sel_opaque, np.int32),
+                                            device),
+                      bvh_alpha, to_tensor(np.asarray(sel_alpha, np.int32),
+                                           device))

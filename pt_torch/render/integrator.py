@@ -1,20 +1,24 @@
-"""Wavefront path-tracing integrator (static, opaque scenes).
+"""Wavefront path-tracing integrator.
 
-Port of `pt.render.integrator` on its no-alpha branch: raygen, then per
-bounce a closest trace through the BF8 kernel K1, `_shade_hit`, an NEE
-shadow trace through K2 and Russian roulette, then `finish_sample`. The host
-drives the sample and bounce loops (`pt_torch.run.renderer`); every stage is
-plain tensor code plus the two kernel launches, with no host sync inside a
-bounce.
+Port of `pt.render.integrator`: raygen, then per bounce a closest trace,
+`_shade_hit`, an NEE shadow trace and Russian roulette, then
+`finish_sample`. The traces dispatch on the structure's type: a `BF8BVH`
+(static scenes) goes to kernels K1/K2, a binary `PacketBVH` (the per-frame
+Morton tree of an animated scene, or a static tree whose BF8 collapse did
+not fit) to K3/K4. The host drives the sample and bounce loops
+(`pt_torch.run.renderer`); every stage is plain tensor code plus the kernel
+launches, with no host sync inside a bounce.
+
+Alpha-tested geometry runs the any-hit emulation loops
+(`trace_closest_alpha`, `trace_occluded_alpha`): up to ALPHA_ROUNDS
+closest-hit traces per query, over the whole tree, or over the opaque and
+alpha subset trees when the accel carries an `AlphaSplit` (static scenes).
 
 Features mirrored from `pt`: next-event estimation with uniform light pick
 + disk softening, 4-lobe BSDF importance sampling, Russian roulette on max
 throughput, the progressive roughness clamp, Beer–Lambert interior
 attenuation, shadow-terminator + self-intersection origin offsets, reversed
 point-light shadow rays, and NaN/Inf sample rejection (zeroed samples).
-
-Alpha-tested geometry (the any-hit re-trace loops) is the next slice of the
-port; a scene with non-opaque triangles raises.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pt_torch.accel.bvh8 import BF8BVH
-from pt_torch.accel.kernels import closest_bf8, occluded_bf8
+from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, build_packet_bvh
+from pt_torch.accel.intersect import Hit
+from pt_torch.accel.kernels import (closest_bf8, closest_v4, occluded_bf8,
+                                    occluded_v4)
 from pt_torch.render import rng as prng
 from pt_torch.render.bsdf import evaluate_bsdf, sample_bsdf
 from pt_torch.render.differentials import (DiffRays, compute_dp_dxy,
@@ -39,12 +45,12 @@ from pt_torch.render.rays import (TMAX, TMIN, construct_primary_rays,
                                   offset_ray_origin_shadow_terminator)
 from pt_torch.render.sampling import compute_tangent_space, sample_light
 from pt_torch.render.shading import _axis, _normalize, cross, matvec
-from pt_torch.render.textures import DeviceTextures
-from pt_torch.scene.flatten import DeviceScene, world_vertices
+from pt_torch.render.textures import DeviceTextures, sample_texture_grad
+from pt_torch.scene.flatten import (DeviceScene, F_COLOR, T_COLOR,
+                                    world_vertices)
 from pt_torch.scene.types import SkyboxKind
 
-ALPHA_SLICE = ("the alpha-tested path of the port (the alpha split, the "
-               "any-hit re-trace loops and K2 with opaque_only)")
+ALPHA_ROUNDS = 4   # max transparent surfaces skipped per ray segment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +82,18 @@ class PathTracingSettings:
         return cls(**overrides)
 
 
+class AlphaSplit(NamedTuple):
+    """Opaque/alpha scene partition for any-hit emulation (≙ the RT
+    hardware's opaque-flag fast path). Alpha-tested triangles are usually a
+    small part of a scene, so the re-trace rounds that emulate any-hit
+    shaders walk a much smaller tree than the scene's, and shadow queries
+    use the early-out occlusion kernel on the opaque tree."""
+    bvh_opaque: object           # accel over the opaque subset
+    sel_opaque: torch.Tensor     # (K0,) i32 global triangle ids
+    bvh_alpha: object            # accel over the non-opaque subset
+    sel_alpha: torch.Tensor      # (K1,) i32
+
+
 class Accel(NamedTuple):
     """World-space geometry + acceleration structure for one frame.
     Vertex attributes are pre-gathered into per-triangle rows (tri_*), one
@@ -86,7 +104,8 @@ class Accel(NamedTuple):
     tri_tan: torch.Tensor        # (T, 9)
     tri_bit: torch.Tensor        # (T, 9)
     tri_uv: torch.Tensor         # (T, 6) uv0|uv1|uv2
-    bvh: Optional[BF8BVH]
+    bvh: Optional[object]        # BF8BVH | PacketBVH (None: not built yet)
+    alpha_split: Optional[AlphaSplit] = None
 
 
 class BounceCarry(NamedTuple):
@@ -114,6 +133,16 @@ def prepare_attribs(ds: DeviceScene) -> Accel:
     return Accel(wpos=wpos, tri_pos=pack3(wpos), tri_nrm=pack3(wnrm),
                  tri_tan=pack3(wtan), tri_bit=pack3(wbit),
                  tri_uv=pack3(ds.tex_coords), bvh=None)
+
+
+def prepare_accel(ds: DeviceScene) -> Accel:
+    """World-space flatten, per-triangle attribute packing and the Morton
+    `PacketBVH` build, all on the scene's device (≙ the BLAS/TLAS update of
+    an animated frame: rebuilt every frame, since all of it is dense tensor
+    code)."""
+    base = prepare_attribs(ds)
+    return base._replace(bvh=build_packet_bvh(base.wpos, ds.tri_idx,
+                                              tri_opaque=ds.tri_opaque))
 
 
 def _aabb_exit_t(lo, hi, origin, direction):
@@ -196,35 +225,254 @@ def _sample_cubemap(faces, directions):
 def _degenerate_masked(bvh, origins, dirs, tmax, live):
     """Point dead lanes at a ray that exits the scene at once: origin
     outside the root AABB, +x direction, tmax = TMIN. They leave the
-    traversal at the root node; their hits are never read."""
+    traversal at the root node; their hits are never read. `tmax` is (N,)
+    or a Python scalar."""
     outside = bvh.root_hi + 1.0e6
     live_c = live[:, None]
     o = torch.where(live_c, origins, outside)
     d = torch.where(live_c, dirs, _axis(0, dirs))
+    if not isinstance(tmax, torch.Tensor):
+        tmax = torch.full_like(origins[:, 0], tmax)
     t = torch.where(live, tmax, TMIN)
     return o, d, t
 
 
+def _surface_color_alpha_tri(ds: DeviceScene, tex: DeviceTextures, accel,
+                             tri, u, v):
+    """Color-texture RGBA at a (global-tri, u, v) surface point (≙ the
+    any-hit shaders' color fetch: texture(colorTex, uv) * colorFactor,
+    anyhit.rahit:44-50)."""
+    tri = torch.clamp(tri, min=0).long()
+    bary0 = (1.0 - u - v)[:, None]
+    ru = accel.tri_uv[tri]
+    uv = (ru[:, 0:2] * bary0 + ru[:, 2:4] * u[:, None]
+          + ru[:, 4:6] * v[:, None])
+    row = ds.tri_mat[tri].long()
+    texel = sample_texture_grad(tex, ds.mat_tex[row, T_COLOR], uv)
+    return texel * ds.mat_params[row, F_COLOR:F_COLOR + 4]
+
+
+def _remap_subset_tri(sel, tri):
+    """Subset-local hit triangle ids → global ids (misses stay -1)."""
+    return torch.where(tri >= 0, sel[torch.clamp(tri, min=0).long()], -1)
+
+
+def _trace_closest_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
+                               sp: AlphaSplit, origins, dirs, alive):
+    """Split-tree any-hit emulation:
+
+    1. one closest-hit trace of the opaque tree gives a definitive per-ray
+       bound t_opq: no opaque surface ever needs re-tracing;
+    2. ALPHA_ROUNDS closest-hit traces of the (small) alpha tree resolve
+       the α<0.5 skip chain strictly in front of that bound; the first
+       α≥0.5 candidate nearer than t_opq wins, else the opaque hit does.
+
+    Rays still pending after ALPHA_ROUNDS transparent layers resolve to the
+    opaque bound hit."""
+    n = origins.shape[0]
+    dev = origins.device
+    o_t, d_t, t_t = _degenerate_masked(sp.bvh_opaque, origins, dirs,
+                                       TMAX, alive)
+    hit_o = trace_closest(sp.bvh_opaque, o_t, d_t, t_t)
+    bound = hit_o.t
+    final_t = hit_o.t
+    final_tri = _remap_subset_tri(sp.sel_opaque, hit_o.tri)
+    final_u, final_v = hit_o.u, hit_o.v
+
+    pending = alive
+    cur_origin = origins
+    t_accum = torch.zeros((n,), dtype=torch.float32, device=dev)
+    decal_color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    decal_alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
+    has_decal = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    for _ in range(ALPHA_ROUNDS):
+        rem = torch.clamp(bound - t_accum, min=0.0)
+        o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
+                                           rem, pending)
+        hit_a = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
+        tri_g = _remap_subset_tri(sp.sel_alpha, hit_a.tri)
+        valid = pending & hit_a.is_hit & (t_accum + hit_a.t < bound)
+        rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g,
+                                        hit_a.u, hit_a.v)
+        alpha = rgba[:, 3]
+        accepts = valid & (alpha >= 0.5)
+        skips = valid & (alpha < 0.5)
+
+        record = skips & ~has_decal
+        decal_color = torch.where(record[:, None], rgba[:, :3], decal_color)
+        decal_alpha = torch.where(record, alpha, decal_alpha)
+        has_decal = has_decal | record
+
+        final_t = torch.where(accepts, t_accum + hit_a.t, final_t)
+        final_tri = torch.where(accepts, tri_g, final_tri)
+        final_u = torch.where(accepts, hit_a.u, final_u)
+        final_v = torch.where(accepts, hit_a.v, final_v)
+
+        step = hit_a.t + 1e-4
+        cur_origin = torch.where(skips[:, None],
+                                 cur_origin + dirs * step[:, None],
+                                 cur_origin)
+        t_accum = torch.where(skips, t_accum + step, t_accum)
+        pending = skips
+    return (Hit(final_t, final_tri, final_u, final_v), decal_color,
+            decal_alpha, has_decal)
+
+
+def trace_closest_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
+                        origins, dirs, alive):
+    """Closest hit honoring alpha-tested geometry: non-opaque hits with
+    α < 0.5 are recorded as decals and skipped (≙ anyhit.rahit:52-64);
+    α ≥ 0.5 accepts. Returns (hit with cumulative t, decal_color (N,3),
+    decal_alpha (N,), has_decal (N,)).
+
+    A re-trace loop of fixed length: up to ALPHA_ROUNDS segments, each a
+    closest-hit trace of the whole tree; lanes that are done are
+    degenerated. When the accel carries an opaque/alpha partition, the
+    split-tree scheme above runs instead."""
+    if accel.alpha_split is not None:
+        return _trace_closest_alpha_split(ds, tex, accel, accel.alpha_split,
+                                          origins, dirs, alive)
+    n = origins.shape[0]
+    dev = origins.device
+    pending = alive
+    cur_origin = origins
+    t_accum = torch.zeros((n,), dtype=torch.float32, device=dev)
+    final = None
+    decal_color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    decal_alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
+    has_decal = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    for _ in range(ALPHA_ROUNDS):
+        o_t, d_t, t_t = _degenerate_masked(accel.bvh, cur_origin, dirs,
+                                           TMAX, pending)
+        hit = trace_closest(accel.bvh, o_t, d_t, t_t)
+        opaque = ds.tri_opaque[torch.clamp(hit.tri, min=0).long()]
+        rgba = _surface_color_alpha_tri(ds, tex, accel, hit.tri, hit.u,
+                                        hit.v)
+        alpha = rgba[:, 3]
+        is_alpha_skip = pending & hit.is_hit & ~opaque & (alpha < 0.5)
+
+        # record the first (closest) decal per ray (anyhit keeps min dist)
+        record = is_alpha_skip & ~has_decal
+        decal_color = torch.where(record[:, None], rgba[:, :3], decal_color)
+        decal_alpha = torch.where(record, alpha, decal_alpha)
+        has_decal = has_decal | record
+
+        adjusted = Hit(t_accum + hit.t, hit.tri, hit.u, hit.v)
+        if final is None:
+            final = adjusted
+        else:
+            final = Hit(*(torch.where(pending, a, f)
+                          for a, f in zip(adjusted, final)))
+
+        step = hit.t + 1e-4
+        cur_origin = torch.where(is_alpha_skip[:, None],
+                                 cur_origin + dirs * step[:, None],
+                                 cur_origin)
+        t_accum = torch.where(is_alpha_skip, t_accum + step, t_accum)
+        pending = is_alpha_skip
+    return final, decal_color, decal_alpha, has_decal
+
+
+def _trace_occluded_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
+                                sp: AlphaSplit, origins, dirs, dist, alive,
+                                reverse=None):
+    """Split-tree shadow query: blocked = any opaque triangle within dist
+    (one early-out occlusion trace of the opaque tree) or any alpha surface
+    with α ≥ 1 within dist (closest-hit rounds over the alpha tree).
+    `reverse` marks lanes whose opaque-tree query runs light→surface
+    (segment-symmetric). The alpha rounds need closest-hit ordering from
+    the surface, so they always run unreversed."""
+    o_o, d_o, t_o = origins, dirs, dist
+    if reverse is not None:
+        rev = alive & reverse
+        o_o = torch.where(rev[:, None], origins + dirs * dist[:, None],
+                          origins)
+        d_o = torch.where(rev[:, None], -dirs, dirs)
+        t_o = torch.where(rev, dist - TMIN, dist)
+    o_t, d_t, t_t = _degenerate_masked(sp.bvh_opaque, o_o, d_o, t_o, alive)
+    occluded = alive & trace_occluded(sp.bvh_opaque, o_t, d_t, t_t)
+
+    pending = alive & ~occluded
+    cur_origin = origins
+    remaining = dist
+    for _ in range(ALPHA_ROUNDS):
+        o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
+                                           remaining, pending)
+        hit = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
+        tri_g = _remap_subset_tri(sp.sel_alpha, hit.tri)
+        rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g, hit.u, hit.v)
+        translucent = hit.is_hit & (rgba[:, 3] < 1.0)
+        occluded = occluded | (pending & hit.is_hit & ~translucent)
+        cont = pending & translucent
+        step = hit.t + 1e-4
+        cur_origin = torch.where(cont[:, None],
+                                 cur_origin + dirs * step[:, None],
+                                 cur_origin)
+        remaining = torch.where(cont, remaining - step, remaining)
+        pending = cont
+    return occluded
+
+
+def trace_occluded_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
+                         origins, dirs, dist, alive, reverse=None):
+    """Shadow query honoring alpha: any surface with α < 1 passes light
+    (≙ occlusionAnyhit.rahit:51-53). `alive` masks lanes that need no
+    shadow query at all; `dist` is (N,). Without a partition each round is
+    a closest-hit trace of the whole tree (its round 0 also finds the
+    opaque blockers); with one, the split scheme above runs."""
+    if accel.alpha_split is not None:
+        return _trace_occluded_alpha_split(ds, tex, accel,
+                                           accel.alpha_split, origins,
+                                           dirs, dist, alive, reverse)
+    pending = alive
+    occluded = torch.zeros_like(alive)
+    cur_origin = origins
+    remaining = dist
+
+    for _ in range(ALPHA_ROUNDS):
+        o_t, d_t, t_t = _degenerate_masked(accel.bvh, cur_origin, dirs,
+                                           remaining, pending)
+        hit = trace_closest(accel.bvh, o_t, d_t, t_t)
+        opaque = ds.tri_opaque[torch.clamp(hit.tri, min=0).long()]
+        rgba = _surface_color_alpha_tri(ds, tex, accel, hit.tri, hit.u,
+                                        hit.v)
+        translucent = hit.is_hit & ~opaque & (rgba[:, 3] < 1.0)
+        occluded = occluded | (pending & hit.is_hit & ~translucent)
+        cont = pending & translucent
+        step = hit.t + 1e-4
+        cur_origin = torch.where(cont[:, None],
+                                 cur_origin + dirs * step[:, None],
+                                 cur_origin)
+        remaining = torch.where(cont, remaining - step, remaining)
+        pending = cont
+    return occluded
+
+
 def trace_closest(bvh, origins, dirs, tmax):
-    """Closest-hit query: K1 over a BF8BVH (its plain version on the CPU).
-    tmax is (N,) f32."""
-    if not isinstance(bvh, BF8BVH):
-        raise NotImplementedError(
-            f"no traversal kernel for {type(bvh).__name__}: the binary v4 "
-            "tree needs kernels K3/K4 (animated slice)")
-    return closest_bf8(bvh, origins.contiguous(), dirs.contiguous(),
-                       tmax.contiguous(), TMIN)
+    """Closest-hit query; the structure's type selects the kernel: K1 over
+    a BF8BVH, K3 over a PacketBVH (their plain versions on the CPU). tmax
+    is (N,) f32."""
+    args = (origins.contiguous(), dirs.contiguous(), tmax.contiguous(), TMIN)
+    if isinstance(bvh, BF8BVH):
+        return closest_bf8(bvh, *args)
+    if isinstance(bvh, PacketBVH):
+        return closest_v4(bvh, *args)
+    raise NotImplementedError(
+        f"no traversal kernel for {type(bvh).__name__}")
 
 
 def trace_occluded(bvh, origins, dirs, dist):
-    """Shadow query (≙ checkOccluded, raygen.rgen:22-33): K2 over a
-    BF8BVH."""
-    if not isinstance(bvh, BF8BVH):
-        raise NotImplementedError(
-            f"no occlusion kernel for {type(bvh).__name__}: the binary v4 "
-            "tree needs kernels K3/K4 (animated slice)")
-    return occluded_bf8(bvh, origins.contiguous(), dirs.contiguous(),
-                        dist.contiguous(), TMIN)
+    """Shadow query (≙ checkOccluded, raygen.rgen:22-33): K2 over a BF8BVH,
+    K4 over a PacketBVH."""
+    args = (origins.contiguous(), dirs.contiguous(), dist.contiguous(), TMIN)
+    if isinstance(bvh, BF8BVH):
+        return occluded_bf8(bvh, *args)
+    if isinstance(bvh, PacketBVH):
+        return occluded_v4(bvh, *args)
+    raise NotImplementedError(
+        f"no occlusion kernel for {type(bvh).__name__}")
 
 
 def init_rng_state(px, py, width: int, frame) -> torch.Tensor:
@@ -263,7 +511,7 @@ def start_carry(state, origin, direction, diff: DiffRays) -> BounceCarry:
 
 
 def _shade_hit(ds: DeviceScene, tex: DeviceTextures, accel: Accel, hit,
-               ray_o, ray_d, state, alive, max_roughness,
+               ray_o, ray_d, state, alive, max_roughness, decal=None,
                diff: Optional[DiffRays] = None, nearest_mip: bool = False):
     """Vectorized closest-hit 'shader' (≙ closestHit.rchit:52-161).
 
@@ -271,6 +519,8 @@ def _shade_hit(ds: DeviceScene, tex: DeviceTextures, accel: Accel, hit,
     plus the updated RNG state and MaxRoughness carry. All RNG draws are
     masked by `alive & hit` so dead/missed lanes keep their streams intact.
     Missed lanes gather triangle 0 (their results are never used).
+    `decal` is (color (N,3), alpha (N,), has (N,)) from the alpha loops, or
+    None on a scene without alpha-tested triangles.
     """
     active = alive & hit.is_hit
     tri = torch.clamp(hit.tri, min=0).long()
@@ -316,6 +566,15 @@ def _shade_hit(ds: DeviceScene, tex: DeviceTextures, accel: Accel, hit,
 
     mat = sample_material(ds, tex, ds.tri_mat[tri], uv, is_inside,
                           duv_x, duv_y, nearest_mip=nearest_mip)
+
+    if decal is not None:
+        # decal tint from skipped alpha surfaces (≙ closestHit.rchit:104-106:
+        # material.Color = mix(Color, decalColor, decalAlpha))
+        d_color, d_alpha, d_has = decal
+        blended = (mat.color * (1.0 - d_alpha[:, None])
+                   + d_color * d_alpha[:, None])
+        mat = dataclasses.replace(
+            mat, color=torch.where(d_has[:, None], blended, mat.color))
 
     # progressive roughness clamp (firefly suppression, closestHit.rchit:108-112)
     max_roughness = torch.where(active,
@@ -412,21 +671,22 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
     (≙ one iteration of raygen.rgen:62-97). RR divides by
     settings.rr_scale from settings.rr_start_bounce on; bounces >= 1
     sample materials at the nearest mip when settings.tex_nearest_tail."""
-    if ds.has_alpha:
-        raise NotImplementedError(
-            f"scene has alpha-tested triangles; they need {ALPHA_SLICE}")
     (state, origin, direction, throughput, radiance, alive,
      max_roughness, rays, diff) = carry
     rays = rays + torch.sum(alive)
-    n = origin.shape[0]
-    dev = origin.device
 
-    # dead lanes are degenerated so they leave the traversal at the root;
-    # their hits are never read (everything below is gated on `alive`)
-    o_c, d_c, t_c = _degenerate_masked(
-        accel.bvh, origin, direction,
-        torch.full((n,), TMAX, dtype=torch.float32, device=dev), alive)
-    hit = trace_closest(accel.bvh, o_c, d_c, t_c)
+    decal = None
+    if ds.has_alpha:
+        # alpha-tested geometry: the re-trace loops give any-hit semantics
+        hit, d_color, d_alpha, d_has = trace_closest_alpha(
+            ds, tex, accel, origin, direction, alive)
+        decal = (d_color, d_alpha, d_has)
+    else:
+        # dead lanes are degenerated so they leave the traversal at the
+        # root; their hits are never read (all below is gated on `alive`)
+        o_c, d_c, t_c = _degenerate_masked(accel.bvh, origin, direction,
+                                           TMAX, alive)
+        hit = trace_closest(accel.bvh, o_c, d_c, t_c)
     missed = alive & ~hit.is_hit
 
     # miss: add skybox emissive, terminate (raygen.rgen:73-77)
@@ -434,7 +694,7 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
     radiance = radiance + torch.where(missed[..., None], throughput * sky, 0.0)
 
     payload = _shade_hit(ds, tex, accel, hit, origin, direction, state,
-                         alive, max_roughness, diff,
+                         alive, max_roughness, decal, diff,
                          nearest_mip=(bounce > 0
                                       and settings.tex_nearest_tail))
     state = payload["state"]
@@ -455,18 +715,27 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
         payload["light_dist"],
         _aabb_exit_t(accel.bvh.root_lo, accel.bvh.root_hi,
                      payload["next_origin"], shadow_dir) + 1e-3)
-    so_f, sd_f, st_f = payload["next_origin"], shadow_dir, light_dist
-    if settings.reverse_point_shadows:
-        # point-light lanes trace light → surface; the -TMIN limit excludes
-        # the shading surface the forward trace excluded via tmin
-        rev = shadow_live & ~payload["light_is_dir"]
-        so_f = torch.where(rev[:, None],
-                           so_f + shadow_dir * light_dist[:, None], so_f)
-        sd_f = torch.where(rev[:, None], -shadow_dir, sd_f)
-        st_f = torch.where(rev, light_dist - TMIN, st_f)
-    so, sd, sdist = _degenerate_masked(accel.bvh, so_f, sd_f, st_f,
-                                       shadow_live)
-    occluded = trace_occluded(accel.bvh, so, sd, sdist)
+    reverse = (~payload["light_is_dir"] if settings.reverse_point_shadows
+               else None)
+    if ds.has_alpha:
+        occluded = trace_occluded_alpha(ds, tex, accel,
+                                        payload["next_origin"], shadow_dir,
+                                        light_dist, shadow_live,
+                                        reverse=reverse)
+    else:
+        so_f, sd_f, st_f = payload["next_origin"], shadow_dir, light_dist
+        if reverse is not None:
+            # point-light lanes trace light → surface; the -TMIN limit
+            # excludes the shading surface the forward trace excluded via
+            # tmin
+            rev = shadow_live & reverse
+            so_f = torch.where(rev[:, None],
+                               so_f + shadow_dir * light_dist[:, None], so_f)
+            sd_f = torch.where(rev[:, None], -shadow_dir, sd_f)
+            st_f = torch.where(rev, light_dist - TMIN, st_f)
+        so, sd, sdist = _degenerate_masked(accel.bvh, so_f, sd_f, st_f,
+                                           shadow_live)
+        occluded = trace_occluded(accel.bvh, so, sd, sdist)
     rays = rays + torch.sum(shadow_live)
     nee_ok = shadow_live & ~occluded
     radiance = radiance + torch.where(

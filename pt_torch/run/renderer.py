@@ -1,12 +1,18 @@
-"""Frame orchestrator: the progressive wavefront render of a static scene.
+"""Frame orchestrator: the progressive wavefront render of a scene.
 
-Port of `pt.run.renderer.Renderer` on the static main path: it owns the
-device scene, textures, acceleration structure and accumulation film. The
-accel is the native SBVH at block 32 collapsed to BF8 (`_ensure_accel`);
-`render(samples)` traces the samples one at a time, each a full-film
-wavefront through raygen, `bounce_count` bounces (K1 + K2 per bounce) and
-the film scatter-add. Lanes are tile-ordered (`_tile_order`) so each run
-of neighbouring rays covers a compact square of pixels.
+Port of `pt.run.renderer.Renderer`: it owns the device scene, textures,
+acceleration structure and accumulation film. `_ensure_accel` builds the
+structure. A static scene gets the native SBVH at block 32 collapsed to BF8
+(kernels K1/K2), with opaque and alpha subset trees when it has
+alpha-tested triangles, and the binary SBVH tree (K3/K4) when the collapse
+does not fit. A scene with animated instances or skinned geometry gets the
+Morton `PacketBVH`, rebuilt on the device after every
+`update_scene_data(scene_changed=True)` (K3/K4). `render(samples)` traces
+the samples one at a time, each a full-film wavefront through raygen,
+`bounce_count` bounces (a closest and a shadow trace per bounce, more on an
+alpha scene) and the film scatter-add. Lanes are tile-ordered
+(`_tile_order`) so each run of neighbouring rays covers a compact square of
+pixels.
 
 `pt` gives the same film with wavefront compaction on or off and with
 spp-major groups; this port runs the uncompacted per-sample loop. Nothing
@@ -24,13 +30,16 @@ import torch
 from pt_torch import default_device
 from pt_torch.accel.bvh8 import build_bf8, build_packet_bvh_sah
 from pt_torch.post.pipeline import PostProcessSettings, postprocess
-from pt_torch.render.integrator import (Accel, PathTracingSettings,
-                                        _finite_or_zero, bounce_once,
-                                        init_rng_state, prepare_attribs,
+from pt_torch.render.integrator import (Accel, AlphaSplit,
+                                        PathTracingSettings, _finite_or_zero,
+                                        bounce_once, init_rng_state,
+                                        prepare_accel, prepare_attribs,
                                         raygen, start_carry)
 from pt_torch.render.textures import DeviceTextures, default_texture_pool
 from pt_torch.scene.builder import Scene
-from pt_torch.scene.flatten import DeviceScene, flatten_scene
+from pt_torch.scene.flatten import (DeviceScene, flatten_scene,
+                                    update_seg_transforms)
+from pt_torch.scene.textures import build_scene_textures
 
 
 def _tile_order(width: int, height: int, tile: int = 32) -> np.ndarray:
@@ -68,7 +77,7 @@ def _shared_dup_ratio(scene: Scene):
 
 
 class Renderer:
-    """Progressive wavefront renderer for one static scene."""
+    """Progressive wavefront renderer for one scene."""
 
     def __init__(self, settings: Optional[PathTracingSettings] = None,
                  post: Optional[PostProcessSettings] = None,
@@ -102,17 +111,29 @@ class Renderer:
     # -- scene management --------------------------------------------------
     def set_scene(self, scene: Scene,
                   tex: Optional[DeviceTextures] = None) -> None:
-        """Upload a new scene (≙ Renderer::UpdateSceneData)."""
-        if tex is None and scene.textures:
-            raise NotImplementedError(
-                f"scene '{scene.name}' has textures; the texture importers "
-                "are the next slice of the port (pass a DeviceTextures)")
+        """Upload a new scene (≙ Renderer::UpdateSceneData). Without `tex`
+        the pool is built from the scene's textures (in-memory pixels)."""
         self.scene = scene
         self.ds = flatten_scene(scene, device=self.device)
-        self.tex = tex if tex is not None else default_texture_pool(
-            device=self.device)
+        if tex is not None:
+            self.tex = tex
+        elif scene.textures:
+            self.tex = build_scene_textures(scene, device=self.device)
+        else:
+            self.tex = default_texture_pool(device=self.device)
         self._accel_dirty = True
         self.reset_accumulation()
+
+    def update_scene_data(self, scene_changed: bool = False) -> None:
+        """Per frame: after `scene.update(dt)` moved something, refresh the
+        animated transforms, mark the accel for its rebuild and reset the
+        accumulation."""
+        if self.scene is None:
+            raise RuntimeError("no scene set")
+        if scene_changed:
+            self.ds = update_seg_transforms(self.ds, self.scene)
+            self._accel_dirty = True
+            self.reset_accumulation()
 
     def on_resize(self, width: int, height: int) -> None:
         if (self.width, self.height) == (width, height):
@@ -147,35 +168,66 @@ class Renderer:
         return dup_ratio >= 4.0 and n_tris >= 200_000
 
     def _ensure_accel(self) -> None:
-        """Static accel: the native SBVH at block 32 (spatial splits) and
-        its BF8 collapse (≙ pt's `_ensure_accel` static path)."""
+        """Build the acceleration structure when the scene changed
+        (≙ pt's `_ensure_accel`). Animated scenes: the Morton tree, on the
+        device. Static scenes: the host SBVH build, BF8 where it fits, with
+        the opaque/alpha split trees on an alpha scene."""
         if not (self._accel_dirty or self.accel is None):
             return
         if self.mesh is not None:
             raise NotImplementedError(
                 "multi-device film sharding is a later slice of the port")
-        if self.ds.has_alpha:
-            raise NotImplementedError(
-                "alpha-tested scenes need the alpha split and its re-trace "
-                "loops, the next slice of the port")
+        if (self.scene.has_animated_instances
+                or self.scene.has_skinned_geometry):
+            self.accel = prepare_accel(self.ds)
+            self._accel_dirty = False
+            return
         tri_np = self.ds.tri_idx.cpu().numpy()
         dup = _shared_dup_ratio(self.scene)
         if dup is not None and self._want_instanced(
                 self.instancing, dup[0], int(tri_np.shape[0])):
             raise NotImplementedError(
                 "shared-BLAS instancing needs the instanced kernels K5/K6 "
-                "(pt/accel/instanced.py), not ported yet")
+                "(pt/accel/instanced.py), slice 3 of the port")
         base = prepare_attribs(self.ds)
-        fine = build_packet_bvh_sah(base.wpos.cpu().numpy(), tri_np,
-                                    block=32, max_leaves=8192,
-                                    tri_opaque_np=self.ds.tri_opaque.cpu().numpy(),
-                                    spatial=True, device=self.device)
-        bvh = build_bf8(fine) if fine is not None else None
+        wpos_np = base.wpos.cpu().numpy()
+        opq_np = self.ds.tri_opaque.cpu().numpy()
+
+        def build_static(rows, opq_rows):
+            """SBVH at block 32 collapsed to BF8; when the collapse gives
+            None (a single leaf, or over pt's budget), the binary SBVH tree
+            at the default block, walked by K3/K4."""
+            fine = build_packet_bvh_sah(wpos_np, rows, block=32,
+                                        max_leaves=8192,
+                                        tri_opaque_np=opq_rows, spatial=True,
+                                        device=self.device)
+            bvh = build_bf8(fine) if fine is not None else None
+            if bvh is None:
+                bvh = build_packet_bvh_sah(wpos_np, rows,
+                                           tri_opaque_np=opq_rows,
+                                           spatial=True, device=self.device)
+            return bvh
+
+        bvh = build_static(tri_np, opq_np)
         if bvh is None:
-            raise NotImplementedError(
-                "the BF8 collapse does not fit pt's budget for this scene; "
-                "its fallback, the binary v4 tree, needs kernels K3/K4")
-        self.accel = base._replace(bvh=bvh)
+            # no static tree fits pt's node budget: the Morton tree
+            self.accel = prepare_accel(self.ds)
+            self._accel_dirty = False
+            return
+        split = None
+        if opq_np.any() and (~opq_np).any():
+            # opaque/alpha partition for the any-hit emulation loops: the
+            # re-trace rounds walk a tree over the non-opaque subset only
+            sel_o = np.nonzero(opq_np)[0].astype(np.int32)
+            sel_a = np.nonzero(~opq_np)[0].astype(np.int32)
+            bvh_o = build_static(tri_np[sel_o], opq_np[sel_o])
+            bvh_a = build_static(tri_np[sel_a], opq_np[sel_a])
+            # pt traces a subset without a tree by brute force; the port
+            # has no brute backend, so such a scene keeps the single tree
+            if bvh_o is not None and bvh_a is not None:
+                t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+                split = AlphaSplit(bvh_o, t(sel_o), bvh_a, t(sel_a))
+        self.accel = base._replace(bvh=bvh, alpha_split=split)
         self._accel_dirty = False
 
     # -- rendering ---------------------------------------------------------

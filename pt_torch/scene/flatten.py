@@ -1,13 +1,13 @@
-"""Host Scene → device SoA tensors (DeviceScene), static scenes.
+"""Host Scene → device SoA tensors (DeviceScene).
 
-Port of `pt.scene.flatten` for static scenes: every (instance, mesh) pair
-becomes a segment with its own transform slot, object-space vertices are
-duplicated per segment, and the three material models pack into one
-unified table. World-space vertices are one batched transform per frame
-(`world_vertices`).
-
-Skinned geometry and animated instances belong to the animated slice of
-the port (the Morton tree and its v4 kernels) and raise here.
+Port of `pt.scene.flatten`: every (instance, mesh) pair becomes a segment
+with its own transform slot, object-space vertices are duplicated per
+segment, and the three material models pack into one unified table.
+World-space vertices are one batched transform per frame
+(`world_vertices`), with linear-blend skinning over a ≤4-bone palette for
+vertices that carry bone weights. `update_seg_transforms` refreshes the
+per-frame state of an animated scene (segment transforms, bone palette,
+lights): one small upload, the only data that crosses the bus in a frame.
 """
 
 from __future__ import annotations
@@ -40,10 +40,6 @@ NUM_MAT_FIELDS = 20
 # Texture-slot columns of DeviceScene.mat_tex.
 T_EMISSIVE, T_COLOR, T_NORMAL, T_A, T_B = 0, 1, 2, 3, 4
 NUM_MAT_TEX = 5
-
-ANIMATED_SLICE = ("the animated path of the port (skinning, animated "
-                  "instances, the Morton tree and the v4 kernels)")
-
 
 @dataclasses.dataclass
 class DeviceScene:
@@ -79,13 +75,20 @@ class DeviceScene:
     dir_light_color: torch.Tensor      # (3,) f32
     dir_light_dir: torch.Tensor        # (3,) f32
 
+    # skinning: zero weights = unskinned
+    bone_idx: torch.Tensor             # (V, 4) i32
+    bone_weight: torch.Tensor          # (V, 4) f32 (rows sum to 1 or 0)
+    bone_palette: torch.Tensor         # (B, 4, 4) f32 world @ inverse-bind
+
     skybox_color: torch.Tensor         # (3,) f32 (CLEAR kind)
     skybox_image: torch.Tensor         # EQUIRECT: (H, W, 3); CUBE: (6, H, W, 3);
                                        # (1, 1, 3) dummy otherwise
 
     skybox_kind: int = int(SkyboxKind.CLEAR)
     flip_normal_y: bool = False
-    # any non-opaque triangles → the alpha-test re-trace loops (next slice)
+    has_skinning: bool = False
+    # any non-opaque triangles → the integrator runs the alpha-test/decal
+    # re-trace loops
     has_alpha: bool = False
 
     @property
@@ -96,8 +99,10 @@ class DeviceScene:
 def world_vertices(ds: DeviceScene):
     """Per-frame world-space flatten: positions via point transform, normal
     frame via the cofactor normal matrix (≙ closest-hit `transform`,
-    Shaders/sampling.glsl:5-15). Returns (positions, normals, tangents,
-    bitangents), each (V, 3) f32."""
+    Shaders/sampling.glsl:5-15), with linear-blend skinning for vertices
+    that carry bone weights (≙ skinning.comp:21-50; glTF semantics: a
+    skinned vertex ignores its node transform). Returns (positions,
+    normals, tangents, bitangents), each (V, 3) f32."""
     seg = ds.vert_seg.long()
     t = ds.seg_transform[seg]                             # (V, 4, 4)
     m = t[:, :3, :3]
@@ -110,6 +115,18 @@ def world_vertices(ds: DeviceScene):
     nrm = xfr(nt, ds.obj_normals)
     tan = xfr(m, ds.obj_tangents)
     bit = xfr(m, ds.obj_bitangents)
+
+    if ds.has_skinning:
+        # blended bone matrix per vertex: (V, 4, 4) = Σ_k w_k palette[idx_k]
+        mats = ds.bone_palette[ds.bone_idx.long()]        # (V, 4, 4, 4)
+        blend = torch.sum(ds.bone_weight[:, :, None, None] * mats, dim=1)
+        sel = (torch.sum(ds.bone_weight, dim=1) > 0.0)[:, None]
+        bm = blend[:, :3, :3]
+        pos = torch.where(sel, xfr(bm, ds.obj_positions) + blend[:, :3, 3],
+                          pos)
+        nrm = torch.where(sel, xfr(bm, ds.obj_normals), nrm)
+        tan = torch.where(sel, xfr(bm, ds.obj_tangents), tan)
+        bit = torch.where(sel, xfr(bm, ds.obj_bitangents), bit)
 
     def unit(v):
         n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
@@ -130,45 +147,50 @@ def _normal_matrices(transforms: torch.Tensor) -> torch.Tensor:
 
 
 def flatten_scene(scene: Scene, device=None) -> DeviceScene:
-    """Flatten a static host Scene into device tensors
+    """Flatten a host Scene into device tensors
     (≙ Renderer::UpdateSceneData's buffer building, Renderer.cpp:250-399).
     """
     dev = default_device(device)
-    if scene.has_animated_instances or scene.has_skinned_geometry:
-        raise NotImplementedError(
-            f"scene '{scene.name}' is animated; animated scenes need "
-            f"{ANIMATED_SLICE}, which this port does not have yet")
 
     positions, normals, tangents, bitangents, uvs = [], [], [], [], []
     vert_seg, tri_idx, tri_mat, tri_opaque = [], [], [], []
-    seg_transforms: List[np.ndarray] = []
     seg_instances: List[int] = []
 
     mat_rows, mid_to_row = _build_material_table(scene)
 
+    bone_idx, bone_weight = [], []
+    n_bones = int(np.asarray(scene.bone_transforms).shape[0])
     vbase = 0
     for inst_i, inst in enumerate(scene.instances):
         model = scene.models[inst.model_index]
-        inst_t = scene.instance_transforms[inst_i].astype(np.float64)
         for mesh in model.meshes:
             geo = scene.geometries[mesh.geometry_index]
-            if geo.is_animated:
-                raise NotImplementedError(
-                    f"geometry {mesh.geometry_index} is skinned; skinning "
-                    f"needs {ANIMATED_SLICE}")
-            seg = len(seg_transforms)
-            seg_transforms.append((inst_t @ np.asarray(mesh.transform, np.float64))
-                                  .astype(np.float32))
+            seg = len(seg_instances)
             seg_instances.append(inst_i)
-            v = scene.vertices
+            v = scene.animated_vertices if geo.is_animated else scene.vertices
+            indices_src = (scene.animated_indices if geo.is_animated
+                           else scene.indices)
             s, n = geo.vertex_offset, geo.vertex_count
             positions.append(v.positions[s:s + n])
             normals.append(v.normals[s:s + n])
             tangents.append(v.tangents[s:s + n])
             bitangents.append(v.bitangents[s:s + n])
             uvs.append(v.tex_coords[s:s + n])
+            if geo.is_animated:
+                bi = np.asarray(v.bone_indices[s:s + n], np.int32)
+                # a tensor gather raises (CPU) or faults (card) on an index
+                # past the palette, where JAX would clamp: refuse it here
+                if bi.size and (bi.min() < 0 or bi.max() >= n_bones):
+                    raise ValueError(
+                        f"geometry {mesh.geometry_index}: bone index "
+                        f"outside the palette of {n_bones} bones")
+                bone_idx.append(bi)
+                bone_weight.append(v.bone_weights[s:s + n])
+            else:
+                bone_idx.append(np.zeros((n, 4), np.int32))
+                bone_weight.append(np.zeros((n, 4), np.float32))
             vert_seg.append(np.full(n, seg, np.int32))
-            idx = scene.indices[geo.index_offset:geo.index_offset + geo.index_count]
+            idx = indices_src[geo.index_offset:geo.index_offset + geo.index_count]
             tris = np.asarray(idx, np.int64).reshape(-1, 3) + vbase
             tri_idx.append(tris.astype(np.int32))
             row = mid_to_row[mesh.material_id]
@@ -194,18 +216,51 @@ def flatten_scene(scene: Scene, device=None) -> DeviceScene:
         tri_idx=t(cat(tri_idx)),
         tri_mat=t(cat(tri_mat)),
         tri_opaque=t(opaque),
-        seg_transform=t(np.stack(seg_transforms)),
+        seg_transform=t(_seg_transforms(scene)),
         seg_instance=t(np.asarray(seg_instances, np.int32)),
         mat_params=t(mat_rows["params"]),
         mat_tex=t(mat_rows["tex"]),
         mat_type=t(mat_rows["type"]),
         **{k: t(v) for k, v in lights.items()},
+        bone_idx=t(cat(bone_idx)),
+        bone_weight=t(cat(bone_weight)),
+        bone_palette=t(np.asarray(scene.bone_transforms, np.float32)),
         skybox_color=t(np.asarray(scene.skybox.color, np.float32)),
         skybox_image=t(_skybox_image(scene)),
         skybox_kind=int(scene.skybox.kind),
         flip_normal_y=bool(scene.texture_mapping.get("dx_normals", False)),
+        has_skinning=any(g.is_animated for g in scene.geometries),
         has_alpha=bool((~opaque).any()),
     )
+
+
+def _seg_transforms(scene: Scene) -> np.ndarray:
+    """(S, 4, 4) f32 world transform of every (instance, mesh) segment, in
+    flatten order, from the scene graph's current state."""
+    out = []
+    for inst_i, inst in enumerate(scene.instances):
+        inst_t = scene.instance_transforms[inst_i].astype(np.float64)
+        for mesh in scene.models[inst.model_index].meshes:
+            out.append((inst_t @ np.asarray(mesh.transform, np.float64))
+                       .astype(np.float32))
+    return np.stack(out)
+
+
+def update_seg_transforms(ds: DeviceScene, scene: Scene) -> DeviceScene:
+    """Per-frame refresh of the segment transforms, the bone palette and the
+    lights from the host scene graph (a small upload; ≙ the transform-buffer
+    update for animated instances). Only valid while the instance/mesh
+    structure is unchanged."""
+    dev = ds.seg_transform.device
+    t = lambda a: torch.as_tensor(np.array(a, order="C"), device=dev)  # noqa: E731
+    seg = _seg_transforms(scene)
+    if seg.shape != tuple(ds.seg_transform.shape):
+        raise ValueError("the scene's instance/mesh structure changed; "
+                         "flatten it again")
+    return dataclasses.replace(
+        ds, seg_transform=t(seg),
+        bone_palette=t(np.asarray(scene.bone_transforms, np.float32)),
+        **{k: t(v) for k, v in _build_lights(scene).items()})
 
 
 def _skybox_image(scene: Scene) -> np.ndarray:

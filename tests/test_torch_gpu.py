@@ -7,7 +7,7 @@ neither JAX nor `pt`, so it also runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
 (`--noconftest`: tests/conftest.py configures JAX for the other files.)
-K1/K2 hold bit-equal to their plain PyTorch versions: the kernels are built
+K1-K4 hold bit-equal to their plain PyTorch versions: the kernels are built
 with -fmad=false and run the plain version's f32 arithmetic in its order.
 """
 
@@ -83,6 +83,102 @@ def test_cuda_kernels_match_plain(cuda_device, soup):
     valid = ids.view(torch.int32).reshape(-1) >= 0
     assert 0 < int(counts.tri_seen.sum()) <= min(tris, int(valid.sum()))
     assert not bool(counts.tri_seen.bool()[~valid].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("soup", ["random", "padded", "single", "heightfield",
+                                  "sah"])
+def test_cuda_v4_kernels_match_plain(cuda_device, soup):
+    """K3/K4 over the Morton tree built on the card (full, with empty
+    subtrees, single-leaf, a real mesh) and over a static binary SBVH
+    tree."""
+    verts, tri = {"random": lambda: _random_tris(2000, 41),
+                  "padded": lambda: _random_tris(1100, 42),
+                  "single": lambda: _random_tris(30, 43),
+                  "heightfield": lambda: _heightfield(64),
+                  "sah": lambda: _random_tris(2000, 44)}[soup]()
+    opaque = (np.arange(tri.shape[0]) % 2) == 0
+    if soup == "sah":
+        pb = bvh8.build_packet_bvh_sah(verts, tri, tri_opaque_np=opaque,
+                                       spatial=True, device=cuda_device)
+    else:
+        pb = bvh8.build_packet_bvh(
+            torch.as_tensor(verts, device=cuda_device),
+            torch.as_tensor(tri, device=cuda_device),
+            tri_opaque=torch.as_tensor(opaque, device=cuda_device))
+        cpu = bvh8.build_packet_bvh(torch.as_tensor(verts),
+                                    torch.as_tensor(tri),
+                                    tri_opaque=torch.as_tensor(opaque))
+        # the rebuild on the card orders the triangles as on the CPU
+        b = pb.block
+        assert torch.equal(
+            pb.pages[:, 0, 6 * b:7 * b].contiguous().view(torch.int32).cpu(),
+            cpu.pages[:, 0, 6 * b:7 * b].contiguous().view(torch.int32))
+        assert torch.equal(pb.top_lo.cpu(), cpu.top_lo)
+    o, d = _rays(8192, 45, cuda_device)
+    tmax = torch.full((8192,), 1e4, device=cuda_device)
+    before = dict(kernels.launches)
+    hk = kernels.closest_v4(pb, o, d, tmax)
+    hp = kernels.closest_v4_plain(pb, o, d, tmax)
+    torch.cuda.synchronize()
+    assert kernels.launches["closest_v4"] == before["closest_v4"] + 1
+    if soup != "single":
+        assert int((hp.tri >= 0).sum()) > 100
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    dist = torch.full((8192,), 6.0, device=cuda_device)
+    got = kernels.occluded_v4(pb, o, d, dist)
+    assert kernels.launches["occluded_v4"] == before["occluded_v4"] + 1
+    assert torch.equal(got, kernels.occluded_v4_plain(pb, o, d, dist))
+    counts = kernels.work_counts(pb)
+    counted = kernels.closest_v4(pb, o, d, tmax, counts=counts)
+    for a, b in zip(counted, hk):          # the counted variant: same hits
+        assert torch.equal(a, b)
+    nodes, tris = counts.totals.tolist()
+    assert nodes >= 8192 and tris < 8192 * tri.shape[0]
+    assert 0 < int(counts.node_seen.sum()) <= pb.n_top
+    ids = pb.pages[:, 0, 6 * pb.block:7 * pb.block].contiguous()
+    valid = ids.view(torch.int32).reshape(-1) >= 0
+    assert int(counts.tri_seen.sum()) <= min(tris, int(valid.sum()))
+    assert not bool(counts.tri_seen.bool()[~valid].any())
+    # degenerate lanes end at the root
+    from pt_torch.render.integrator import _degenerate_masked
+    dead = torch.zeros(8192, dtype=torch.bool, device=cuda_device)
+    od, dd, td = _degenerate_masked(pb, o, d, 1e4, dead)
+    counts = kernels.work_counts(pb)
+    h = kernels.closest_v4(pb, od.contiguous(), dd.contiguous(), td,
+                           counts=counts)
+    assert counts.totals.tolist() == [8192, 0] and bool((h.tri == -1).all())
+
+
+@pytest.mark.gpu
+def test_cuda_animated_alpha_film_matches_cpu_film(cuda_device):
+    """Two animated frames of a small alpha scene (Morton rebuild, K3/K4,
+    the single-tree alpha loops) and its static variant (split trees,
+    K1/K2) on the card against the CPU's plain versions."""
+    import chip_smoke
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.renderer import Renderer
+    for animate in (True, False):
+        films = {}
+        for dev in (cuda_device, "cpu"):
+            scene = chip_smoke.build_animated_scene(
+                chip_smoke.port_namespace(), 12, 40, animate)
+            r = Renderer(PathTracingSettings(bounce_count=3), device=dev)
+            r.set_scene(scene)
+            r.on_resize(32, 32)
+            kernels.reset_launch_counts()
+            for _ in range(2):
+                r.update_scene_data(scene_changed=scene.update(1 / 24))
+                r.render(1)
+            if dev != "cpu":
+                used = {k for k, v in kernels.launches.items() if v}
+                assert used == ({"closest_v4"} if animate else
+                                {"closest_bf8", "occluded_bf8"}), used
+            films[str(dev)] = r.film_mean()
+        a, b = films.values()
+        assert np.isfinite(a).all()
+        assert float(np.mean((a - b) ** 2)) < 1e-3
 
 
 @pytest.mark.gpu

@@ -200,11 +200,17 @@ def test_unported_paths_raise():
     r.on_resize(8, 8)
     with pytest.raises(NotImplementedError, match="K5/K6"):
         r.render(1)
+    # an alpha-tested scene renders now; a texture given as an encoded file
+    # still raises, naming the decoders' slice
     alpha = t_heightfield(8)
     alpha.geometries[0] = dataclasses.replace(alpha.geometries[0],
                                               is_opaque=False)
     r = Renderer(device="cpu")
     r.set_scene(alpha)
     r.on_resize(8, 8)
-    with pytest.raises(NotImplementedError, match="alpha"):
-        r.render(1)
+    assert r.render(1) == 1 and np.isfinite(r.film_mean()).all()
+    from pt_torch.scene.types import TextureInfo, TextureType
+    alpha.textures.append(TextureInfo("a.png", TextureType.COLOR,
+                                      data=b"\x89PNG"))
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        Renderer(device="cpu").set_scene(alpha)

@@ -169,16 +169,28 @@ def test_sample_material_matches_pt():
 
 
 def test_skinned_scene_raises():
-    b = SceneBuilder("skinned")
-    pos = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
-    nrm = np.tile([0.0, 0.0, 1.0], (3, 1)).astype(np.float32)
-    vb = b.add_animated_vertices(pos, np.zeros((3, 2), np.float32), nrm,
-                                 nrm, nrm, np.zeros((3, 4), np.int32),
-                                 np.tile([1.0, 0, 0, 0], (3, 1)))
-    ib = b.add_animated_indices([0, 1, 2])
-    geo = b.add_geometry(Geometry(vb, 3, ib, 3, True, is_animated=True))
-    mat = b.add_material("m", MetallicRoughnessMaterial())
-    b.add_model_instance(b.add_model([MeshInfo(geo, mat)]),
-                         b.add_scene_node(0, np.eye(4)))
-    with pytest.raises(NotImplementedError, match="animated"):
-        t_flatten(b.create_scene(), device="cpu")
+    """A skinned scene flattens (tests/test_torch_animated.py holds it
+    against `pt`); what raises is a bone index outside the palette, which a
+    tensor gather would not clamp as JAX does."""
+    def scene(bone):
+        b = SceneBuilder("skinned")
+        pos = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+        nrm = np.tile([0.0, 0.0, 1.0], (3, 1)).astype(np.float32)
+        idx = np.zeros((3, 4), np.int32)
+        idx[2, 0] = bone
+        vb = b.add_animated_vertices(pos, np.zeros((3, 2), np.float32), nrm,
+                                     nrm, nrm, idx,
+                                     np.tile([1.0, 0, 0, 0], (3, 1)))
+        ib = b.add_animated_indices([0, 1, 2])
+        geo = b.add_geometry(Geometry(vb, 3, ib, 3, True, is_animated=True))
+        mat = b.add_material("m", MetallicRoughnessMaterial())
+        node = b.add_scene_node(0, np.eye(4))
+        b.add_bone("root", node, np.eye(4))
+        b.add_model_instance(b.add_model([MeshInfo(geo, mat)]), node)
+        return b.create_scene()
+    ds = t_flatten(scene(0), device="cpu")
+    assert ds.has_skinning and tuple(ds.bone_palette.shape) == (1, 4, 4)
+    np.testing.assert_allclose(t_world_vertices(ds)[0].numpy()[1], [1, 0, 0],
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="palette"):
+        t_flatten(scene(3), device="cpu")
