@@ -35,9 +35,29 @@ Phases, each fatal on failure (nothing is caught and passed over):
    5,200 alpha-tested card triangles: single-tree re-trace loops over K3)
    and the static one (split trees, K1/K2), with checks that decals and
    accepted alpha hits occur;
-7. cross-device film, card (kernels) against CPU (plain versions), MSE <
+7. main path, instanced: 64 instances of one 6,050-triangle grid over a
+   ground slab (387,202 flattened triangles) with `instancing="auto"`, opaque
+   and with an alpha-tested foliage card per instance, at 512², 5 bounces, 4
+   spp: the policy must select the shared-BLAS structure (`BF8Instanced`, and
+   on the alpha variant for both subset trees too), every trace then runs
+   K5/K6 (launch counters as above); build seconds, ms per step, Mrays/s,
+   peak memory, shared against flattened page bytes, K5/K6's time on the real
+   bounce-0 and bounce-2 wavefronts against plain version and bound; the same
+   scene with `instancing="flatten"` for the gates: primary-hit flips <=
+   0.5% of the pixels, mean film shift <= 2%;
+8. the Courtyard at 512², 5 bounces: detail 0.85 with `instancing="shared"`
+   (985 segments; three instanced trees) and detail 1.0 with "auto" (1135
+   segments, above the cap: the flat BF8 path with split trees); the Default
+   scene (embedded PNG textures) at 512², written to a PNG;
+9. cross-device film, card (kernels) against CPU (plain versions), MSE <
    1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
-   alpha frames and the static alpha variant at 32².
+   alpha frames, the static alpha variant and a small instanced alpha scene
+   at 32².
+
+Phase 3 also holds K5 (closest_bf8i, with raw_ids) and K6 (occluded_bf8i,
+with opaque_only) against their plain versions over the 64-instance tree and
+over the three trees of the Courtyard at detail 0.85; lanes that differ at
+|dt| = 0 (exact ties between leaves) are counted apart.
 
 Prints the kernels' JSON line, then the `nvidia-smi` line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -76,24 +96,42 @@ OPS_PER_WOOP = 45
 BYTES_PER_NODE = 8 * (12 + 12 + 4)
 BYTES_PER_NODE_V4 = 12 + 12 + 4 + 4
 BYTES_PER_TRI = (9 + 3 + 1) * 4
+# an instanced leaf visit reads two indices (page, segment) and maps the ray
+# with the segment's 12 transform floats: 18 operations for o', 15 for d'
+BYTES_PER_LEAF_INDEX = 2 * 4
+BYTES_PER_SEG_XFORM = 12 * 4
+OPS_PER_XFORM = 33
 
 N_PARITY = 16384
 BLOCKS = 2          # blocks of 3 timed render steps (the first is counted)
 ANIM_FRAMES = 4     # counted animated frames, after one warm frame
 N_CARDS = 2600      # alpha-tested quads of the alpha variants (5,200 tris)
+N_INST = 64         # instances of the instanced scene
+N_COURT = 4096      # parity rays per set over the Courtyard's trees
+# Courtyard texture sizes: 1.0 is the authored 4k/2k/1k mix. 0.5 (2k/1k/512)
+# keeps the scene's build and its pool's upload to seconds and the pool under
+# the memory budget's size cap (times and cap are printed). The parity phase,
+# where the textures do not matter, takes a twentieth.
+COURT_TEX_SCALE = 0.5
+COURT_TEX_SCALE_PARITY = 0.05
 
 REPLACES = {
     "closest_bf8": "pt/accel/pallas_bvh.py:1427 packet_closest_bf8",
     "occluded_bf8": "pt/accel/pallas_bvh.py:1471 packet_occluded_bf8",
     "closest_v4": "pt/accel/pallas_bvh.py:1388 packet_closest_v4",
     "occluded_v4": "pt/accel/pallas_bvh.py:1512 packet_occluded_v4",
+    "closest_bf8i": "pt/accel/instanced.py:811 packet_closest_bf8i",
+    "occluded_bf8i": "pt/accel/instanced.py:858 packet_occluded_bf8i",
 }
 SOURCES = {
     "closest_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
     "occluded_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
     "closest_v4": "pt_torch/accel/csrc/v4_kernels.cu",
     "occluded_v4": "pt_torch/accel/csrc/v4_kernels.cu",
+    "closest_bf8i": "pt_torch/accel/csrc/bf8i_kernels.cu",
+    "occluded_bf8i": "pt_torch/accel/csrc/bf8i_kernels.cu",
 }
+KERNELS = tuple(REPLACES)
 
 
 def fail(msg: str) -> None:
@@ -115,12 +153,15 @@ def log(msg: str) -> None:
 
 def port_namespace():
     """The scene-building names of `pt_torch` that `build_animated_scene`
-    uses, as one namespace."""
+    and `build_instanced_scene` use, as one namespace."""
     import types
+    from pt_torch.core import camera
     from pt_torch.scene import builder, examples, graph
     from pt_torch.scene import types as stypes
     return types.SimpleNamespace(
-        SceneBuilder=builder.SceneBuilder,
+        SceneBuilder=builder.SceneBuilder, InputCamera=camera.InputCamera,
+        PointLight=stypes.PointLight,
+        DirectionalLight=stypes.DirectionalLight,
         create_heightfield_scene=examples.create_heightfield_scene,
         Animation=graph.Animation, AnimationNode=graph.AnimationNode,
         KeySequence=graph.KeySequence, Geometry=stypes.Geometry,
@@ -203,17 +244,119 @@ def build_animated_scene(ns, n: int = 224, n_cards: int = 0,
     return b.create_scene()
 
 
+def _wavy_grid(n: int):
+    """An n x n wavy grid over [-1, 1]²: positions, normals, uvs and
+    2 (n-1)² triangles."""
+    xs = np.linspace(-1, 1, n, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    gy = 0.25 * np.sin(gx * 5) * np.cos(gz * 4)
+    pos = np.stack([gx, gy + 0.3, gz], -1).reshape(-1, 3)
+    nrm = np.tile(np.asarray([0, 1, 0], np.float32), (len(pos), 1))
+    uv = (pos[:, [0, 2]] + 1) * 0.5
+    idx = np.arange(n * n).reshape(n, n)
+    a, c = idx[:-1, :-1].ravel(), idx[1:, 1:].ravel()
+    b, d = idx[1:, :-1].ravel(), idx[:-1, 1:].ravel()
+    tris = np.concatenate([np.stack([a, c, b], -1),
+                           np.stack([c, a, d], -1)]).astype(np.int64)
+    return pos.astype(np.float32), nrm, uv.astype(np.float32), tris
+
+
+def build_instanced_scene(ns, n_inst: int = 64, grid_n: int = 56,
+                          alpha: bool = False, seed: int = 3):
+    """One wavy grid (2 (grid_n - 1)² triangles; 6,050 at the default)
+    instanced `n_inst` times, each with its own scale (0.7 to 1.4), turn
+    about y and height, over a ground slab; a point light, a sun and a
+    camera that sees all of it. With `alpha`, every instance also carries a
+    cross of two alpha-tested quads (a foliage card) with a leafy mask. The
+    geometry is shared between the instances, so the flattened scene holds
+    `n_inst` copies of it: 387,202 triangles at the defaults, the scene on
+    which the "auto" policy selects the shared-BLAS structure. `ns` names
+    the package's scene classes (see `port_namespace`)."""
+    b = ns.SceneBuilder("Instanced Grids")
+    rng = np.random.default_rng(seed)
+    pos, nrm, uv, tris = _wavy_grid(grid_n)
+    vb = b.add_vertices(pos, uv, nrm)
+    ib = b.add_indices(tris.ravel().tolist())
+    geo = b.add_geometry(ns.Geometry(vb, len(pos), ib, tris.size))
+    mat = b.add_material("grid", ns.MetallicRoughnessMaterial(
+        color=(0.75, 0.55, 0.35, 1.0), roughness=0.4, metalness=0.2))
+    meshes = [ns.MeshInfo(geo, mat)]
+    if alpha:
+        yy, xx = np.mgrid[0:64, 0:64] / 63.0
+        mask = ((np.sin(xx * 21) * np.cos(yy * 17) > -0.1)
+                & (((xx - 0.5) ** 2 + (yy - 0.5) ** 2) < 0.23))
+        leaf = np.ones((64, 64, 4), np.float32)
+        leaf[..., 0] = 0.15
+        leaf[..., 1] = 0.45
+        leaf[..., 2] = 0.12
+        leaf[..., 3] = mask.astype(np.float32)
+        tex = b.add_texture(ns.TextureInfo(name="leafcard",
+                                           type=ns.TextureType.COLOR,
+                                           pixels=leaf, is_srgb=False))
+        amat = b.add_material("leaf", ns.MetallicRoughnessMaterial(
+            color=(1.0, 1.0, 1.0, 1.0), roughness=0.8, color_idx=tex))
+        qp = np.asarray([[-0.6, 0.6, 0], [0.6, 0.6, 0],
+                         [0.6, 1.8, 0], [-0.6, 1.8, 0],
+                         [0, 0.6, -0.6], [0, 0.6, 0.6],
+                         [0, 1.8, 0.6], [0, 1.8, -0.6]], np.float32)
+        qn = np.tile(np.asarray([0, 0, 1], np.float32), (8, 1))
+        quv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]] * 2, np.float32)
+        avb = b.add_vertices(qp, quv, qn)
+        aib = b.add_indices([0, 1, 2, 0, 2, 3, 4, 5, 6, 4, 6, 7])
+        ageo = b.add_geometry(ns.Geometry(avb, 8, aib, 12, is_opaque=False))
+        meshes.append(ns.MeshInfo(ageo, amat))
+    grid_model = b.add_model(meshes)
+
+    side = int(np.ceil(np.sqrt(n_inst)))
+    ext = side * 3.0
+    gpos = np.asarray([[-ext, 0, -ext], [ext, 0, -ext],
+                       [ext, 0, ext], [-ext, 0, ext]], np.float32)
+    gnrm = np.tile(np.asarray([0, 1, 0], np.float32), (4, 1))
+    guv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    gvb = b.add_vertices(gpos, guv, gnrm)
+    gib = b.add_indices([0, 2, 1, 2, 0, 3])
+    ggeo = b.add_geometry(ns.Geometry(gvb, 4, gib, 6))
+    gmat = b.add_material("ground", ns.MetallicRoughnessMaterial(
+        color=(0.55, 0.58, 0.6, 1.0), roughness=0.85, metalness=0.0))
+    ground_model = b.add_model([ns.MeshInfo(ggeo, gmat)])
+
+    root = b.add_scene_node(0, np.eye(4))
+    b.add_model_instance(ground_model, b.add_scene_node(root, np.eye(4)))
+    for i in range(n_inst):
+        gx = (i % side - (side - 1) / 2) * 2.6
+        gz = (i // side - (side - 1) / 2) * 2.6
+        s = rng.uniform(0.7, 1.4)
+        ang = rng.uniform(0, 2 * np.pi)
+        c, sn = np.cos(ang), np.sin(ang)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = s * np.asarray([[c, 0, sn], [0, 1, 0], [-sn, 0, c]],
+                                   np.float32)
+        m[:3, 3] = (gx, rng.uniform(0, 0.4), gz)
+        b.add_model_instance(grid_model, b.add_scene_node(root, m))
+
+    b.add_point_light(ns.PointLight(color=(600.0, 580.0, 540.0),
+                                    position=(0.0, ext * 0.6, 0.0)))
+    b.set_directional_light(ns.DirectionalLight(color=(2.5, 2.5, 2.3),
+                                                direction=(0.3, 0.9, 0.2)))
+    b.add_camera(ns.InputCamera(50.0, ext * 6, 0.05,
+                                (0.0, ext * 0.5, -ext * 0.9),
+                                (0.0, -0.45, 1.0)))
+    return b.create_scene()
+
+
 # ------------------------------------------------------------------ timing
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
-    """Mean CUDA-event time of `fn()` over `reps` runs after one warm run.
+def cuda_ms(fn, reps: int = 3, warm: bool = True) -> float:
+    """Mean CUDA-event time of `fn()` over `reps` runs after one warm run
+    (none with `warm=False`, for a plain version that takes many seconds).
     A ~20 ms device sleep is queued first, so the host has enqueued the
     launches before the first one starts: a short kernel is then timed
     without the host's per-call wrapper time between launches (a plain
     version that launches thousands of ops stays host-bound, as it is)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -266,14 +409,15 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def _renderer(scene, width: int, spp: int, bounces: int, device: str):
+def _renderer(scene, width: int, spp: int, bounces: int, device: str,
+              instancing: str = "auto"):
     """A Renderer on `device` for `scene` (an int n: the static Heightfield
     of that grid size)."""
     from pt_torch.render.integrator import PathTracingSettings
     from pt_torch.run.renderer import Renderer
     from pt_torch.scene.examples import make_heightfield_scene
     r = Renderer(PathTracingSettings(sample_count=spp, bounce_count=bounces),
-                 device=device)
+                 device=device, instancing=instancing)
     r.set_scene(make_heightfield_scene(scene) if isinstance(scene, int)
                 else scene)
     r.on_resize(width, width)
@@ -354,7 +498,8 @@ def _compare_occluded(bvh, o, d, dist, what, name="occluded_bf8", **kw):
     op = getattr(kernels, name + "_plain")(bvh, o, d, dist, **kw)
     diff = ok_ != op
     frac = 1.0 - float(diff.float().mean())
-    log(f"[parity] {name} {what}{' opaque_only' if kw else ''}: "
+    flag = " opaque_only" if kw.get("opaque_only") else ""
+    log(f"[parity] {name} {what}{flag}: "
         f"{o.shape[0]} rays, agree {frac:.6f}, occluded {int(op.sum())}")
     check(frac >= 0.999, f"{name} {what}: agree on {frac:.6f} < 0.999")
     return float(diff.any())
@@ -412,6 +557,7 @@ def phase_parity():
     torch.cuda.synchronize()
     log(f"[parity] K1/K2 done in {time.perf_counter() - t0:.1f} s")
     errs.update(_parity_v4(rng))
+    errs.update(_parity_bf8i(rng))
     return errs
 
 
@@ -462,23 +608,171 @@ def _parity_v4(rng):
     return errs
 
 
-def _bound(n, out_bytes, counts):
+def _compare_bf8i(bvh, o, d, t, what, errs, rng):
+    """K5 (plain and raw ids) and K6 (all and opaque only) against their
+    plain versions on one ray set. A lane whose ids differ at |dt| = 0 is an
+    exact tie between two leaves (the kernel's leaf-box retest `tnear <
+    best_t` may cull the second leaf before the smaller id is seen): counted
+    apart. Any other differing lane is a hit at the rim of a leaf box that
+    the walk's slab test and the plain version's exhaustive test decide
+    differently; both kinds together may be at most 1 lane in 1000. Where
+    the ids agree, t, u and v must be bit-equal."""
+    import torch
+    from pt_torch.accel import kernels
+    n = o.shape[0]
+    for raw in (False, True):
+        hk = kernels.closest_bf8i(bvh, o, d, t, raw_ids=raw)
+        hp = kernels.closest_bf8i_plain(bvh, o, d, t, raw_ids=raw)
+        differ = hk.tri != hp.tri
+        ties = differ & (hk.t == hp.t)
+        same = ~differ
+        dt = (hk.t - hp.t).abs()[same]
+        du = (hk.u - hp.u).abs()[same]
+        dv = (hk.v - hp.v).abs()[same]
+        err = float(torch_max(dt))
+        log(f"[parity] closest_bf8i {what}{' raw_ids' if raw else ''}: {n} "
+            f"rays, hits {int((hp.tri >= 0).sum())}, ids differ on "
+            f"{int(differ.sum())} lanes, {int(ties.sum())} of them ties at "
+            f"|dt| = 0; where ids agree max|dt| {err:.3e}, max|du| "
+            f"{float(torch_max(du)):.3e}, max|dv| {float(torch_max(dv)):.3e}")
+        check(int(differ.sum()) <= max(1, n // 1000),
+              f"closest_bf8i {what}: ids differ on {int(differ.sum())} lanes")
+        check(err == 0.0 and float(torch_max(du)) == 0.0
+              and float(torch_max(dv)) == 0.0,
+              f"closest_bf8i {what}: t, u or v differ from the plain version")
+        errs["closest_bf8i"] = max(errs["closest_bf8i"], err)
+    dist = torch.as_tensor(rng.uniform(0.05, 30.0, n).astype(np.float32),
+                           device="cuda")
+    for flag in (False, True):
+        errs["occluded_bf8i"] = max(errs["occluded_bf8i"], _compare_occluded(
+            bvh, o, d, dist, what, name="occluded_bf8i", opaque_only=flag))
+
+
+def _random_rays(bvh, n, rng):
+    import torch
+    lo, hi = bvh.root_lo.cpu().numpy(), bvh.root_hi.cpu().numpy()
+    ro = rng.uniform(lo - 2.0, hi + 2.0, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3))
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    return [torch.as_tensor(ro, device="cuda"),
+            torch.as_tensor(rd, device="cuda"),
+            torch.full((n,), 1e4, device="cuda")]
+
+
+def _describe_instanced(bvh) -> str:
+    return (f"n8={bvh.n8}, {bvh.n_leaves} leaves, {bvh.n_segs} segments, "
+            f"block {bvh.block}, leaf_retest={bvh.leaf_retest}, "
+            f"{bvh.pages.shape[0]} shared pages, depth {bvh.depth}")
+
+
+def courtyard_renderer(detail: float, instancing: str, spp: int,
+                       tex_scale: float):
+    """(Renderer on the card, seconds to make the scene, to flatten it and
+    build its texture pool, to build its accel) for the Courtyard at
+    `detail` and `tex_scale`, 512², 5 bounces."""
+    import torch
+    from pt_torch.scene.standin import make_courtyard_scene
+    t0 = time.perf_counter()
+    scene = make_courtyard_scene(detail, tex_scale)
+    t1 = time.perf_counter()
+    r = _renderer(scene, 512, spp, 5, "cuda", instancing)
+    t2 = time.perf_counter()
+    r._ensure_accel()
+    torch.cuda.synchronize()
+    return r, t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def _parity_bf8i(rng):
+    """K5/K6 against their plain versions: over the 64-instance tree that
+    "auto" selects, and over the three trees of the Courtyard at detail 0.85
+    with instancing="shared" (both `leaf_retest` values, the alpha bit, the
+    2-page alpha tree), on real wavefronts and random rays."""
+    import torch
+    t0 = time.perf_counter()
+    errs = {"closest_bf8i": 0.0, "occluded_bf8i": 0.0}
+    r = _renderer(build_instanced_scene(port_namespace(), N_INST), 512, 1, 2,
+                  "cuda")
+    r._ensure_accel()
+    bvh = r.accel.bvh
+    check(type(bvh).__name__ == "BF8Instanced",
+          f"64-instance scene: auto selected {type(bvh).__name__}")
+    log(f"[parity] {N_INST}-instance scene: {r.ds.num_triangles} flattened "
+        f"triangles; BF8Instanced {_describe_instanced(bvh)}")
+    with _Recorder() as rec:
+        r.render(1)
+    live1 = (rec.closest[1][2] > 1e-4).cpu().numpy()
+    for what, rays in (("64 instances, bounce0",
+                        _sample_rows(rec.closest[0], N_PARITY, rng)),
+                       ("64 instances, bounce1",
+                        _sample_rows(rec.closest[1], N_PARITY, rng, live1)),
+                       ("64 instances, random",
+                        _random_rays(bvh, N_PARITY, rng))):
+        _compare_bf8i(bvh, *rays, what, errs, rng)
+    del r
+    r, scene_s, upload_s, build_s = courtyard_renderer(
+        0.85, "shared", 1, COURT_TEX_SCALE_PARITY)
+    sp = r.accel.alpha_split
+    check(sp is not None, "Courtyard 0.85 shared: no split trees")
+    trees = (("full", r.accel.bvh), ("opaque", sp.bvh_opaque),
+             ("alpha", sp.bvh_alpha))
+    for name, tree in trees:
+        check(type(tree).__name__ == "BF8Instanced",
+              f"Courtyard 0.85 shared: {name} tree is {type(tree).__name__}")
+        log(f"[parity] Courtyard 0.85 {name} tree: "
+            f"{_describe_instanced(tree)}")
+    check([t.n_segs for _, t in trees] == [985, 145, 840]
+          and [t.leaf_retest for _, t in trees] == [False, True, True]
+          and sp.bvh_alpha.pages.shape[0] == 2,
+          "Courtyard 0.85: the trees are not the ones expected")
+    with _Recorder() as rec:
+        r.render(1)
+    # per bounce 9 closest traces (1 opaque + 4 alpha, then 4 alpha for the
+    # shadow rays): [0] holds the primary rays, [9] bounce 1's
+    live1 = (rec.closest[9][2] > 1e-4).cpu().numpy()
+    for name, tree in trees:
+        for what, rays in (("bounce0",
+                            _sample_rows(rec.closest[0], N_COURT, rng)),
+                           ("bounce1", _sample_rows(rec.closest[9], N_COURT,
+                                                    rng, live1)),
+                           ("random", _random_rays(tree, N_COURT, rng))):
+            _compare_bf8i(tree, *rays, f"Courtyard {name} tree, {what}",
+                          errs, rng)
+    torch.cuda.synchronize()
+    log(f"[parity] K5/K6 done in {time.perf_counter() - t0:.1f} s (Courtyard "
+        f"0.85: scene {scene_s:.1f} s, flatten + textures {upload_s:.1f} s, "
+        f"three instanced trees {build_s:.1f} s)")
+    return errs
+
+
+def _bound(n, out_bytes, counts, bvh=None):
     """Least time for the launch, from what this launch's rays touched: the
     bytes (rays read once, results written once, and each wide node and
-    triangle that any ray visited read once) over the HBM rate vs the
-    counted f32 operations over the f32 rate."""
+    triangle that any ray visited read once; for an instanced structure
+    `bvh` also the index pair of each leaf visited and the transform of each
+    segment reached) over the HBM rate vs the counted f32 operations over
+    the f32 rate."""
     totals = [int(c) for c in counts.totals.tolist()]
     nodes_seen = int(counts.node_seen.sum())
     tris_seen = int(counts.tri_seen.sum())
-    if len(totals) == 3:        # BF8: 8 child slabs a visit + leaf retests
+    extra_bytes = extra_ops = 0
+    if len(totals) == 4:        # instanced BF8: as BF8, plus per leaf visit
+        # the two indices and the ray's map into the segment's space
+        nodes, leaf_boxes, leaf_visits, tris = totals
+        slabs, node_bytes = 8 * nodes + leaf_boxes, BYTES_PER_NODE
+        seen = counts.leaf_seen.bool()
+        segs_seen = int(bvh.leaf_seg[seen].unique().numel())
+        extra_bytes = (int(seen.sum()) * BYTES_PER_LEAF_INDEX
+                       + segs_seen * BYTES_PER_SEG_XFORM)
+        extra_ops = leaf_visits * OPS_PER_XFORM
+    elif len(totals) == 3:      # BF8: 8 child slabs a visit + leaf retests
         nodes, leaf_boxes, tris = totals
         slabs, node_bytes = 8 * nodes + leaf_boxes, BYTES_PER_NODE
     else:                       # binary tree: one slab a visit
         nodes, tris = totals
         slabs, node_bytes = nodes, BYTES_PER_NODE_V4
-    nbytes = (n * (12 + 12 + 4) + n * out_bytes
+    nbytes = (n * (12 + 12 + 4) + n * out_bytes + extra_bytes
               + nodes_seen * node_bytes + tris_seen * BYTES_PER_TRI)
-    ops = slabs * OPS_PER_SLAB + tris * OPS_PER_WOOP
+    ops = slabs * OPS_PER_SLAB + tris * OPS_PER_WOOP + extra_ops
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -498,13 +792,17 @@ def _time_kernel(name, bvh, args):
     counts = kernels.work_counts(bvh)
     k_fn(bvh, *args, counts=counts)
     n = args[0].shape[0]
-    bound = _bound(n, 16 if name.startswith("closest") else 1, counts)
+    bound = _bound(n, 16 if name.startswith("closest") else 1, counts, bvh)
     out = {}
     ms = cuda_ms(lambda: out.update(k=k_fn(bvh, *args)), reps=5)
-    plain_ms = cuda_ms(lambda: out.update(p=p_fn(bvh, *args)), reps=1)
+    # the instanced plain versions take tens of seconds at this width: one
+    # run, not warmed
+    plain_ms = cuda_ms(lambda: out.update(p=p_fn(bvh, *args)), reps=1,
+                       warm=not name.endswith("bf8i"))
     if name.startswith("closest"):
         differ = int((out["k"].tri != out["p"].tri).sum())
-        err = float((out["k"].t - out["p"].t).abs().max())
+        same = out["k"].tri == out["p"].tri
+        err = float(torch_max((out["k"].t - out["p"].t).abs()[same]))
     else:
         differ = int((out["k"] != out["p"]).sum())
         err = float(differ > 0)
@@ -836,8 +1134,243 @@ def phase_alpha():
         f"hits; film mean {float(film.mean()):.5f}")
 
 
-def _film(scene_fn, width, bounces, frames, dev):
-    r = _renderer(scene_fn(), width, 1, bounces, dev)
+def _counted_steps(r, names, steps: int = 3):
+    """`steps` render steps with the launch counters set to 0 just before
+    and read just after: (seconds, launches of `names`, all launches, useful
+    rays, peak MiB)."""
+    import torch
+    from pt_torch.accel import kernels
+    rays0 = r.rays_traced
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    every = dict(kernels.launches)
+    return (dt, {k: every[k] for k in names}, every, r.rays_traced - rays0,
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def _check_film(r, what: str):
+    film = r.film_mean()
+    check(film.shape == (r.height, r.width, 3), f"{what}: film {film.shape}")
+    check(bool(np.isfinite(film).all()), f"{what}: non-finite film values")
+    check(float(np.abs(film).max()) > 0.0, f"{what}: film is all zero")
+    return film
+
+
+def _write_png(r, name: str, tag: str):
+    from pt_torch.out.saver import write_image
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    png = OUT_DIR / name
+    write_image(str(png), r.snapshot())
+    check(png.stat().st_size > 1000, "PNG not written")
+    log(f"[{tag}] wrote {png.relative_to(ROOT)} ({png.stat().st_size} bytes)")
+
+
+def _page_bytes(accel) -> int:
+    """Bytes of Woop pages an accel holds: its tree's and its split
+    trees'."""
+    trees = [accel.bvh]
+    if accel.alpha_split is not None:
+        trees += [accel.alpha_split.bvh_opaque, accel.alpha_split.bvh_alpha]
+    return sum(t.pages.numel() * 4 for t in trees)
+
+
+def _primary_hits(r):
+    """Global triangle id of every primary ray's final hit (frame 0),
+    through the renderer's own accel and, on an alpha scene, its alpha
+    loop."""
+    import torch
+    from pt_torch.render import integrator as ti
+    inv_view, inv_proj = r._camera_mats()
+    state = ti.init_rng_state(r._px, r._py, r.width, 0)
+    _, o, d, _ = ti.raygen(r._px, r._py, r.width, r.height, inv_view,
+                           inv_proj, state, r.settings)
+    if r.ds.has_alpha:
+        alive = o.new_ones(o.shape[0], dtype=torch.bool)
+        return ti.trace_closest_alpha(r.ds, r.tex, r.accel, o, d, alive)[0].tri
+    return ti.trace_closest(r.accel.bvh, o, d,
+                            torch.full_like(o[:, 0], ti.TMAX)).tri
+
+
+def phase_instanced():
+    """The shared-BLAS path at full width, opaque and alpha, against the
+    flatten path of the same scene."""
+    import torch
+    bf8i = ("closest_bf8i", "occluded_bf8i")
+    out = {}
+    for alpha in (False, True):
+        tag = "inst-alpha" if alpha else "inst"
+        arms = {}
+        for mode in ("auto", "flatten"):
+            t0 = time.perf_counter()
+            scene = build_instanced_scene(port_namespace(), N_INST,
+                                          alpha=alpha)
+            r = _renderer(scene, 512, 4, 5, "cuda", mode)
+            t1 = time.perf_counter()
+            r._ensure_accel()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t1
+            kinds = [type(r.accel.bvh).__name__]
+            sp = r.accel.alpha_split
+            if sp is not None:
+                kinds += [type(sp.bvh_opaque).__name__,
+                          type(sp.bvh_alpha).__name__]
+            # "auto" must select the shared-BLAS structure for every tree;
+            # the flatten arm takes whatever static tree fits
+            check("BF8Instanced" not in kinds if mode == "flatten"
+                  else kinds == ["BF8Instanced"] * (3 if alpha else 1),
+                  f"{tag} {mode}: structures {kinds}")
+            r.render()                                    # warm step
+            torch.cuda.synchronize()
+            dt, counts, every, rays, peak = _counted_steps(r, bf8i)
+            _check_film(r, f"{tag} {mode}")
+            if mode == "auto":
+                # per step 4 spp x 5 bounces; per bounce a closest and a
+                # shadow trace, or on the alpha scene 9 closest (1 opaque +
+                # 4 alpha, 4 alpha for the shadow rays) and 1 occlusion
+                per = (9, 1) if alpha else (1, 1)
+                check(counts == {"closest_bf8i": 60 * per[0],
+                                 "occluded_bf8i": 60 * per[1]}
+                      and sum(every.values()) == sum(counts.values()),
+                      f"{tag}: launches {every}")
+                log(f"[{tag}] BF8Instanced {_describe_instanced(r.accel.bvh)}"
+                    + ("" if sp is None else
+                       f"; opaque tree {_describe_instanced(sp.bvh_opaque)}; "
+                       f"alpha tree {_describe_instanced(sp.bvh_alpha)}"))
+            else:
+                check(every["closest_bf8i"] == every["occluded_bf8i"] == 0,
+                      f"{tag} flatten: launches {every}")
+            arms[mode] = dict(r=r, build_s=build_s, ms=dt / 3 * 1e3,
+                              mrays=rays / dt / 1e6, peak=peak,
+                              counts=counts, pages=_page_bytes(r.accel))
+            log(f"[{tag}] instancing={mode}: {r.ds.num_triangles} flattened "
+                f"triangles, scene + flatten {t1 - t0:.1f} s, accel build "
+                f"{build_s:.2f} s, 512x512, 5 bounces, 4 spp: "
+                f"{dt / 3 * 1e3:.1f} ms per render step, "
+                f"{rays / dt / 1e6:.3f} useful Mrays/s, peak memory "
+                f"{peak:.0f} MiB, page bytes {arms[mode]['pages']}, "
+                f"structures {kinds}, launches in 3 steps {every}")
+        sh, fl = arms["auto"], arms["flatten"]
+        # the gates of pt's own A/B of the two arms: same RNG, so the films
+        # differ only where a hit flipped
+        flips = float((_primary_hits(sh["r"]) != _primary_hits(fl["r"]))
+                      .float().mean())
+        fs, ff = sh["r"].film_mean(), fl["r"].film_mean()
+        shift = abs(float(fs.mean()) - float(ff.mean())) / float(ff.mean())
+        moved = float((np.abs(fs - ff).max(axis=-1)
+                       > 1e-3 * (1.0 + np.abs(ff).max(axis=-1))).mean())
+        log(f"[{tag}] shared against flatten: primary-hit flips "
+            f"{flips:.5f} of the pixels (limit 0.005), mean film shift "
+            f"{shift:.5f} (limit 0.02), film pixels that differ by more "
+            f"than 1e-3 relative {moved:.4f}; page bytes shared / flattened "
+            f"{sh['pages'] / fl['pages']:.4f}; accel build {sh['build_s']:.2f}"
+            f" s against {fl['build_s']:.2f} s; step {sh['ms']:.1f} ms "
+            f"against {fl['ms']:.1f} ms")
+        check(flips <= 0.005, f"{tag}: {flips:.5f} of the primary hits flip")
+        check(shift <= 0.02, f"{tag}: mean film shift {shift:.5f}")
+        _write_png(sh["r"], f"instanced{'_alpha' if alpha else ''}_512.png",
+                   tag)
+        if not alpha:
+            _profile(lambda: sh["r"].render(1),
+                     "instanced, one sample (5 bounces, 262144 lanes)", top=6)
+            out["times"] = _kernel_times(sh["r"], (("closest_bf8i", "closest"),
+                                                   ("occluded_bf8i",
+                                                    "occluded")), tag)
+            out["counts"] = sh["counts"]
+        out[tag] = {k: v for k, v in sh.items() if k != "r"}
+        out[tag]["flatten_ms"] = fl["ms"]
+        out[tag]["flatten_build_s"] = fl["build_s"]
+        del arms, sh, fl, r
+    return out["counts"], out["times"], {k: out[k] for k in ("inst",
+                                                              "inst-alpha")}
+
+
+def phase_courtyard():
+    """The Courtyard at 512², 5 bounces, 2 spp: detail 0.85 forced through
+    the shared-BLAS path, and the full scene with "auto", which the segment
+    cap and the low duplication keep on the flat BF8 path."""
+    from pt_torch.core.config import Config
+    from pt_torch.scene.textures import _budget_max_dim
+    for detail, mode in ((0.85, "shared"), (1.0, "auto")):
+        tag = f"court-{detail}"
+        r, scene_s, upload_s, build_s = courtyard_renderer(
+            detail, mode, 2, COURT_TEX_SCALE)
+        sp = r.accel.alpha_split
+        check(sp is not None, f"{tag}: no split trees")
+        kinds = [type(t).__name__ for t in (r.accel.bvh, sp.bvh_opaque,
+                                            sp.bvh_alpha)]
+        segs = int(r.ds.seg_transform.shape[0])
+        if mode == "shared":
+            check(kinds == ["BF8Instanced"] * 3 and segs == 985,
+                  f"{tag}: {kinds}, {segs} segments")
+            used = ("closest_bf8i", "occluded_bf8i")
+        else:
+            check(kinds == ["BF8BVH"] * 3 and segs == 1135,
+                  f"{tag}: {kinds}, {segs} segments")
+            used = ("closest_bf8", "occluded_bf8")
+        r.render()                                        # warm step
+        dt, counts, every, rays, peak = _counted_steps(r, used, steps=2)
+        check(counts == {used[0]: 2 * 2 * 5 * 9, used[1]: 2 * 2 * 5}
+              and sum(every.values()) == sum(counts.values()),
+              f"{tag}: launches {every}")
+        _check_film(r, tag)
+        decals, accepted = _alpha_hits(r)
+        check(decals > 0 and accepted > 0,
+              f"{tag}: {decals} decals, {accepted} accepted alpha hits")
+        max_dim = _budget_max_dim(r.scene.textures, Config())
+        log(f"[{tag}] Courtyard detail {detail}, tex_scale {COURT_TEX_SCALE}, "
+            f"instancing={mode}: {r.ds.num_triangles} triangles "
+            f"({int((~r.ds.tri_opaque).sum())} alpha-tested), {segs} "
+            f"segments, {len(r.scene.textures)} textures (size cap "
+            f"{max_dim}, pool {tuple(r.tex.data.shape)} "
+            f"{str(r.tex.data.dtype).split('.')[-1]}); scene {scene_s:.1f} s,"
+            f" flatten + textures {upload_s:.1f} s, accel {build_s:.1f} s "
+            f"({', '.join(kinds)}); 512x512, 5 bounces, 2 spp: "
+            f"{dt / 2 * 1e3:.1f} ms per render step, {rays / dt / 1e6:.3f} "
+            f"useful Mrays/s, peak memory {peak:.0f} MiB, launches in 2 "
+            f"steps {counts}; bounce 0: {decals} decals, {accepted} accepted "
+            f"alpha hits")
+        _write_png(r, f"courtyard_{detail}_512.png", tag)
+        del r
+
+
+def phase_default():
+    """The Default scene (Cornell box, glass and mirror cubes, the four
+    embedded PNG textures) at 512², 5 bounces, 3 steps of 4 spp."""
+    from pt_torch.post.pipeline import PostProcessSettings, postprocess
+    from pt_torch.scene.examples import TEST_SCENES
+    t0 = time.perf_counter()
+    r = _renderer(TEST_SCENES["Default"](), 512, 4, 5, "cuda")
+    r.render()                                            # warm step
+    bvh = r.accel.bvh
+    check(type(bvh).__name__ == "BF8BVH" and not r.tex.all_constant
+          and len(r.scene.textures) == 4, "Default: wrong accel or textures")
+    dt, counts, every, rays, peak = _counted_steps(
+        r, ("closest_bf8", "occluded_bf8"))
+    check(counts == {"closest_bf8": 60, "occluded_bf8": 60}
+          and sum(every.values()) == 120, f"Default: launches {every}")
+    _check_film(r, "Default")
+    # background pixels with bloom off: 1 - exp(-skybox colour)
+    snap = postprocess(r.accum, float(r.total_samples),
+                       PostProcessSettings(enable_bloom=False)).cpu().numpy()
+    sky = 1.0 - np.exp(-r.ds.skybox_color.cpu().numpy())
+    background = int((np.abs(snap - sky).max(axis=-1) < 1e-5).sum())
+    check(background > 1000, f"Default: {background} background pixels")
+    log(f"[default] Default scene: {r.ds.num_triangles} triangles, "
+        f"{bvh.n_leaves} leaves, texture pool {tuple(r.tex.data.shape)}; "
+        f"512x512, 5 bounces, 4 spp: {dt / 3 * 1e3:.1f} ms per render step, "
+        f"{rays / dt / 1e6:.3f} useful Mrays/s, peak memory {peak:.0f} MiB, "
+        f"{background} background pixels equal 1 - exp(-sky); "
+        f"{time.perf_counter() - t0:.1f} s")
+    _write_png(r, "default_512.png", "default")
+
+
+def _film(scene_fn, width, bounces, frames, dev, instancing="auto"):
+    r = _renderer(scene_fn(), width, 1, bounces, dev, instancing)
     for _ in range(frames):
         _step_frame(r)
         r.render()
@@ -852,10 +1385,14 @@ def phase_cross_device():
          lambda: build_animated_scene(ns, 16, 60), 32, 2),
         ("static alpha split n=16 + 60 cards, 32x32, 3 bounces",
          lambda: build_animated_scene(ns, 16, 60, animate=False), 32, 1),
+        ("instanced alpha, 6 instances of a 12x12 grid, shared, 32x32, "
+         "3 bounces", lambda: build_instanced_scene(ns, 6, 12, alpha=True),
+         32, 1),
     )
     for what, scene_fn, width, frames in paths:
         t0 = time.perf_counter()
-        films = {dev: _film(scene_fn, width, 3, frames, dev)
+        mode = "shared" if what.startswith("instanced") else "auto"
+        films = {dev: _film(scene_fn, width, 3, frames, dev, mode)
                  for dev in ("cuda", "cpu")}
         mse = float(np.mean((films["cuda"] - films["cpu"]) ** 2))
         log(f"[cross] {what}, 1 spp: film MSE cuda vs cpu {mse:.3e} (limit "
@@ -878,11 +1415,16 @@ def main() -> None:
     counts, times, main_stats = phase_main()
     a_counts, a_times, anim_stats = phase_animated()
     phase_alpha()
+    i_counts, i_times, inst_stats = phase_instanced()
+    phase_courtyard()
+    phase_default()
     phase_cross_device()
     counts.update(a_counts)
+    counts.update(i_counts)
     times.update(a_times)
+    times.update(i_times)
     rows = []
-    for k in ("closest_bf8", "occluded_bf8", "closest_v4", "occluded_v4"):
+    for k in KERNELS:
         tm = times[(k, 0)]
         rows.append({"name": k, "route": "cuda", "source": SOURCES[k],
                      "replaces": REPLACES[k], "launches": counts[k],
@@ -897,7 +1439,8 @@ def main() -> None:
                      "bound_ms_bounce2": times[(k, 2)]["bound_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; static main path "
         f"{json.dumps(main_stats)}; animated main path "
-        f"{json.dumps(anim_stats)}")
+        f"{json.dumps(anim_stats)}; instanced main path "
+        f"{json.dumps(inst_stats)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

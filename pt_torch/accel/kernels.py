@@ -1,20 +1,26 @@
-"""Traversal kernels K1/K2 (BF8 tree) and K3/K4 (binary PacketBVH).
+"""Traversal kernels K1/K2 (BF8 tree), K3/K4 (binary PacketBVH) and K5/K6
+(instanced BF8 tree over shared pages).
 
 K1 `closest_bf8` replaces pt/accel/pallas_bvh.py:packet_closest_bf8, K2
 `occluded_bf8` replaces :packet_occluded_bf8, K3 `closest_v4` replaces
-:packet_closest_v4 and K4 `occluded_v4` replaces :packet_occluded_v4. The
-kernels are CUDA C++ for sm_90a (csrc/bf8_kernels.cu over csrc/bf8_traverse.cuh,
-csrc/v4_kernels.cu over csrc/v4_traverse.cuh, both over csrc/rt_common.cuh),
-built with nvcc at first use into the port's git-ignored build directory, one
-library per source, and bound through ctypes. They are bound by dependent
-global loads of node and page rows, not by FLOPs: one thread per ray walks
-its own stack (K1/K2) or the preorder skip links (K3/K4), and this first
-design does nothing about that yet.
+:packet_closest_v4, K4 `occluded_v4` replaces :packet_occluded_v4, K5
+`closest_bf8i` replaces pt/accel/instanced.py:packet_closest_bf8i and K6
+`occluded_bf8i` replaces :packet_occluded_bf8i. The kernels are CUDA C++ for
+sm_90a (csrc/bf8_kernels.cu over csrc/bf8_traverse.cuh, csrc/v4_kernels.cu
+over csrc/v4_traverse.cuh, csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh,
+all over csrc/rt_common.cuh), built with nvcc at first use into the port's
+git-ignored build directory, one library per source, and bound through
+ctypes. They are bound by dependent global loads of node and page rows, not
+by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6) or the
+preorder skip links (K3/K4), and this first design does nothing about that
+yet.
 
 Beside each kernel sits its plain PyTorch version (`closest_bf8_plain`,
-`occluded_bf8_plain`, `closest_v4_plain`, `occluded_v4_plain`): every valid
-page column decoded into (W, b, id) and all rays tested against all of them
-in chunks, with the kernel's Woop arithmetic and tie rule. The trees are
+`occluded_bf8_plain`, `closest_v4_plain`, `occluded_v4_plain`,
+`closest_bf8i_plain`, `occluded_bf8i_plain`): every valid page column
+decoded into (W, b, id) and all rays tested against all of them in chunks
+(for K5/K6 segment by segment, the rays mapped into the segment's object
+space first), with the kernel's Woop arithmetic and tie rule. The trees are
 conservative, so it computes the same function as the traversal.
 
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
@@ -31,9 +37,11 @@ import shutil
 import threading
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from pt_torch.accel.bvh8 import ALPHA_TRI_BIT, BF8BVH, PacketBVH
+from pt_torch.accel.instanced import SEG_SHIFT, BF8Instanced
 from pt_torch.accel.intersect import Hit
 from pt_torch.accel.native import BUILD_DIR, compile_shared
 
@@ -45,13 +53,16 @@ _CUDA_LIBS = {
             (CSRC / "bf8_kernels.cu", CSRC / "bf8_traverse.cuh", _COMMON)),
     "v4": (BUILD_DIR / "libpt_v4_sm90a.so",
            (CSRC / "v4_kernels.cu", CSRC / "v4_traverse.cuh", _COMMON)),
+    "bf8i": (BUILD_DIR / "libpt_bf8i_sm90a.so",
+             (CSRC / "bf8i_kernels.cu", CSRC / "bf8i_traverse.cuh",
+              CSRC / "bf8_traverse.cuh", _COMMON)),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"closest_bf8": 0, "occluded_bf8": 0, "closest_v4": 0,
-            "occluded_v4": 0}
+            "occluded_v4": 0, "closest_bf8i": 0, "occluded_bf8i": 0}
 
 _lock = threading.Lock()
 _cuda_handles: Dict[str, ctypes.CDLL] = {}
@@ -111,7 +122,8 @@ def build_kernels(ptxas_verbose: bool = False) -> str:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name` ("bf8" or "v4"), built if stale."""
+    """The loaded kernel library `name` ("bf8", "v4" or "bf8i"), built if
+    stale."""
     build_kernels()
     with _lock:
         lib = _cuda_handles.get(name)
@@ -127,6 +139,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_bf8_occluded.restype = i
                 lib.pt_bf8_occluded.argtypes = (tree + rays
                                                 + [i, i, p, p, p, p, p])
+            elif name == "bf8i":
+                tree = [p, p, p, p, p, p, p, p, p, i, i]
+                lib.pt_bf8i_closest.restype = i
+                lib.pt_bf8i_closest.argtypes = (
+                    tree + rays + [i, i, p, p, p, p, p, p, p, p, p])
+                lib.pt_bf8i_occluded.restype = i
+                lib.pt_bf8i_occluded.argtypes = (
+                    tree + rays + [i, i, p, p, p, p, p, p])
             else:
                 tree = [p, p, p, p, p, i, i, i]
                 lib.pt_v4_closest.restype = i
@@ -161,7 +181,8 @@ def _check_rays(bvh, origins, dirs, limit, what: str) -> int:
     return n
 
 
-def _check(bvh8: BF8BVH, origins, dirs, limit, what: str) -> int:
+def _check(bvh8, origins, dirs, limit, what: str) -> int:
+    """`_check_rays` plus the stack bound of a BF8BVH or BF8Instanced."""
     n = _check_rays(bvh8, origins, dirs, limit, what)
     if bvh8.stack_bound > 128:
         raise ValueError(f"BF8 tree depth {bvh8.depth} needs a stack of "
@@ -180,6 +201,36 @@ def _tree_args(bvh8: BF8BVH):
             bvh8.c_ent.data_ptr(), bvh8.l_lo.data_ptr(),
             bvh8.l_hi.data_ptr(), bvh8.pages.data_ptr(), bvh8.block,
             bvh8.pages.shape[-1])
+
+
+def _tree_args_bf8i(bvh: BF8Instanced):
+    n8, n_leaves = bvh.n8, bvh.n_leaves
+    f32, i32 = torch.float32, torch.int32
+    for name, shape, dtype in (("c_lo", (n8 * 8, 3), f32),
+                               ("c_hi", (n8 * 8, 3), f32),
+                               ("c_ent", (n8 * 8,), i32),
+                               ("l_lo", (n_leaves, 3), f32),
+                               ("l_hi", (n_leaves, 3), f32),
+                               ("leaf_page", (n_leaves,), i32),
+                               ("leaf_seg", (n_leaves,), i32),
+                               ("seg_inv", (bvh.n_segs * 12,), f32)):
+        a = getattr(bvh, name)
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise TypeError(f"BF8Instanced.{name}: expected {shape} {dtype}, "
+                            f"got {tuple(a.shape)} {a.dtype}")
+        if not a.is_contiguous() or a.device != bvh.device:
+            raise ValueError("BF8Instanced tensors must be contiguous and "
+                             "on one device")
+    if bvh.pages.dtype != f32 or not bvh.pages.is_contiguous():
+        raise TypeError("BF8Instanced: pages must be contiguous float32")
+    if n8 < 1 or bvh.pages.shape[-1] < 7 * bvh.block:
+        raise ValueError("BF8Instanced: empty tree or pages narrower than "
+                         "7 * block")
+    return (bvh.c_lo.data_ptr(), bvh.c_hi.data_ptr(), bvh.c_ent.data_ptr(),
+            bvh.l_lo.data_ptr(), bvh.l_hi.data_ptr(),
+            bvh.leaf_page.data_ptr(), bvh.leaf_seg.data_ptr(),
+            bvh.seg_inv.data_ptr(), bvh.pages.data_ptr(), bvh.block,
+            bvh.pages.shape[-1])
 
 
 def _tree_args_v4(pbvh: PacketBVH):
@@ -216,27 +267,45 @@ class WorkCounts(NamedTuple):
     tri_seen: torch.Tensor
 
 
-def work_counts(bvh) -> WorkCounts:
-    """Zeroed WorkCounts for launches over `bvh` (a BF8BVH or a PacketBVH),
-    on its device."""
+class InstancedWorkCounts(NamedTuple):
+    """WorkCounts of a launch over a BF8Instanced, in the kernels' argument
+    order. `totals` (4,) int64: wide-node visits, leaf-box retests, leaf
+    visits and triangle tests. `node_seen` (n8,), `leaf_seen` (L,) and
+    `tri_seen` (pages*block,) uint8: 1 where any ray visited the node,
+    visited the leaf (read its page and segment indices and its transform)
+    or tested the shared page column (page * block + j)."""
+    totals: torch.Tensor
+    node_seen: torch.Tensor
+    leaf_seen: torch.Tensor
+    tri_seen: torch.Tensor
+
+
+def work_counts(bvh):
+    """Zeroed WorkCounts for launches over `bvh` (a BF8BVH or a PacketBVH;
+    InstancedWorkCounts for a BF8Instanced), on its device."""
     def zeros(n, dtype):
         return torch.zeros(n, dtype=dtype, device=bvh.device)
+    tri_seen = zeros(bvh.pages.shape[0] * bvh.block, torch.uint8)
+    if isinstance(bvh, BF8Instanced):
+        return InstancedWorkCounts(zeros(4, torch.int64),
+                                   zeros(bvh.n8, torch.uint8),
+                                   zeros(bvh.n_leaves, torch.uint8), tri_seen)
     n_totals, n_nodes = ((3, bvh.n8) if isinstance(bvh, BF8BVH)
                          else (2, bvh.n_top))
     return WorkCounts(zeros(n_totals, torch.int64),
-                      zeros(n_nodes, torch.uint8),
-                      zeros(bvh.pages.shape[0] * bvh.block, torch.uint8))
+                      zeros(n_nodes, torch.uint8), tri_seen)
 
 
-def _counts_ptrs(counts: Optional[WorkCounts], bvh):
-    """Launcher arguments for `counts`: three null pointers when None,
-    which selects the uncounted kernel variant."""
+def _counts_ptrs(counts, bvh):
+    """Launcher arguments for `counts`: null pointers when None, which
+    selects the uncounted kernel variant."""
+    want = work_counts(bvh)
     if counts is None:
-        return None, None, None
-    for a, want in zip(counts, work_counts(bvh)):
-        if (a.shape != want.shape or a.dtype != want.dtype
-                or a.device != want.device or not a.is_contiguous()):
-            raise ValueError("counts must be shaped as work_counts(bvh)")
+        return (None,) * len(want)
+    if len(counts) != len(want) or any(
+            a.shape != w.shape or a.dtype != w.dtype or a.device != w.device
+            or not a.is_contiguous() for a, w in zip(counts, want)):
+        raise ValueError("counts must be shaped as work_counts(bvh)")
     return tuple(a.data_ptr() for a in counts)
 
 
@@ -248,9 +317,10 @@ def _raise_on(lib, code: int, name: str) -> None:
 
 def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
                     tmax, tmin: float, n: int,
-                    counts: Optional[WorkCounts]) -> Hit:
+                    counts, flags=()) -> Hit:
     """Allocate the outputs and launch closest kernel `name` on the rays'
-    stream; adds one to its launch count."""
+    stream; adds one to its launch count. `flags`: the kernel's int
+    arguments between tmin and n."""
     t = torch.empty(n, dtype=torch.float32, device=origins.device)
     tri = torch.empty(n, dtype=torch.int32, device=origins.device)
     u = torch.empty_like(t)
@@ -261,7 +331,7 @@ def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
     stream = torch.cuda.current_stream(origins.device).cuda_stream
     code = getattr(lib, f"pt_{lib_name}_closest")(
         *tree_args, origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(),
-        float(tmin), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        float(tmin), *flags, n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
         v.data_ptr(), *_counts_ptrs(counts, bvh), stream)
     _raise_on(lib, code, name)
     launches[name] += 1
@@ -339,6 +409,47 @@ def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
                               *_counts_ptrs(counts, pbvh), stream)
     _raise_on(lib, code, "occluded_v4")
     launches["occluded_v4"] += 1
+    return out.view(torch.bool)
+
+
+def closest_bf8i(bvh: BF8Instanced, origins: torch.Tensor,
+                 dirs: torch.Tensor, tmax: torch.Tensor, tmin: float = 1e-5,
+                 raw_ids: bool = False,
+                 counts: Optional[InstancedWorkCounts] = None) -> Hit:
+    """Closest hit of N rays over a BF8Instanced. Hit ids carry the segment
+    in bits [SEG_SHIFT, SEG_SHIFT + 10) and the mesh-local triangle id below
+    (`decode_instanced_tri`); `raw_ids` keeps ALPHA_TRI_BIT. A miss gives
+    t = tmax, tri = -1. `counts` as for closest_bf8."""
+    n = _check(bvh, origins, dirs, tmax, "tmax")
+    if origins.device.type == "cpu":
+        return closest_bf8i_plain(bvh, origins, dirs, tmax, tmin, raw_ids)
+    return _launch_closest("closest_bf8i", "bf8i", _tree_args_bf8i(bvh), bvh,
+                           origins, dirs, tmax, tmin, n, counts,
+                           flags=(int(bool(raw_ids)),))
+
+
+def occluded_bf8i(bvh: BF8Instanced, origins: torch.Tensor,
+                  dirs: torch.Tensor, dist: torch.Tensor, tmin: float = 1e-5,
+                  opaque_only: bool = False,
+                  counts: Optional[InstancedWorkCounts] = None) -> torch.Tensor:
+    """Any hit with tmin < t < dist for N rays over a BF8Instanced; bool
+    (N,). With `opaque_only`, triangles tagged ALPHA_TRI_BIT are ignored."""
+    n = _check(bvh, origins, dirs, dist, "dist")
+    if origins.device.type == "cpu":
+        return occluded_bf8i_plain(bvh, origins, dirs, dist, tmin,
+                                   opaque_only)
+    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
+    if n == 0:
+        return out.view(torch.bool)
+    lib = _lib("bf8i")
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    code = lib.pt_bf8i_occluded(*_tree_args_bf8i(bvh), origins.data_ptr(),
+                                dirs.data_ptr(), dist.data_ptr(),
+                                float(tmin), int(bool(opaque_only)), n,
+                                out.data_ptr(), *_counts_ptrs(counts, bvh),
+                                stream)
+    _raise_on(lib, code, "occluded_bf8i")
+    launches["occluded_bf8i"] += 1
     return out.view(torch.bool)
 
 
@@ -451,3 +562,119 @@ def occluded_v4_plain(pbvh: PacketBVH, origins, dirs, dist,
     """Plain PyTorch version of K4 (no `opaque_only`: every triangle
     occludes)."""
     return occluded_bf8_plain(pbvh, origins, dirs, dist, tmin)
+
+
+def _instanced_decoded(bvh: BF8Instanced):
+    """For the plain versions of K5/K6: `decode_pages` of the shared pages
+    and, per segment, its inverse transform and the decoded columns of its
+    mesh's pages (the pages its leaves reference). Kept on the structure."""
+    cache = getattr(bvh, "_plain_cache", None)
+    if cache is not None:
+        return cache
+    w, bias, wd, ids = decode_pages(bvh)
+    all_ids = bvh.pages[:, 0, 6 * bvh.block:7 * bvh.block].contiguous() \
+        .view(torch.int32).reshape(-1)
+    col_page = (torch.arange(all_ids.shape[0], device=bvh.device)
+                // bvh.block)[all_ids >= 0].cpu().numpy()
+    leaf_page = bvh.leaf_page.cpu().numpy()
+    leaf_seg = bvh.leaf_seg.cpu().numpy()
+    order = leaf_seg.argsort(kind="stable")
+    starts = leaf_seg[order].searchsorted(range(bvh.n_segs + 1))
+    cols_of_pages = {}      # segments of one mesh share their column set
+    segs = []
+    for s in range(bvh.n_segs):
+        pages = tuple(sorted(set(
+            leaf_page[order[starts[s]:starts[s + 1]]].tolist())))
+        cols = cols_of_pages.get(pages)
+        if cols is None:
+            mask = torch.as_tensor(np.isin(col_page, pages),
+                                   device=bvh.device)
+            cols = (w[mask], bias[mask], wd[mask], ids[mask])
+            cols_of_pages[pages] = cols
+        segs.append(cols)
+    cache = (bvh.seg_inv.reshape(bvh.n_segs, 12), segs)
+    bvh._plain_cache = cache
+    return cache
+
+
+def _to_object(a, o, d):
+    """Rays (C, 3) into the object space of the segment whose inverse
+    transform row is `a` (12,), in the kernel's order of operations."""
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    o2 = torch.stack([((a[3 * k] * ox + a[3 * k + 1] * oy)
+                       + a[3 * k + 2] * oz) + a[9 + k] for k in range(3)],
+                     dim=1)
+    d2 = torch.stack([(a[3 * k] * dx + a[3 * k + 1] * dy)
+                      + a[3 * k + 2] * dz for k in range(3)], dim=1)
+    return o2, d2
+
+
+def _seg_chunks(n_rays: int, n_cols: int):
+    """Ray slices for one segment of the plain K5/K6: rays times the
+    segment's columns stay within _RAY_TRI_BUDGET."""
+    chunk = max(1, _RAY_TRI_BUDGET // n_cols)
+    return [slice(s0, s0 + chunk) for s0 in range(0, n_rays, chunk)]
+
+
+def closest_bf8i_plain(bvh: BF8Instanced, origins, dirs, tmax,
+                       tmin: float = 1e-5, raw_ids: bool = False) -> Hit:
+    """Plain PyTorch version of K5: for each segment, the rays mapped into
+    its object space and tested against all of its mesh's triangles; ids
+    branded with segment << SEG_SHIFT. Smallest t wins; on an exact tie the
+    smallest branded id (ALPHA_TRI_BIT stripped), with u/v from it."""
+    seg_inv, segs = _instanced_decoded(bvh)
+    dev = origins.device
+    n = origins.shape[0]
+    inf = float("inf")
+    best_t = torch.full((n,), inf, dtype=torch.float32, device=dev)
+    best_id = torch.full((n,), _INT32_MAX, dtype=torch.int64, device=dev)
+    best_raw = torch.full_like(best_id, -1)
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+    for s, (w, bias, wd, ids) in enumerate(segs):
+        if ids.shape[0] == 0:
+            continue
+        raw = (ids.to(torch.int64) | (s << SEG_SHIFT))[None, :]
+        idc = raw & ~ALPHA_TRI_BIT
+        for sl in _seg_chunks(n, ids.shape[0]):
+            o2, d2 = _to_object(seg_inv[s], origins[sl], dirs[sl])
+            t, u, v, ok = _woop_chunk(o2, d2, w, bias, wd, tmin, tmax[sl])
+            tm = torch.where(ok, t, inf)
+            seg_t = tm.min(dim=1).values
+            at_min = ok & (tm == seg_t[:, None])
+            sel_id = torch.where(at_min, idc, _INT32_MAX).min(dim=1).values
+            j = torch.argmax((at_min & (idc == sel_id[:, None]))
+                             .to(torch.int8), dim=1)[:, None]
+            better = (seg_t < best_t[sl]) | ((seg_t == best_t[sl])
+                                             & (sel_id < best_id[sl]))
+            best_t[sl] = torch.where(better, seg_t, best_t[sl])
+            best_id[sl] = torch.where(better, sel_id, best_id[sl])
+            best_raw[sl] = torch.where(better, raw.expand(j.shape[0], -1)
+                                       .gather(1, j)[:, 0], best_raw[sl])
+            best_u[sl] = torch.where(better, u.gather(1, j)[:, 0], best_u[sl])
+            best_v[sl] = torch.where(better, v.gather(1, j)[:, 0], best_v[sl])
+    hit = torch.isfinite(best_t)
+    tri = best_raw if raw_ids else torch.where(hit, best_id, -1)
+    return Hit(torch.where(hit, best_t, tmax), tri.to(torch.int32), best_u,
+               best_v)
+
+
+def occluded_bf8i_plain(bvh: BF8Instanced, origins, dirs, dist,
+                        tmin: float = 1e-5,
+                        opaque_only: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K6: any accepted hit in any segment."""
+    seg_inv, segs = _instanced_decoded(bvh)
+    n = origins.shape[0]
+    occ = torch.zeros((n,), dtype=torch.bool, device=origins.device)
+    for s, (w, bias, wd, ids) in enumerate(segs):
+        if opaque_only:
+            keep = (ids & ALPHA_TRI_BIT) == 0
+            w, bias, wd = w[keep], bias[keep], wd[keep]
+        if w.shape[0] == 0:
+            continue
+        for sl in _seg_chunks(n, w.shape[0]):
+            o2, d2 = _to_object(seg_inv[s], origins[sl], dirs[sl])
+            _, _, _, ok = _woop_chunk(o2, d2, w, bias, wd, tmin, dist[sl])
+            occ[sl] |= ok.any(dim=1)
+    return occ

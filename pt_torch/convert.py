@@ -2,8 +2,8 @@
 
 In a path tracer the scene and accel arrays play the part of weights: to
 hold the port against `pt` on identical state, `pt`'s DeviceScene,
-DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH and AlphaSplit are
-read out as mappings of field name → numpy array (or Python scalar for
+DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH, BF8Instanced and
+AlphaSplit are read out as mappings of field name → numpy array (or Python scalar for
 static metadata) and converted here.
 Arrays keep their bits: bf16 texel rows arrive as numpy `bfloat16` (or raw
 uint16) and are reinterpreted, and the f32 page id rows are copied as raw
@@ -20,6 +20,7 @@ import torch
 
 from pt_torch import default_device
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, bf8_depth
+from pt_torch.accel.instanced import BF8Instanced
 from pt_torch.render.integrator import AlphaSplit
 from pt_torch.render.textures import DeviceTextures
 from pt_torch.scene.flatten import DeviceScene
@@ -69,10 +70,19 @@ def bf8_bvh(fields: Mapping, device=None) -> BF8BVH:
     return out
 
 
+def bf8_instanced(fields: Mapping, device=None) -> BF8Instanced:
+    """`pt.accel.instanced.BF8Instanced` fields → BF8Instanced, with its
+    tree depth worked out from the child entries."""
+    out = _convert(BF8Instanced, fields, device)
+    out.depth = bf8_depth(np.asarray(fields["c_ent"]))
+    return out
+
+
 def alpha_split(bvh_opaque, sel_opaque, bvh_alpha, sel_alpha,
                 device=None) -> AlphaSplit:
     """`pt.render.integrator.AlphaSplit` → AlphaSplit: the two subset trees
-    as already converted structures (`bf8_bvh` / `packet_bvh`), the
+    as already converted structures (`bf8_bvh` / `packet_bvh` /
+    `bf8_instanced`), the
     selections as numpy arrays of global triangle ids. `pt`'s `tri_opaque` /
     `tri_alpha` rows serve its brute backend only and are not carried."""
     return AlphaSplit(bvh_opaque, to_tensor(np.asarray(sel_opaque, np.int32),

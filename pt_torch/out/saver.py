@@ -1,8 +1,8 @@
 """Offline frame sink: PNG and Radiance HDR image files.
 
 Port of the still-image half of `pt.out.saver`. PNG is written with the
-standard library alone (`zlib` + `struct`: 8-bit RGB, filter 0 per
-scanline), so the port needs no Pillow; HDR is the Radiance RGBE writer.
+standard library alone (`zlib` + `struct`: 8 bits per sample, filter 0
+per scanline), so the port needs no Pillow; HDR is the Radiance RGBE writer.
 The threaded video sink (OutputSaver) comes with a later slice.
 """
 
@@ -40,15 +40,19 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(u8: np.ndarray) -> bytes:
-    """PNG bytes of an (H, W, 3) uint8 image: 8-bit truecolor, no
-    interlace, filter type 0 on every scanline."""
+    """PNG bytes of an (H, W, C) uint8 image, C = 1 (grey; also (H, W)),
+    2 (grey + alpha), 3 (truecolor) or 4 (truecolor + alpha): 8 bits per
+    sample, no interlace, filter type 0 on every scanline."""
     u8 = np.ascontiguousarray(u8, np.uint8)
-    if u8.ndim != 3 or u8.shape[2] != 3:
-        raise ValueError(f"expected an (H, W, 3) image, got {u8.shape}")
-    h, w = u8.shape[:2]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, w * 3)],
+    if u8.ndim == 2:
+        u8 = u8[..., None]
+    if u8.ndim != 3 or not 1 <= u8.shape[2] <= 4:
+        raise ValueError(f"expected an (H, W, 1..4) image, got {u8.shape}")
+    h, w, ch = u8.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, w * ch)],
                          axis=1).tobytes()
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 2: 4, 3: 2, 4: 6}[ch],
+                       0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
             + _png_chunk(b"IDAT", zlib.compress(raw, 6))
             + _png_chunk(b"IEND", b""))

@@ -5,7 +5,8 @@ Port of `pt.render.integrator`: raygen, then per bounce a closest trace,
 `finish_sample`. The traces dispatch on the structure's type: a `BF8BVH`
 (static scenes) goes to kernels K1/K2, a binary `PacketBVH` (the per-frame
 Morton tree of an animated scene, or a static tree whose BF8 collapse did
-not fit) to K3/K4. The host drives the sample and bounce loops
+not fit) to K3/K4, a `BF8Instanced` (static scenes with shared-BLAS
+instancing) to K5/K6 through its `closest` / `occluded` methods. The host drives the sample and bounce loops
 (`pt_torch.run.renderer`); every stage is plain tensor code plus the kernel
 launches, with no host sync inside a bounce.
 
@@ -29,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, build_packet_bvh
+from pt_torch.accel.instanced import BF8Instanced
 from pt_torch.accel.intersect import Hit
 from pt_torch.accel.kernels import (closest_bf8, closest_v4, occluded_bf8,
                                     occluded_v4)
@@ -104,7 +106,8 @@ class Accel(NamedTuple):
     tri_tan: torch.Tensor        # (T, 9)
     tri_bit: torch.Tensor        # (T, 9)
     tri_uv: torch.Tensor         # (T, 6) uv0|uv1|uv2
-    bvh: Optional[object]        # BF8BVH | PacketBVH (None: not built yet)
+    bvh: Optional[object]        # BF8BVH | PacketBVH | BF8Instanced (None:
+                                 # not built yet)
     alpha_split: Optional[AlphaSplit] = None
 
 
@@ -452,25 +455,31 @@ def trace_occluded_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
 
 def trace_closest(bvh, origins, dirs, tmax):
     """Closest-hit query; the structure's type selects the kernel: K1 over
-    a BF8BVH, K3 over a PacketBVH (their plain versions on the CPU). tmax
-    is (N,) f32."""
+    a BF8BVH, K3 over a PacketBVH, K5 over a BF8Instanced (their plain
+    versions on the CPU). tmax is (N,) f32. A BF8Instanced strips
+    ALPHA_TRI_BIT and, when it carries `seg_tri_base`, remaps (segment,
+    mesh-local) ids to global flattened ids."""
     args = (origins.contiguous(), dirs.contiguous(), tmax.contiguous(), TMIN)
     if isinstance(bvh, BF8BVH):
         return closest_bf8(bvh, *args)
     if isinstance(bvh, PacketBVH):
         return closest_v4(bvh, *args)
+    if isinstance(bvh, BF8Instanced):
+        return bvh.closest(*args)
     raise NotImplementedError(
         f"no traversal kernel for {type(bvh).__name__}")
 
 
 def trace_occluded(bvh, origins, dirs, dist):
     """Shadow query (≙ checkOccluded, raygen.rgen:22-33): K2 over a BF8BVH,
-    K4 over a PacketBVH."""
+    K4 over a PacketBVH, K6 over a BF8Instanced."""
     args = (origins.contiguous(), dirs.contiguous(), dist.contiguous(), TMIN)
     if isinstance(bvh, BF8BVH):
         return occluded_bf8(bvh, *args)
     if isinstance(bvh, PacketBVH):
         return occluded_v4(bvh, *args)
+    if isinstance(bvh, BF8Instanced):
+        return bvh.occluded(*args)
     raise NotImplementedError(
         f"no occlusion kernel for {type(bvh).__name__}")
 

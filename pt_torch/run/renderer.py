@@ -5,8 +5,12 @@ acceleration structure and accumulation film. `_ensure_accel` builds the
 structure. A static scene gets the native SBVH at block 32 collapsed to BF8
 (kernels K1/K2), with opaque and alpha subset trees when it has
 alpha-tested triangles, and the binary SBVH tree (K3/K4) when the collapse
-does not fit. A scene with animated instances or skinned geometry gets the
-Morton `PacketBVH`, rebuilt on the device after every
+does not fit. A static scene whose `instancing` policy selects it gets the
+shared-BLAS structure instead (`BF8Instanced`, kernels K5/K6): one
+object-space page set per unique mesh under a world-space top tree, with
+instanced subset trees on an alpha scene; where that build is infeasible
+the scene is flattened as above. A scene with animated instances or skinned
+geometry gets the Morton `PacketBVH`, rebuilt on the device after every
 `update_scene_data(scene_changed=True)` (K3/K4). `render(samples)` traces
 the samples one at a time, each a full-film wavefront through raygen,
 `bounce_count` bounces (a closest and a shadow trace per bounce, more on an
@@ -37,7 +41,10 @@ from pt_torch.render.integrator import (Accel, AlphaSplit,
                                         raygen, start_carry)
 from pt_torch.render.textures import DeviceTextures, default_texture_pool
 from pt_torch.scene.builder import Scene
+from pt_torch.accel.instanced import (build_instanced_bf8,
+                                      build_instanced_split)
 from pt_torch.scene.flatten import (DeviceScene, flatten_scene,
+                                    shared_dup_ratio, shared_mesh_layout,
                                     update_seg_transforms)
 from pt_torch.scene.textures import build_scene_textures
 
@@ -54,28 +61,6 @@ def _tile_order(width: int, height: int, tile: int = 32) -> np.ndarray:
     return lin.reshape(-1)[np.argsort(key.reshape(-1), kind="stable")]
 
 
-def _shared_dup_ratio(scene: Scene):
-    """Flattened / unique triangle ratio of the scene's instancing (pt's
-    `shared_dup_ratio`), or None when any instanced geometry is animated
-    or there are no segments."""
-    seen = set()
-    unique = total = 0
-    for inst in scene.instances:
-        for mesh in scene.models[inst.model_index].meshes:
-            gi = mesh.geometry_index
-            geo = scene.geometries[gi]
-            if geo.is_animated:
-                return None
-            tcount = geo.index_count // 3
-            if gi not in seen:
-                seen.add(gi)
-                unique += tcount
-            total += tcount
-    if not total:
-        return None
-    return total / max(unique, 1), total
-
-
 class Renderer:
     """Progressive wavefront renderer for one scene."""
 
@@ -83,10 +68,11 @@ class Renderer:
                  post: Optional[PostProcessSettings] = None,
                  device=None, mesh=None, instancing: str = "auto"):
         """`device`: None → `cuda:0` (raises without a card); "cpu" runs
-        the kernels' plain versions. `mesh` (multi-device film sharding)
-        and shared-BLAS `instancing` are later slices of the port: a mesh,
-        or an instancing policy that selects the instanced kernels,
-        raises."""
+        the kernels' plain versions. `instancing`: the shared-BLAS policy
+        for static scenes: "auto" switches to the instanced structure when
+        geometry reuse is heavy (see `_want_instanced`), "shared" forces it
+        where it is feasible, "flatten" disables it. `mesh` (multi-device
+        film sharding) is a later slice of the port: a mesh raises."""
         self.device = default_device(device)
         self.mesh = mesh
         self.instancing = instancing
@@ -167,11 +153,52 @@ class Renderer:
             return True
         return dup_ratio >= 4.0 and n_tris >= 200_000
 
+    def _build_instanced(self, tri_np, opq_np, build_static, base):
+        """Shared-BLAS Accel for the current scene, or None → flatten.
+
+        Opaque scenes: one BF8Instanced with the global-id remap. Alpha
+        scenes: `build_instanced_split` gives the full tree (root bounds)
+        plus instanced opaque/alpha subset trees for the AlphaSplit scheme;
+        a subset whose instanced build is infeasible gets a flat subset
+        tree from `build_static` (hybrid: the duplicated bytes of a small
+        subset are acceptable). Wholly opaque or wholly alpha content has
+        no split: the single-tree loops walk the full instanced tree, as
+        they do when a subset has no tree at all."""
+        layout = shared_mesh_layout(self.scene)
+        if layout is None:
+            return None
+        meshes, seg_mesh, seg_base, _dup = layout
+        st = self.ds.seg_transform.cpu().numpy().astype(np.float64)
+        if not self.ds.has_alpha:
+            inst = build_instanced_bf8(meshes, seg_mesh, st,
+                                       seg_tri_base=seg_base,
+                                       device=self.device)
+            if inst is None:
+                return None
+            return base._replace(bvh=inst, alpha_split=None)
+        out = build_instanced_split(meshes, seg_mesh, st, seg_base,
+                                    device=self.device)
+        if out is None:
+            return None
+        full, (tree_o, sel_o), (tree_a, sel_a) = out
+        split = None
+        if len(sel_o) and len(sel_a):
+            if tree_o is None:
+                tree_o = build_static(tri_np[sel_o], opq_np[sel_o])
+            if tree_a is None:
+                tree_a = build_static(tri_np[sel_a], opq_np[sel_a])
+            if tree_o is not None and tree_a is not None:
+                t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+                split = AlphaSplit(tree_o, t(sel_o), tree_a, t(sel_a))
+        return base._replace(bvh=full, alpha_split=split)
+
     def _ensure_accel(self) -> None:
         """Build the acceleration structure when the scene changed
         (≙ pt's `_ensure_accel`). Animated scenes: the Morton tree, on the
-        device. Static scenes: the host SBVH build, BF8 where it fits, with
-        the opaque/alpha split trees on an alpha scene."""
+        device. Static scenes: the shared-BLAS structure when the
+        instancing policy selects it and it is feasible, else the host SBVH
+        build, BF8 where it fits; either with opaque/alpha split trees on
+        an alpha scene."""
         if not (self._accel_dirty or self.accel is None):
             return
         if self.mesh is not None:
@@ -183,12 +210,6 @@ class Renderer:
             self._accel_dirty = False
             return
         tri_np = self.ds.tri_idx.cpu().numpy()
-        dup = _shared_dup_ratio(self.scene)
-        if dup is not None and self._want_instanced(
-                self.instancing, dup[0], int(tri_np.shape[0])):
-            raise NotImplementedError(
-                "shared-BLAS instancing needs the instanced kernels K5/K6 "
-                "(pt/accel/instanced.py), slice 3 of the port")
         base = prepare_attribs(self.ds)
         wpos_np = base.wpos.cpu().numpy()
         opq_np = self.ds.tri_opaque.cpu().numpy()
@@ -207,6 +228,20 @@ class Renderer:
                                            tri_opaque_np=opq_rows,
                                            spatial=True, device=self.device)
             return bvh
+
+        # shared-BLAS arm: the policy gates on counts first, so a scene it
+        # rejects never pays for the layout's copies
+        if self.instancing != "flatten":
+            dup = shared_dup_ratio(self.scene)
+            if dup is not None and self._want_instanced(
+                    self.instancing, dup[0], int(tri_np.shape[0])):
+                inst_accel = self._build_instanced(tri_np, opq_np,
+                                                   build_static, base)
+                if inst_accel is not None:
+                    self.accel = inst_accel
+                    self._accel_dirty = False
+                    return
+                # infeasible (capacity or singular transform): flatten
 
         bvh = build_static(tri_np, opq_np)
         if bvh is None:

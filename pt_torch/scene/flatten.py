@@ -8,6 +8,8 @@ World-space vertices are one batched transform per frame
 vertices that carry bone weights. `update_seg_transforms` refreshes the
 per-frame state of an animated scene (segment transforms, bone palette,
 lights): one small upload, the only data that crosses the bus in a frame.
+`shared_dup_ratio` and `shared_mesh_layout` describe the scene's geometry
+reuse for the shared-BLAS structure of `pt_torch.accel.instanced`.
 """
 
 from __future__ import annotations
@@ -144,6 +146,83 @@ def _normal_matrices(transforms: torch.Tensor) -> torch.Tensor:
     cof = torch.stack([cr(r1, r2), cr(r2, r0), cr(r0, r1)], dim=1)
     det = torch.sum(r0 * cof[:, 0], dim=-1)
     return torch.where(det[:, None, None] < 0, -cof, cof)
+
+
+def shared_dup_ratio(scene: Scene):
+    """Counts-only duplication ratio (flattened triangles / unique
+    triangles) for the instancing policy: no vertex or index copies, so
+    the check costs O(instances) even on scenes the policy rejects.
+    Returns (dup_ratio, flattened_tri_count), or None when any instanced
+    geometry is animated or the scene has no segments."""
+    seen = set()
+    unique = total = 0
+    for inst in scene.instances:
+        for mesh in scene.models[inst.model_index].meshes:
+            gi = mesh.geometry_index
+            geo = scene.geometries[gi]
+            if geo.is_animated:
+                return None
+            tcount = geo.index_count // 3
+            if gi not in seen:
+                seen.add(gi)
+                unique += tcount
+            total += tcount
+    if not total:
+        return None
+    return total / max(unique, 1), total
+
+
+def shared_mesh_layout(scene: Scene):
+    """Shared-BLAS build inputs for `pt_torch.accel.instanced` (TLAS
+    semantics: one BLAS per Model reused by every ModelInstance).
+
+    Walks instances and meshes in exactly `flatten_scene`'s segment order
+    and dedupes by geometry index. Returns None when any geometry is
+    animated (those rebuild per frame on the Morton path), else
+    `(meshes, seg_mesh, seg_tri_base, dup_ratio)`:
+
+    * meshes       one (object positions, mesh-local tris, tri_opaque)
+                   per unique geometry
+    * seg_mesh     (S,) unique-mesh index per flatten segment
+    * seg_tri_base (S,) the segment's first triangle id in the flattened
+                   global numbering; `BF8Instanced.seg_tri_base` remaps
+                   instanced hits back to global ids with it
+    * dup_ratio    flattened triangles / unique triangles
+    """
+    geo_to_mesh: dict = {}
+    meshes: list = []
+    seg_mesh: List[int] = []
+    seg_tri_base: List[int] = []
+    tri_base = 0
+    for inst in scene.instances:
+        model = scene.models[inst.model_index]
+        for mesh in model.meshes:
+            gi = mesh.geometry_index
+            geo = scene.geometries[gi]
+            if geo.is_animated:
+                return None
+            mi = geo_to_mesh.get(gi)
+            if mi is None:
+                mi = len(meshes)
+                geo_to_mesh[gi] = mi
+                s, n = geo.vertex_offset, geo.vertex_count
+                pos = np.asarray(scene.vertices.positions[s:s + n],
+                                 np.float32)
+                idx = scene.indices[geo.index_offset:
+                                    geo.index_offset + geo.index_count]
+                tris = np.asarray(idx, np.int64).reshape(-1, 3) \
+                    .astype(np.int32)
+                opq = np.full(len(tris), geo.is_opaque, bool)
+                meshes.append((pos, tris, opq))
+            seg_mesh.append(mi)
+            seg_tri_base.append(tri_base)
+            tri_base += meshes[mi][1].shape[0]
+    if not seg_mesh:
+        return None
+    unique_tris = sum(m[1].shape[0] for m in meshes)
+    dup_ratio = tri_base / max(unique_tris, 1)
+    return (meshes, np.asarray(seg_mesh, np.int64),
+            np.asarray(seg_tri_base, np.int32), dup_ratio)
 
 
 def flatten_scene(scene: Scene, device=None) -> DeviceScene:

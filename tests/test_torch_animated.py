@@ -218,15 +218,23 @@ def test_scene_texture_pool_bit_equal_to_pt(layout):
         assert (info.height, info.width) == info.pixels.shape[:2]
 
 
-def test_encoded_texture_raises_naming_the_decoder_slice():
+def test_encoded_texture_raises_naming_the_decoder_slice(tmp_path):
+    """PNG and Radiance HDR are decoded now; a DDS texture, as bytes or as a
+    file, still raises, naming the importers' slice. A PNG cut short does
+    not raise: it becomes `pt`'s placeholder (None from the loader)."""
     ns = _ns("pt_torch")
-    info = ns.TextureInfo("file.png", ns.TextureType.COLOR,
-                          data=b"\x89PNG\r\n\x1a\n")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    info = ns.TextureInfo("file.dds", ns.TextureType.COLOR,
+                          data=b"DDS " + bytes(124))
+    with pytest.raises(NotImplementedError, match="importers' slice"):
         tstex.build_texture_pool([info], device="cpu")
-    with pytest.raises(NotImplementedError, match="decoders"):
+    path = tmp_path / "x.dds"
+    path.write_bytes(b"DDS " + bytes(124))
+    with pytest.raises(NotImplementedError, match="DDS"):
         tstex.load_texture_pixels(ns.TextureInfo("x", ns.TextureType.COLOR,
-                                                 path="x.jpg"))
+                                                 path=str(path)))
+    cut = ns.TextureInfo("file.png", ns.TextureType.COLOR,
+                         data=b"\x89PNG\r\n\x1a\n")
+    assert tstex.load_texture_pixels(cut) is None
 
 
 # ------------------------------------------------------- the alpha loops

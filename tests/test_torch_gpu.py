@@ -7,7 +7,7 @@ neither JAX nor `pt`, so it also runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
 (`--noconftest`: tests/conftest.py configures JAX for the other files.)
-K1-K4 hold bit-equal to their plain PyTorch versions: the kernels are built
+K1-K6 hold bit-equal to their plain PyTorch versions: the kernels are built
 with -fmad=false and run the plain version's f32 arithmetic in its order.
 """
 
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from pt_torch.accel import bvh8, kernels
+from pt_torch.accel import bvh8, instanced, kernels
 
 
 @pytest.fixture
@@ -209,4 +209,107 @@ def test_cuda_film_matches_cpu_film(cuda_device):
             assert kernels.launches["occluded_bf8"] == 3
         films.append(r.film_mean())
     assert np.isfinite(films[0]).all()
+    assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3
+
+
+def _instanced_structure(device, alpha_mesh=None, n_segs=12):
+    """`n_segs` instances of two wavy grids on a lattice (no overlaps), each
+    with its own scale and turn; mesh `alpha_mesh` is non-opaque."""
+    import chip_smoke
+    rng = np.random.default_rng(51)
+    meshes = []
+    for m, n in enumerate((14, 20)):
+        pos, _, _, tris = chip_smoke._wavy_grid(n)
+        opq = None if alpha_mesh is None else \
+            np.full(len(tris), m != alpha_mesh, bool)
+        meshes.append((pos, tris.astype(np.int32), opq))
+    seg_t = np.tile(np.eye(4), (n_segs, 1, 1))
+    for s in range(n_segs):
+        ang = rng.uniform(0, 2 * np.pi)
+        c, sn = np.cos(ang), np.sin(ang)
+        seg_t[s, :3, :3] = rng.uniform(0.5, 1.9) * np.asarray(
+            [[c, 0, sn], [0, 1, 0], [-sn, 0, c]])
+        seg_t[s, :3, 3] = (6.0 * (s % 4) - 9, 0.2 * s, 6.0 * (s // 4) - 6)
+    seg_mesh = [s % 2 for s in range(n_segs)]
+    b = instanced.build_instanced_bf8(meshes, seg_mesh, seg_t, device=device)
+    assert b is not None and b.pages.shape[0] < b.n_leaves
+    return b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha_mesh", [None, 1], ids=["opaque", "alpha"])
+def test_cuda_bf8i_kernels_match_plain(cuda_device, alpha_mesh):
+    """K5/K6 over a small instanced structure against their plain versions:
+    ids, t, u and v bit-equal, with `raw_ids` and `opaque_only`."""
+    b = _instanced_structure(cuda_device, alpha_mesh)
+    rng = np.random.default_rng(52)
+    n = 8192
+    target = np.stack([rng.uniform(-11, 11, n), rng.uniform(0, 3, n),
+                       rng.uniform(-8, 8, n)], -1)
+    o = target + rng.normal(0, 1, (n, 3)) * 4 + [0, 6, 0]
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = torch.as_tensor(o.astype(np.float32), device=cuda_device)
+    d = torch.as_tensor(d.astype(np.float32), device=cuda_device)
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    before = dict(kernels.launches)
+    for raw in (False, True):
+        hk = kernels.closest_bf8i(b, o, d, tmax, raw_ids=raw)
+        hp = kernels.closest_bf8i_plain(b, o, d, tmax, raw_ids=raw)
+        torch.cuda.synchronize()
+        assert int((hp.tri >= 0).sum()) > 1000
+        for x, y in zip(hk, hp):
+            assert torch.equal(x, y)
+    assert kernels.launches["closest_bf8i"] == before["closest_bf8i"] + 2
+    if alpha_mesh is not None:
+        assert bool((hk.tri[hk.tri >= 0] & bvh8.ALPHA_TRI_BIT).any())
+    dist = torch.full((n,), 9.0, device=cuda_device)
+    for flag in (False, True):
+        got = kernels.occluded_bf8i(b, o, d, dist, opaque_only=flag)
+        assert torch.equal(got, kernels.occluded_bf8i_plain(
+            b, o, d, dist, opaque_only=flag))
+        assert 0 < int(got.sum()) < n
+    assert kernels.launches["occluded_bf8i"] == before["occluded_bf8i"] + 2
+    counts = kernels.work_counts(b)
+    counted = kernels.closest_bf8i(b, o, d, tmax, raw_ids=True,
+                                   counts=counts)
+    for x, y in zip(counted, hk):          # the counted variant: same hits
+        assert torch.equal(x, y)
+    nodes, leaf_boxes, leaf_visits, tris = counts.totals.tolist()
+    assert nodes >= n and 0 < leaf_visits <= leaf_boxes and tris > 0
+    assert 0 < int(counts.leaf_seen.sum()) <= min(leaf_visits, b.n_leaves)
+    ids = b.pages[:, 0, 6 * b.block:7 * b.block].contiguous()
+    valid = ids.view(torch.int32).reshape(-1) >= 0
+    assert 0 < int(counts.tri_seen.sum()) <= int(valid.sum())
+    assert not bool(counts.tri_seen.bool()[~valid].any())
+    counts = kernels.work_counts(b)
+    kernels.occluded_bf8i(b, o, d, dist, counts=counts)
+    assert counts.totals[0] > 0 and counts.totals[2] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_instanced_film_matches_cpu_film(cuda_device):
+    """A small instanced alpha scene (K5/K6 over the full tree and both
+    instanced subset trees) on the card against the CPU's plain versions."""
+    import chip_smoke
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.renderer import Renderer
+    films = []
+    for dev in (cuda_device, "cpu"):
+        scene = chip_smoke.build_instanced_scene(
+            chip_smoke.port_namespace(), 6, 12, alpha=True)
+        r = Renderer(PathTracingSettings(bounce_count=3), device=dev,
+                     instancing="shared")
+        r.set_scene(scene)
+        r.on_resize(32, 32)
+        kernels.reset_launch_counts()
+        r.render(1)
+        sp = r.accel.alpha_split
+        assert {type(x).__name__ for x in (r.accel.bvh, sp.bvh_opaque,
+                                           sp.bvh_alpha)} == {"BF8Instanced"}
+        if dev != "cpu":
+            used = {k: v for k, v in kernels.launches.items() if v}
+            assert used == {"closest_bf8i": 27, "occluded_bf8i": 3}, used
+        films.append(r.film_mean())
+    assert np.isfinite(films[0]).all() and films[0].max() > 0
     assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3

@@ -1,9 +1,10 @@
-"""The PyTorch port stands alone: no JAX, no `pt`.
+"""The PyTorch port stands alone: no JAX, no `pt`, no `benches`, no Pillow.
 
-An AST scan finds no import of `jax` or `pt` under pt_torch/ or in
-chip_smoke.py; in a subprocess where both are made unimportable, pt_torch
-imports and renders an 8² Heightfield on the CPU; and with no device named,
-the entry points take the card and raise when there is none.
+An AST scan finds no import of them under pt_torch/ or in chip_smoke.py; in
+a subprocess where they are made unimportable, pt_torch imports and renders
+an 8² Heightfield, the Default scene, a small Courtyard and an instanced
+alpha scene on the CPU; and with no device named, the entry points take the
+card and raise when there is none.
 """
 
 import ast
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "pt"}
+FORBIDDEN = {"jax", "jaxlib", "pt", "benches", "PIL"}
 
 
 def _port_sources():
@@ -62,6 +63,47 @@ def test_port_renders_without_jax_or_pt():
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                           env=env, capture_output=True, text=True,
                           timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_instanced_and_default_scenes_render_without_jax_pt_or_pillow():
+    """The shared-BLAS path, the Courtyard and the Default scene
+    with its embedded PNGs, in a process where `jax`, `pt`, `benches` and
+    Pillow cannot be imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'pt', 'benches', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "import chip_smoke\n"
+        "from pt_torch.render.integrator import PathTracingSettings\n"
+        "from pt_torch.run.renderer import Renderer\n"
+        "from pt_torch.scene.examples import TEST_SCENES\n"
+        "from pt_torch.scene.standin import make_courtyard_scene\n"
+        "scenes = [(TEST_SCENES['Default'](), 'auto', 'BF8BVH'),\n"
+        "          (make_courtyard_scene(0.1, 0.05), 'shared',"
+        " 'BF8Instanced'),\n"
+        "          (chip_smoke.build_instanced_scene("
+        "chip_smoke.port_namespace(), 4, 8, True), 'shared',"
+        " 'BF8Instanced')]\n"
+        "for scene, mode, kind in scenes:\n"
+        "    r = Renderer(PathTracingSettings(bounce_count=2), device='cpu',"
+        " instancing=mode)\n"
+        "    r.set_scene(scene)\n"
+        "    r.on_resize(8, 8)\n"
+        "    r.render(1)\n"
+        "    assert type(r.accel.bvh).__name__ == kind, type(r.accel.bvh)\n"
+        "    film = r.film_mean()\n"
+        "    assert np.isfinite(film).all() and film.max() > 0\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
+        " if v is not None}\n"
+        "assert not loaded & {'jax', 'pt', 'benches', 'PIL'}\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
 

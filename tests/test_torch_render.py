@@ -195,13 +195,19 @@ def test_unported_paths_raise():
         r.set_scene(scene)
         r.on_resize(8, 8)
         r.render(1)
+    # shared-BLAS instancing renders now, through the instanced structure
     r = Renderer(device="cpu", instancing="shared")
     r.set_scene(scene)
     r.on_resize(8, 8)
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        r.render(1)
-    # an alpha-tested scene renders now; a texture given as an encoded file
-    # still raises, naming the decoders' slice
+    assert r.render(1) == 1 and np.isfinite(r.film_mean()).all()
+    assert type(r.accel.bvh).__name__ == "BF8Instanced"
+    flat = Renderer(device="cpu", instancing="flatten")
+    flat.set_scene(t_heightfield(8))
+    flat.on_resize(8, 8)
+    flat.render(1)
+    assert float(np.mean((r.film_mean() - flat.film_mean()) ** 2)) < 1e-3
+    # an alpha-tested scene renders; a texture given as a DDS file still
+    # raises, naming the importers' slice
     alpha = t_heightfield(8)
     alpha.geometries[0] = dataclasses.replace(alpha.geometries[0],
                                               is_opaque=False)
@@ -210,7 +216,7 @@ def test_unported_paths_raise():
     r.on_resize(8, 8)
     assert r.render(1) == 1 and np.isfinite(r.film_mean()).all()
     from pt_torch.scene.types import TextureInfo, TextureType
-    alpha.textures.append(TextureInfo("a.png", TextureType.COLOR,
-                                      data=b"\x89PNG"))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    alpha.textures.append(TextureInfo("a.dds", TextureType.COLOR,
+                                      data=b"DDS " + bytes(124)))
+    with pytest.raises(NotImplementedError, match="importers' slice"):
         Renderer(device="cpu").set_scene(alpha)
