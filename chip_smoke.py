@@ -45,21 +45,41 @@ Phases, each fatal on failure (nothing is caught and passed over):
    bounce-0 and bounce-2 wavefronts against plain version and bound; the same
    scene with `instancing="flatten"` for the gates: primary-hit flips <=
    0.5% of the pixels, mean film shift <= 2%;
-8. the Courtyard at 512², 5 bounces: detail 0.85 with `instancing="shared"`
+8. archive: `pt`'s archive kernels through the entry points that select
+   them (`pt_torch.accel.archive`), with the launch and call counters set to
+   0 before each run and read after. Path (a): `pt_torch.benches.bvh_kernels`
+   and `.widesub_ab` (Heightfield and Courtyard) at 65,536 rays, every arm
+   with 0 oracle mismatches and the occlusion arms agreeing with v1, one
+   JSON line per arm with its CUDA-event time. Path (b): the Heightfield at
+   512², 5 bounces, 4 spp with its tree swapped for a BF8V6 (exactly 60
+   closest_v6 and 60 occluded_v6 launches in 3 steps, no K1/K2), against the
+   BF8 frame of the same RNG (film MSE < 1e-3, primary-hit flips <= 0.5%);
+   direct calls of v6k2 and v7 on one recorded sample; closest_ordered,
+   closest_v6, closest_v6k2, closest_v7 and occluded_v6 against their plain
+   versions on 16,384-ray sets of real wavefronts and random rays (only
+   exact-tie lanes may differ), closest_ordered over the harness's SAH tree,
+   the fine SBVH and the Animated Heightfield's Morton tree; their times on
+   the bounce-0 and bounce-2 wavefronts, closest_ordered beside K3 on the
+   Morton tree's, each bound from the least work of the walks that computed
+   the same function on the same rays; the Heightfield (n=64) with a BF8V6
+   at 64², card against CPU;
+9. the Courtyard at 512², 5 bounces: detail 0.85 with `instancing="shared"`
    (985 segments; three instanced trees) and detail 1.0 with "auto" (1135
    segments, above the cap: the flat BF8 path with split trees); the Default
    scene (embedded PNG textures) at 512², written to a PNG;
-9. cross-device film, card (kernels) against CPU (plain versions), MSE <
-   1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
-   alpha frames, the static alpha variant and a small instanced alpha scene
-   at 32².
+10. cross-device film, card (kernels) against CPU (plain versions), MSE <
+    1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
+    alpha frames, the static alpha variant and a small instanced alpha scene
+    at 32².
 
 Phase 3 also holds K5 (closest_bf8i, with raw_ids) and K6 (occluded_bf8i,
 with opaque_only) against their plain versions over the 64-instance tree and
 over the three trees of the Courtyard at detail 0.85; lanes that differ at
 |dt| = 0 (exact ties between leaves) are counted apart.
 
-Prints the kernels' JSON line, then the `nvidia-smi` line, then as the last
+Prints the kernels' JSON line (K1-K6, then one row per archive entry point,
+with the kernel it runs and the workload it was timed on), then the
+`nvidia-smi` line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -96,6 +116,13 @@ OPS_PER_WOOP = 45
 BYTES_PER_NODE = 8 * (12 + 12 + 4)
 BYTES_PER_NODE_V4 = 12 + 12 + 4 + 4
 BYTES_PER_TRI = (9 + 3 + 1) * 4
+# a BF8V6 closest visit also reads its node's packed push order for the ray's
+# octant (one i32); its leaf rows, like K1's leaf boxes, copy the parent's
+# child boxes and are not counted. The ordered binary walk counts one box
+# test per node tested (the root, and both children of each internal node
+# whose box passed; not the pop retest), each reading a binary node as
+# BYTES_PER_NODE_V4 (box, skip link, leaf id).
+BYTES_PER_NODE_V6 = BYTES_PER_NODE + 4
 # an instanced leaf visit reads two indices (page, segment) and maps the ray
 # with the segment's 12 transform floats: 18 operations for o', 15 for d'
 BYTES_PER_LEAF_INDEX = 2 * 4
@@ -132,6 +159,25 @@ SOURCES = {
     "occluded_bf8i": "pt_torch/accel/csrc/bf8i_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
+# the archive's entry points (pt/accel/pallas_bvh_archive.py), in pt's order
+# A1-A10, each with the port's kernel that it runs
+ARCHIVE = {
+    "packet_closest_v3": (1763, "closest_ordered"),
+    "packet_closest_bf8w": (1802, "closest_bf8"),
+    "packet_closest_v6": (1854, "closest_v6"),
+    "packet_closest_v6k2": (1893, "closest_v6k2"),
+    "packet_closest_v7": (1933, "closest_v7"),
+    "packet_occluded_v6": (1975, "occluded_v6"),
+    "packet_closest": (2009, "closest_ordered"),
+    "packet_occluded": (2039, "occluded_v4"),
+    "packet_occluded_sub": (2063, "occluded_v4"),
+    "packet_closest_sub": (2089, "closest_ordered"),
+}
+SOURCES.update(closest_ordered="pt_torch/accel/csrc/ordered_kernels.cu",
+               closest_v6="pt_torch/accel/csrc/v6_kernels.cu",
+               closest_v6k2="pt_torch/accel/csrc/v6_kernels.cu",
+               closest_v7="pt_torch/accel/csrc/v6_kernels.cu",
+               occluded_v6="pt_torch/accel/csrc/v6_kernels.cu")
 
 
 def fail(msg: str) -> None:
@@ -744,13 +790,13 @@ def _parity_bf8i(rng):
     return errs
 
 
-def _bound(n, out_bytes, counts, bvh=None):
+def _bound(n, out_bytes, counts, bvh=None, node_bytes=None):
     """Least time for the launch, from what this launch's rays touched: the
     bytes (rays read once, results written once, and each wide node and
-    triangle that any ray visited read once; for an instanced structure
-    `bvh` also the index pair of each leaf visited and the transform of each
-    segment reached) over the HBM rate vs the counted f32 operations over
-    the f32 rate."""
+    triangle that any ray visited read once, a node as `node_bytes` where
+    given; for an instanced structure `bvh` also the index pair of each leaf
+    visited and the transform of each segment reached) over the HBM rate vs
+    the counted f32 operations over the f32 rate."""
     totals = [int(c) for c in counts.totals.tolist()]
     nodes_seen = int(counts.node_seen.sum())
     tris_seen = int(counts.tri_seen.sum())
@@ -758,7 +804,7 @@ def _bound(n, out_bytes, counts, bvh=None):
     if len(totals) == 4:        # instanced BF8: as BF8, plus per leaf visit
         # the two indices and the ray's map into the segment's space
         nodes, leaf_boxes, leaf_visits, tris = totals
-        slabs, node_bytes = 8 * nodes + leaf_boxes, BYTES_PER_NODE
+        slabs, per_node = 8 * nodes + leaf_boxes, BYTES_PER_NODE
         seen = counts.leaf_seen.bool()
         segs_seen = int(bvh.leaf_seg[seen].unique().numel())
         extra_bytes = (int(seen.sum()) * BYTES_PER_LEAF_INDEX
@@ -766,19 +812,44 @@ def _bound(n, out_bytes, counts, bvh=None):
         extra_ops = leaf_visits * OPS_PER_XFORM
     elif len(totals) == 3:      # BF8: 8 child slabs a visit + leaf retests
         nodes, leaf_boxes, tris = totals
-        slabs, node_bytes = 8 * nodes + leaf_boxes, BYTES_PER_NODE
-    else:                       # binary tree: one slab a visit
+        slabs, per_node = 8 * nodes + leaf_boxes, BYTES_PER_NODE
+    else:                       # binary tree: one slab a counted node
         nodes, tris = totals
-        slabs, node_bytes = nodes, BYTES_PER_NODE_V4
+        slabs, per_node = nodes, BYTES_PER_NODE_V4
     nbytes = (n * (12 + 12 + 4) + n * out_bytes + extra_bytes
-              + nodes_seen * node_bytes + tris_seen * BYTES_PER_TRI)
+              + nodes_seen * (node_bytes or per_node)
+              + tris_seen * BYTES_PER_TRI)
     ops = slabs * OPS_PER_SLAB + tris * OPS_PER_WOOP + extra_ops
+    return dict(**_bound_of(nbytes, ops), node_visits=nodes, tri_tests=tris,
+                nodes_seen=nodes_seen, tris_seen=tris_seen)
+
+
+def _bound_of(nbytes, ops):
+    """The larger of `nbytes` over the HBM rate and `ops` over the f32
+    rate, in ms."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=nbytes, node_visits=nodes, tri_tests=tris,
-                nodes_seen=nodes_seen, tris_seen=tris_seen)
+                bound_bytes=nbytes, bound_ops=ops)
+
+
+def _least_bound(results, what):
+    """Several walks that computed one function on the same rays over the
+    same leaves: each result's bound becomes that of the least work any of
+    them did (the least bytes and the least operations, each from its own
+    counted launch), since the function needs no more. The walk's own
+    bound stays as `own_bound_ms`."""
+    least = _bound_of(min(r["bound_bytes"] for r in results.values()),
+                      min(r["bound_ops"] for r in results.values()))
+    for res in results.values():
+        res.setdefault("own_bound_ms", res["bound_ms"])
+        res.update(least)
+    log(f"[archive] bound on {what}: {least['bound_ms']:.5f} ms by "
+        f"{least['bound_by']} ({least['bound_bytes']} bytes, "
+        f"{least['bound_ops']} operations: the least of "
+        + ", ".join(f"{k} {r['own_bound_ms']:.5f} ms"
+                    for k, r in results.items()) + ")")
 
 
 def _time_kernel(name, bvh, args):
@@ -1289,6 +1360,430 @@ def phase_instanced():
                                                               "inst-alpha")}
 
 
+def _agreement(kernel, hk, hp, what):
+    """Kernel result `hk` against its plain version's `hp` on one ray set:
+    where the ids agree, t, u and v must be equal; a lane whose ids differ
+    at equal t is an exact tie between two leaves (the walk's leaf-box
+    retest can cull the second leaf before its smaller id is seen) and is
+    counted apart; any other differing lane fails the run. Occlusion must
+    agree on every lane."""
+    if kernel.startswith("occluded"):
+        differ = int((hk != hp).sum())
+        check(differ == 0, f"{kernel} {what}: {differ} lanes differ from the "
+              "plain version")
+        return dict(differ=0, ties=0, err=0.0)
+    differ = hk.tri != hp.tri
+    ties = differ & (hk.t == hp.t)
+    same = ~differ
+    err = max(float(torch_max((a - b).abs()[same]))
+              for a, b in ((hk.t, hp.t), (hk.u, hp.u), (hk.v, hp.v)))
+    other = int((differ & ~ties).sum())
+    check(other == 0 and err == 0.0,
+          f"{kernel} {what}: {other} lanes differ from the plain version "
+          f"beyond exact ties; max |d(t, u, v)| {err:.3e} where ids agree")
+    return dict(differ=int(differ.sum()), ties=int(ties.sum()), err=err)
+
+
+def _parity_exact(kernel, bvh, sets, rng):
+    """`kernel` against its plain version on each (name, (o, d, t)) ray
+    set; occlusion kernels get seeded distances on the closest sets."""
+    import torch
+    from pt_torch.accel import kernels
+    err = 0.0
+    for what, (o, d, t) in sets:
+        if kernel.startswith("occluded") and not what.startswith("shadow"):
+            t = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
+                                .astype(np.float32), device="cuda")
+        hk = getattr(kernels, kernel)(bvh, o, d, t)
+        hp = getattr(kernels, kernel + "_plain")(bvh, o, d, t)
+        agree = _agreement(kernel, hk, hp, what)
+        found = hp if isinstance(hp, torch.Tensor) else hp.tri >= 0
+        log(f"[archive] parity {kernel} {what}: {o.shape[0]} rays, "
+            f"{agree['differ']} lanes differ, {agree['ties']} of them exact "
+            f"ties; {int(found.sum())} "
+            f"{'occluded' if found is hp else 'hits'}")
+        err = max(err, agree["err"])
+    return err
+
+
+def _parity_sets(rec, bvh, rng):
+    """16,384-ray sets from a recorded sample: bounce 0, bounce 2's live
+    lanes, bounce 2 with the lanes the integrator killed, seeded random rays,
+    and the shadow rays of bounces 0 and 2 as the integrator sends them."""
+    live2 = (rec.closest[2][2] > 1e-4).cpu().numpy()
+    check(0 < (~live2).sum(), "bounce 2 has no killed lanes")
+    return (("bounce0", _sample_rows(rec.closest[0], N_PARITY, rng)),
+            ("bounce2", _sample_rows(rec.closest[2], N_PARITY, rng, live2)),
+            ("bounce2 with killed lanes",
+             _sample_rows(rec.closest[2], N_PARITY, rng)),
+            ("random", _random_rays(bvh, N_PARITY, rng)),
+            ("shadow rays of bounce 0",
+             _sample_rows(rec.occluded[0], N_PARITY, rng)),
+            ("shadow rays of bounce 2",
+             _sample_rows(rec.occluded[2], N_PARITY, rng)))
+
+
+def _time_walk(kernel, fn, bvh, args, what, plain=True, node_bytes=None):
+    """CUDA-event ms per launch of `fn(bvh, *args)` (an entry point, or the
+    wrapper of `kernel`; the least of 3 blocks of 5 launches, since a host
+    stall longer than `cuda_ms`'s device sleep leaves gaps between launches
+    in a block), the bound from a counted launch of `kernel` on the same
+    rays and, with `plain`, the plain version's time (one run, not warmed:
+    it takes seconds) and its agreement with the kernel."""
+    from pt_torch.accel import kernels
+    counts = kernels.work_counts(bvh)
+    getattr(kernels, kernel)(bvh, *args, counts=counts)
+    n = args[0].shape[0]
+    closest = kernel.startswith("closest")
+    res = dict(n=n, **_bound(n, 16 if closest else 1, counts, bvh,
+                             node_bytes))
+    out = {}
+    res["ms"] = min(cuda_ms(lambda: out.update(k=fn(bvh, *args)), reps=5)
+                    for _ in range(3))
+    if plain:
+        p_fn = getattr(kernels, kernel + "_plain")
+        res["plain_ms"] = cuda_ms(lambda: out.update(p=p_fn(bvh, *args)),
+                                  reps=1, warm=False)
+        res.update(_agreement(kernel, out["k"], out["p"], what))
+    log(f"[archive] {kernel} via {getattr(fn, '__name__', kernel)} on {what}:"
+        f" {n} lanes, {res['ms']:.3f} ms"
+        + (f" (plain {res['plain_ms']:.1f} ms, {res['differ']} lanes "
+           f"differ, {res['ties']} exact ties)" if plain else "")
+        + f", bound {res['bound_ms']:.5f} ms by {res['bound_by']} "
+        f"({res['bound_bytes']} bytes); {res['node_visits']} "
+        f"{'node visits' if len(counts.totals) == 3 else 'slab tests'}, "
+        f"{res['tri_tests']} triangle tests ({res['tri_tests'] / n:.1f} per "
+        f"lane); {res['nodes_seen']} distinct nodes, {res['tris_seen']} "
+        f"distinct triangles")
+    return res
+
+
+def _reset_counts():
+    from pt_torch.accel import archive, kernels
+    kernels.reset_launch_counts()
+    archive.reset_call_counts()
+
+
+def _entry_launches(what, direct=()):
+    """Kernel launches per entry point since the counters were set to 0
+    (`archive.launches`, read from the kernels' own launch counters):
+    every entry point called launched its kernel once per call, and the
+    entry points' launches of a kernel are all of its launches, but for the
+    kernels in `direct`, which the run also called by their wrappers."""
+    from pt_torch.accel import archive, kernels
+    got = {k: v for k, v in archive.launches.items() if v}
+    called = {k: v for k, v in archive.calls.items() if v}
+    check(got == called, f"{what}: launches {got} against calls {called}")
+    for kernel in {archive.KERNEL_OF[e] for e in got}:
+        ours = sum(v for e, v in got.items()
+                   if archive.KERNEL_OF[e] == kernel)
+        total = kernels.launches[kernel]
+        check(total > ours if kernel in direct else total == ours,
+              f"{what}: {kernel} launched {total} times, {ours} of them by "
+              f"entry points {got}")
+    return got
+
+
+def _path_a():
+    """pt's kernel A/B harnesses at full size (65,536 rays), with the launch
+    counters set to 0 before each and read after: every arm shows 0 oracle
+    mismatches, the occlusion arms agree with v1. Returns the launches per
+    entry point and each bench's result."""
+    from pt_torch.benches import bvh_kernels, widesub_ab
+    t0 = time.perf_counter()
+    _reset_counts()
+    bk = bvh_kernels.main(emit=lambda line: log(f"[archive] {line}"))
+    launches = _entry_launches("bvh_kernels", direct=("occluded_v4",))
+    check(set(launches) == {"packet_closest", "packet_closest_sub",
+                            "packet_closest_v3", "packet_occluded",
+                            "packet_occluded_sub"},
+          f"bvh_kernels: launches per entry point {launches}")
+    for arm in bk["arms"]:
+        check(arm["oracle_mismatches"] == 0
+              and arm.get("disagree_with_v1", 0) == 0,
+              f"bvh_kernels {arm['arm']}: {arm}")
+    ws = {}
+    for scene in ("heightfield", "courtyard"):
+        _reset_counts()
+        ws[scene] = widesub_ab.main(
+            scene=scene, emit=lambda line: log(f"[archive] {line}"))
+        got = _entry_launches(f"widesub_ab {scene}", direct=("closest_bf8",))
+        check(list(got) == ["packet_closest_bf8w"],
+              f"widesub_ab {scene}: launches per entry point {got}")
+        for arm in ws[scene]["arms"]:
+            check(arm["oracle_mismatches"] == 0,
+                  f"widesub_ab {scene} {arm['arm']}: {arm}")
+        if scene == "heightfield":
+            launches.update(got)
+    log(f"[archive] path (a): both harnesses in "
+        f"{time.perf_counter() - t0:.1f} s; launches per entry point "
+        f"{launches}")
+    return launches, bk, ws["heightfield"]
+
+
+def _path_b():
+    """The Heightfield at 512², 5 bounces, 4 spp with its tree swapped for a
+    BF8V6, against the BF8 frame of the same RNG. Returns (the renderer,
+    launches per entry point in 3 steps, the step's numbers)."""
+    import torch
+    from pt_torch.accel import archive
+    arms = {}
+    for kind in ("BF8BVH", "BF8V6"):
+        t0 = time.perf_counter()
+        r = _renderer(224, 512, 4, 5, "cuda")
+        r._ensure_accel()
+        if kind == "BF8V6":
+            v6, fine = archive.swap_in_bf8_v6(r)
+            log(f"[archive] BF8V6 of the production SBVH: n8 {v6.n8}, "
+                f"{v6.n_leaves} leaves of block {v6.block}, unified table "
+                f"{v6.u_lo.shape[0]} rows "
+                f"({(v6.u_lo.shape[0] * 6 + v6.n8 * 16) * 4 / 1024:.0f} KiB "
+                f"by pt's budget of 640), depth {v6.depth}; the fine binary "
+                f"tree {fine.n_top} nodes, depth {fine.depth}; pages shared "
+                f"with the fine tree: {v6.pages.data_ptr() == fine.pages.data_ptr()}")
+            check(v6.pages.data_ptr() == fine.pages.data_ptr(),
+                  "BF8V6 copied its pages")
+        check(type(r.accel.bvh).__name__ == kind, f"accel is not {kind}")
+        build_s = time.perf_counter() - t0
+        r.render()                                        # warm step
+        _reset_counts()
+        used = (("closest_v6", "occluded_v6") if kind == "BF8V6"
+                else ("closest_bf8", "occluded_bf8"))
+        dt, counts, every, rays, peak = _counted_steps(r, used)
+        calls = _entry_launches(f"path (b) {kind}")
+        film = _check_film(r, f"Heightfield, {kind}")
+        check(counts == {used[0]: 60, used[1]: 60}
+              and sum(every.values()) == 120,
+              f"{kind}: launches in 3 steps {every}")
+        check(calls == ({"packet_closest_v6": 60, "packet_occluded_v6": 60}
+                        if kind == "BF8V6" else {}),
+              f"{kind}: launches per entry point in 3 steps {calls}")
+        arms[kind] = dict(ms=dt / 3 * 1e3, mrays=rays / dt / 1e6, peak=peak,
+                          film=film, hits=_primary_hits(r), calls=calls,
+                          build_s=build_s)
+        log(f"[archive] path (b), Heightfield n=224 with {kind}, 512x512, 5 "
+            f"bounces, 4 spp: {dt / 3 * 1e3:.1f} ms per render step, "
+            f"{rays / dt / 1e6:.3f} useful Mrays/s, peak memory {peak:.0f} "
+            f"MiB, launches in 3 steps {every}, per entry point {calls}")
+        if kind == "BF8BVH":
+            del r
+            torch.cuda.empty_cache()
+    a, b = arms["BF8BVH"], arms["BF8V6"]
+    mse = float(np.mean((a["film"] - b["film"]) ** 2))
+    flips = float((a["hits"] != b["hits"]).float().mean())
+    log(f"[archive] path (b) BF8V6 against BF8, same RNG: film MSE {mse:.3e} "
+        f"(limit 1e-3), primary-hit flips {flips:.6f} of the pixels (limit "
+        f"0.005); step {b['ms']:.1f} ms against {a['ms']:.1f} ms, peak "
+        f"{b['peak']:.0f} MiB against {a['peak']:.0f} MiB")
+    check(mse < 1e-3, f"BF8V6 film MSE {mse} against the BF8 film")
+    check(flips <= 0.005, f"BF8V6: {flips:.5f} of the primary hits flip")
+    stats = {k: {x: y for x, y in v.items() if x in ("ms", "mrays", "peak")}
+             for k, v in arms.items()}
+    stats.update(film_mse=mse, flips=flips)
+    return r, v6, fine, b["calls"], stats
+
+
+def phase_archive():
+    """pt's archive kernels through the entry points that select them: path
+    (a), the A/B harnesses; path (b), a static frame whose tree is a BF8V6;
+    direct calls of v6k2 and v7; parity of the five new kernels on real
+    wavefronts; their times (and closest_ordered against K3 on the Morton
+    tree's wavefronts), each bound from the least work of the walks that
+    computed the same function on the same rays; the cross-device BF8V6
+    cell. Returns (launches per entry point, a row of numbers per entry
+    point, path (b)'s numbers)."""
+    import torch
+    from pt_torch.accel import archive, kernels
+    from pt_torch.accel.bvh8 import build_bf8
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    launches, bk, ws = _path_a()
+    r, v6, fine, calls, b_stats = _path_b()
+    launches.update(calls)
+
+    # one more sample, recorded: the wavefronts for parity, times and the
+    # direct calls
+    with _Recorder() as rec:
+        r.render(1)
+    _reset_counts()
+    direct = []
+    for o, d, t in rec.closest:
+        direct.append((archive.packet_closest_v6k2(v6, o, d, t),
+                       archive.packet_closest_v7(v6, o, d, t, window=8)))
+    torch.cuda.synchronize()
+    n_calls = len(rec.closest)
+    calls = _entry_launches("direct calls")
+    check(calls == {"packet_closest_v6k2": n_calls,
+                    "packet_closest_v7": n_calls},
+          f"direct calls: launches per entry point {calls}")
+    launches.update(calls)
+    for (o, d, t), (h2, h7) in zip(rec.closest, direct):
+        h6 = kernels.closest_v6(v6, o, d, t)
+        for what, h in (("v6k2", h2), ("v7", h7)):
+            _agreement("closest_v6", h, h6, f"{what} against v6")
+    log(f"[archive] direct calls over {n_calls} recorded wavefronts: "
+        f"launches per entry point {calls}")
+    # the host's time per entry-point call, enqueue only: the timed blocks
+    # below hold 5 launches behind a ~20 ms device sleep
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        archive.packet_closest_v6(v6, *rec.closest[0])
+    host_ms = (time.perf_counter() - t1) / 20 * 1e3
+    torch.cuda.synchronize()
+    log(f"[archive] host time per packet_closest_v6 call: {host_ms:.3f} ms "
+        "enqueued")
+    check(5 * host_ms < 15.0, f"host time per call {host_ms:.3f} ms: five "
+          "launches would outlast the timing's device sleep")
+
+    # parity on real wavefronts: v6 kernels over the BF8V6, the ordered walk
+    # over the SAH tree of the harness and over the fine SBVH
+    errs = {}
+    sets = _parity_sets(rec, v6, rng)
+    closest_sets = [s_ for s_ in sets if not s_[0].startswith("shadow")]
+    for kernel in ("closest_v6", "closest_v6k2", "closest_v7",
+                   "occluded_v6"):
+        errs[kernel] = _parity_exact(
+            kernel, v6, sets if kernel.startswith("occluded")
+            else closest_sets, rng)
+    errs["closest_ordered"] = max(
+        _parity_exact("closest_ordered", tree, closest_sets, rng)
+        for tree in (bk["tree"], fine))
+
+    # times on the real bounce-0 and bounce-2 wavefronts (262,144 lanes);
+    # the walks over the fine SBVH's leaves compute one function, and so do
+    # the two occlusion walks: each group's bound is its least work
+    times = {}
+    b8 = build_bf8(fine)
+    for b in (0, 2):
+        c_args, s_args = rec.closest[b], rec.occluded[b]
+        what = f"static bounce {b}"
+        v6_walks = (("closest_v6", archive.packet_closest_v6, True),
+                    ("closest_v6k2", archive.packet_closest_v6k2, True),
+                    ("closest_v7", archive.packet_closest_v7, False))
+        for kernel, fn, plain in v6_walks:
+            times[(kernel, b)] = _time_walk(kernel, fn, v6, c_args, what,
+                                            plain=plain,
+                                            node_bytes=BYTES_PER_NODE_V6)
+        times[("closest_ordered", b)] = _time_walk(
+            "closest_ordered", kernels.closest_ordered, fine, c_args,
+            f"{what}, fine SBVH")
+        times[("closest_bf8", b)] = _time_walk(
+            "closest_bf8", kernels.closest_bf8, b8, c_args,
+            f"{what}, BF8 of the fine SBVH", plain=False)
+        _least_bound({k: times[(k, b)] for k in (
+            "closest_v6", "closest_v6k2", "closest_v7", "closest_ordered",
+            "closest_bf8")}, f"{what}, closest hit over the fine SBVH's "
+            "leaves")
+        times[("occluded_v6", b)] = _time_walk(
+            "occluded_v6", archive.packet_occluded_v6, v6, s_args,
+            f"static shadow rays of bounce {b}")
+        times[("occluded_bf8", b)] = _time_walk(
+            "occluded_bf8", kernels.occluded_bf8, b8, s_args,
+            f"static shadow rays of bounce {b}, BF8 of the fine SBVH",
+            plain=False)
+        _least_bound({k: times[(k, b)] for k in ("occluded_v6",
+                                                 "occluded_bf8")},
+                     f"static shadow rays of bounce {b}")
+        times[("closest_v7", b)]["plain_ms"] = \
+            times[("closest_v6", b)]["plain_ms"]      # the same function
+    del r, rec
+
+    errs["closest_ordered"] = max(errs["closest_ordered"],
+                                  _morton_ordered(rng, times))
+    # the entry points' own workloads: path (a)'s for A1/A2/A7-A10, path
+    # (b)'s bounce 0 for A3-A6
+    workloads = {"closest_ordered": ("bvh_kernels sorted rays", bk["tree"],
+                                     bk["workloads"]["sorted"]),
+                 "occluded_v4": ("bvh_kernels shadow rays", bk["tree"],
+                                 bk["workloads"]["shadow"]),
+                 "closest_bf8": ("widesub_ab Heightfield rays", ws["tree"],
+                                 ws["workload"])}
+    rows = {}
+    by_kernel = {}
+    for entry, (_, kernel) in ARCHIVE.items():
+        fn = getattr(archive, entry)
+        if kernel in workloads:
+            what, tree, args = workloads[kernel]
+            tm = _time_walk(kernel, fn, tree, args, what,
+                            plain=kernel not in by_kernel)
+            if kernel == "closest_ordered" and kernel not in by_kernel:
+                # K3 computes the same function on the same rays and tree
+                k3 = _time_walk("closest_v4", kernels.closest_v4, tree, args,
+                                what, plain=False)
+                _least_bound({"closest_ordered": tm, "closest_v4": k3},
+                             what)
+            elif kernel in by_kernel:
+                for k in ("plain_ms", "bound_ms", "bound_by", "bound_bytes",
+                          "bound_ops"):
+                    tm[k] = by_kernel[kernel][k]
+            by_kernel.setdefault(kernel, tm)
+        else:
+            tm = dict(times[(kernel, 0)])
+            what = "static bounce 0, BF8V6"
+        tm["workload"] = what
+        tm["err"] = max(tm.get("err", 0.0), errs.get(kernel, 0.0))
+        rows[entry] = tm
+    _cross_device_v6()
+    log(f"[archive] done in {time.perf_counter() - t0:.1f} s")
+    return launches, rows, b_stats
+
+
+def _morton_ordered(rng, times):
+    """closest_ordered over the Animated Heightfield's Morton tree (its
+    second frame): parity on real wavefronts, and its time beside K3's on
+    the bounce-0 and bounce-2 wavefronts (262,144 lanes), both held to the
+    bound of the lesser work of the two."""
+    scene = build_animated_scene(port_namespace(), 224)
+    r = _renderer(scene, 512, 1, 3, "cuda")
+    _step_frame(r)
+    _step_frame(r)
+    with _Recorder() as rec:
+        r.render(1)
+    bvh = r.accel.bvh
+    check(type(bvh).__name__ == "PacketBVH", "animated scene: no PacketBVH")
+    log(f"[archive] Morton tree of the Animated Heightfield: {bvh.n_top} "
+        f"nodes, depth {bvh.depth}, block {bvh.block}")
+    sets = [s_ for s_ in _parity_sets(rec, bvh, rng)
+            if not s_[0].startswith("shadow")]
+    err = _parity_exact("closest_ordered", bvh, sets, rng)
+    from pt_torch.accel import kernels
+    for b in (0, 2):
+        what = f"animated bounce {b}, Morton tree"
+        o_ = times[("closest_ordered morton", b)] = _time_walk(
+            "closest_ordered", kernels.closest_ordered, bvh, rec.closest[b],
+            what)
+        v_ = times[("closest_v4 morton", b)] = _time_walk(
+            "closest_v4", kernels.closest_v4, bvh, rec.closest[b], what,
+            plain=False)
+        _least_bound({"closest_ordered": o_, "closest_v4": v_}, what)
+        log(f"[archive] {what}: ordered walk {o_['ms']:.3f} ms against K3 "
+            f"{v_['ms']:.3f} ms ({v_['ms'] / o_['ms']:.2f}x), "
+            f"{o_['ms'] / o_['bound_ms']:.1f}x and "
+            f"{v_['ms'] / v_['bound_ms']:.1f}x the bound; triangle tests "
+            f"{o_['tri_tests']} against {v_['tri_tests']}")
+    return err
+
+
+def _cross_device_v6():
+    """The Heightfield (n=64) with the BF8V6 tree at 64², 1 spp, 3 bounces:
+    card against CPU, MSE < 1e-3."""
+    from pt_torch.accel import archive
+    t0 = time.perf_counter()
+    films = {}
+    for dev in ("cuda", "cpu"):
+        r = _renderer(64, 64, 1, 3, dev)
+        archive.swap_in_bf8_v6(r)
+        r.render()
+        films[dev] = r.film_mean()
+    mse = float(np.mean((films["cuda"] - films["cpu"]) ** 2))
+    log(f"[archive] cross-device Heightfield n=64 with BF8V6, 64x64, 1 spp, "
+        f"3 bounces: film MSE cuda vs cpu {mse:.3e} (limit 1e-3), "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(bool(np.isfinite(mse)) and mse < 1e-3,
+          f"BF8V6 cross-device film MSE {mse} >= 1e-3")
+
+
 def phase_courtyard():
     """The Courtyard at 512², 5 bounces, 2 spp: detail 0.85 forced through
     the shared-BLAS path, and the full scene with "auto", which the segment
@@ -1416,6 +1911,7 @@ def main() -> None:
     a_counts, a_times, anim_stats = phase_animated()
     phase_alpha()
     i_counts, i_times, inst_stats = phase_instanced()
+    ar_launches, ar_rows, ar_stats = phase_archive()
     phase_courtyard()
     phase_default()
     phase_cross_device()
@@ -1437,10 +1933,23 @@ def main() -> None:
                      "ms_bounce2": times[(k, 2)]["ms"],
                      "plain_ms_bounce2": times[(k, 2)]["plain_ms"],
                      "bound_ms_bounce2": times[(k, 2)]["bound_ms"]})
+    for entry, (line, kernel) in ARCHIVE.items():
+        tm = ar_rows[entry]
+        rows.append({"name": entry, "route": "cuda",
+                     "source": SOURCES[kernel],
+                     "replaces": f"pt/accel/pallas_bvh_archive.py:{line} "
+                                 f"{entry}",
+                     "launches": ar_launches[entry],
+                     "max_abs_err": tm["err"], "ms": tm["ms"],
+                     "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                     "bound_by": tm["bound_by"], "library_ms": None,
+                     "kernel": kernel, "workload": tm["workload"],
+                     "lanes": tm["n"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; static main path "
         f"{json.dumps(main_stats)}; animated main path "
         f"{json.dumps(anim_stats)}; instanced main path "
-        f"{json.dumps(inst_stats)}")
+        f"{json.dumps(inst_stats)}; archive path (b) "
+        f"{json.dumps(ar_stats)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -65,6 +65,29 @@ class PacketBVH:
     def root_hi(self) -> torch.Tensor:
         return self.top_hi[0]
 
+    @property
+    def depth(self) -> int:
+        """Levels on the deepest root-to-leaf path (the root is level 1),
+        worked out on the host once and kept on the structure: for a tree on
+        the card, one device→host copy of the links. An ordered stack walk
+        pops one node and pushes at most two, so its stack never holds more
+        than `depth` entries."""
+        depth = self.__dict__.get("_depth")
+        if depth is None:
+            depth = binary_depth(self.top_miss.cpu().numpy(),
+                                 self.top_leaf.cpu().numpy())
+            self._depth = depth
+        return depth
+
+
+def binary_depth(top_miss: np.ndarray, top_leaf: np.ndarray) -> int:
+    """Levels of a preorder binary tree (the root is level 1): the children
+    of an internal node i are i + 1 and top_miss[i + 1], both after i."""
+    level = np.ones(len(top_leaf), np.int64)
+    for i in np.flatnonzero(np.asarray(top_leaf) < 0):
+        level[i + 1] = level[top_miss[i + 1]] = level[i] + 1
+    return int(level.max())
+
 
 @dataclasses.dataclass
 class BF8BVH:

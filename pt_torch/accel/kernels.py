@@ -1,24 +1,35 @@
-"""Traversal kernels K1/K2 (BF8 tree), K3/K4 (binary PacketBVH) and K5/K6
-(instanced BF8 tree over shared pages).
+"""Traversal kernels K1/K2 (BF8 tree), K3/K4 (binary PacketBVH), K5/K6
+(instanced BF8 tree over shared pages) and the archive's walks: the ordered
+binary walk and the BF8V6 walks.
 
 K1 `closest_bf8` replaces pt/accel/pallas_bvh.py:packet_closest_bf8, K2
 `occluded_bf8` replaces :packet_occluded_bf8, K3 `closest_v4` replaces
 :packet_closest_v4, K4 `occluded_v4` replaces :packet_occluded_v4, K5
 `closest_bf8i` replaces pt/accel/instanced.py:packet_closest_bf8i and K6
-`occluded_bf8i` replaces :packet_occluded_bf8i. The kernels are CUDA C++ for
-sm_90a (csrc/bf8_kernels.cu over csrc/bf8_traverse.cuh, csrc/v4_kernels.cu
-over csrc/v4_traverse.cuh, csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh,
-all over csrc/rt_common.cuh), built with nvcc at first use into the port's
+`occluded_bf8i` replaces :packet_occluded_bf8i. Of
+pt/accel/pallas_bvh_archive.py, `closest_ordered` replaces packet_closest,
+packet_closest_sub and packet_closest_v3 (one near-child-first walk, three
+TPU schedules of it), `closest_v6` packet_closest_v6, `closest_v6k2`
+packet_closest_v6k2, `closest_v7` packet_closest_v7 and `occluded_v6`
+packet_occluded_v6 (pt_torch/accel/archive.py binds each of pt's entry
+points). The kernels are CUDA C++ for sm_90a (csrc/bf8_kernels.cu over
+csrc/bf8_traverse.cuh, csrc/v4_kernels.cu over csrc/v4_traverse.cuh,
+csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh, csrc/ordered_kernels.cu
+over csrc/ordered_traverse.cuh, csrc/v6_kernels.cu over csrc/v6_traverse.cuh,
+the last two sharing their leaf tests in csrc/page_leaf.cuh, all over
+csrc/rt_common.cuh), built with nvcc at first use into the port's
 git-ignored build directory, one library per source, and bound through
 ctypes. They are bound by dependent global loads of node and page rows, not
-by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6) or the
-preorder skip links (K3/K4), and this first design does nothing about that
-yet.
+by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6, the archive
+walks) or the preorder skip links (K3/K4), and this first design does
+nothing about that yet.
 
 Beside each kernel sits its plain PyTorch version (`closest_bf8_plain`,
 `occluded_bf8_plain`, `closest_v4_plain`, `occluded_v4_plain`,
-`closest_bf8i_plain`, `occluded_bf8i_plain`): every valid page column
-decoded into (W, b, id) and all rays tested against all of them in chunks
+`closest_bf8i_plain`, `occluded_bf8i_plain`, and `closest_ordered_plain`,
+`closest_v6_plain`, `closest_v6k2_plain`, `closest_v7_plain`,
+`occluded_v6_plain`): every valid page column decoded into (W, b, id) and
+all rays tested against all of them in chunks
 (for K5/K6 segment by segment, the rays mapped into the segment's object
 space first), with the kernel's Woop arithmetic and tie rule. The trees are
 conservative, so it computes the same function as the traversal.
@@ -56,13 +67,25 @@ _CUDA_LIBS = {
     "bf8i": (BUILD_DIR / "libpt_bf8i_sm90a.so",
              (CSRC / "bf8i_kernels.cu", CSRC / "bf8i_traverse.cuh",
               CSRC / "bf8_traverse.cuh", _COMMON)),
+    "ordered": (BUILD_DIR / "libpt_ordered_sm90a.so",
+                (CSRC / "ordered_kernels.cu", CSRC / "ordered_traverse.cuh",
+                 CSRC / "v4_traverse.cuh", CSRC / "page_leaf.cuh", _COMMON)),
+    "v6": (BUILD_DIR / "libpt_v6_sm90a.so",
+           (CSRC / "v6_kernels.cu", CSRC / "v6_traverse.cuh",
+            CSRC / "bf8_traverse.cuh", CSRC / "page_leaf.cuh", _COMMON)),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"closest_bf8": 0, "occluded_bf8": 0, "closest_v4": 0,
-            "occluded_v4": 0, "closest_bf8i": 0, "occluded_bf8i": 0}
+            "occluded_v4": 0, "closest_bf8i": 0, "occluded_bf8i": 0,
+            "closest_ordered": 0, "closest_v6": 0, "closest_v6k2": 0,
+            "closest_v7": 0, "occluded_v6": 0}
+# per-thread stack entries of the archive kernels (ordered_traverse.cuh,
+# v6_traverse.cuh); the wrappers raise on a tree that could overflow them
+ORDERED_STACK = 64
+V6_STACK = 128
 
 _lock = threading.Lock()
 _cuda_handles: Dict[str, ctypes.CDLL] = {}
@@ -122,8 +145,13 @@ def build_kernels(ptxas_verbose: bool = False) -> str:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name` ("bf8", "v4" or "bf8i"), built if
-    stale."""
+    """The loaded kernel library `name` (a key of _CUDA_LIBS), built if
+    stale. The check runs at the library's first use in the process, not
+    at every launch: it stats every library and source, which costs
+    milliseconds per launch where the file system is slow."""
+    lib = _cuda_handles.get(name)
+    if lib is not None:
+        return lib
     build_kernels()
     with _lock:
         lib = _cuda_handles.get(name)
@@ -147,13 +175,17 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_bf8i_occluded.restype = i
                 lib.pt_bf8i_occluded.argtypes = (
                     tree + rays + [i, i, p, p, p, p, p, p])
-            else:
+            else:           # v4, ordered, v6: five pointers, three ints
                 tree = [p, p, p, p, p, i, i, i]
-                lib.pt_v4_closest.restype = i
-                lib.pt_v4_closest.argtypes = (tree + rays
-                                              + [i, p, p, p, p, p, p, p, p])
-                lib.pt_v4_occluded.restype = i
-                lib.pt_v4_occluded.argtypes = tree + rays + [i, p, p, p, p, p]
+                flags = [i, i] if name == "v6" else []  # walk, window
+                closest = getattr(lib, f"pt_{name}_closest")
+                closest.restype = i
+                closest.argtypes = (tree + rays + flags
+                                    + [i, p, p, p, p, p, p, p, p])
+                if name != "ordered":
+                    occluded = getattr(lib, f"pt_{name}_occluded")
+                    occluded.restype = i
+                    occluded.argtypes = tree + rays + [i, p, p, p, p, p]
             lib.pt_cuda_error_string.restype = ctypes.c_char_p
             lib.pt_cuda_error_string.argtypes = [i]
             _cuda_handles[name] = lib
@@ -255,13 +287,39 @@ def _tree_args_v4(pbvh: PacketBVH):
             pbvh.pages.data_ptr(), n_top, pbvh.block, pbvh.pages.shape[-1])
 
 
+def _tree_args_v6(bvh6):
+    n8, rows = bvh6.n8, bvh6.n8 * 8 + bvh6.n_leaves
+    f32, i32 = torch.float32, torch.int32
+    for name, shape, dtype in (("u_lo", (rows, 3), f32),
+                               ("u_hi", (rows, 3), f32),
+                               ("c_ent", (n8 * 8,), i32),
+                               ("c_order", (n8 * 8,), i32)):
+        a = getattr(bvh6, name)
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise TypeError(f"BF8V6.{name}: expected {shape} {dtype}, got "
+                            f"{tuple(a.shape)} {a.dtype}")
+        if not a.is_contiguous() or a.device != bvh6.device:
+            raise ValueError("BF8V6 tensors must be contiguous and on one "
+                             "device")
+    if bvh6.pages.dtype != f32 or not bvh6.pages.is_contiguous():
+        raise TypeError("BF8V6: pages must be contiguous float32")
+    if n8 < 1 or bvh6.pages.shape[-1] < 7 * bvh6.block:
+        raise ValueError("BF8V6: empty tree or pages narrower than "
+                         "7 * block")
+    return (bvh6.u_lo.data_ptr(), bvh6.u_hi.data_ptr(),
+            bvh6.c_ent.data_ptr(), bvh6.c_order.data_ptr(),
+            bvh6.pages.data_ptr(), n8, bvh6.block, bvh6.pages.shape[-1])
+
+
 class WorkCounts(NamedTuple):
     """What a counted launch did, for bounds from the run's own data.
-    `totals` int64, summed over rays: for a BF8BVH (3,) wide-node visits,
-    leaf-box retests and triangle tests; for a PacketBVH (2,) node visits
-    and triangle tests. `node_seen` (n8,) or (n_top,) and `tri_seen`
-    (L*block,) uint8: 1 where any ray visited the node or tested the page
-    column (leaf * block + j)."""
+    `totals` int64, summed over rays: for a BF8BVH or BF8V6 (3,) wide-node
+    visits, leaf-box retests and triangle tests; for a PacketBVH (2,) box
+    tests (K3/K4: one per node visit; the ordered walk: the root's and two
+    per internal node whose box passed, its pop retests not counted) and
+    triangle tests. `node_seen` (n8,) or (n_top,)
+    and `tri_seen` (L*block,) uint8: 1 where any ray visited the node (read
+    its box) or tested the page column (leaf * block + j)."""
     totals: torch.Tensor
     node_seen: torch.Tensor
     tri_seen: torch.Tensor
@@ -281,8 +339,8 @@ class InstancedWorkCounts(NamedTuple):
 
 
 def work_counts(bvh):
-    """Zeroed WorkCounts for launches over `bvh` (a BF8BVH or a PacketBVH;
-    InstancedWorkCounts for a BF8Instanced), on its device."""
+    """Zeroed WorkCounts for launches over `bvh` (a BF8BVH, BF8V6 or
+    PacketBVH; InstancedWorkCounts for a BF8Instanced), on its device."""
     def zeros(n, dtype):
         return torch.zeros(n, dtype=dtype, device=bvh.device)
     tri_seen = zeros(bvh.pages.shape[0] * bvh.block, torch.uint8)
@@ -290,8 +348,8 @@ def work_counts(bvh):
         return InstancedWorkCounts(zeros(4, torch.int64),
                                    zeros(bvh.n8, torch.uint8),
                                    zeros(bvh.n_leaves, torch.uint8), tri_seen)
-    n_totals, n_nodes = ((3, bvh.n8) if isinstance(bvh, BF8BVH)
-                         else (2, bvh.n_top))
+    n_totals, n_nodes = ((2, bvh.n_top) if isinstance(bvh, PacketBVH)
+                         else (3, bvh.n8))
     return WorkCounts(zeros(n_totals, torch.int64),
                       zeros(n_nodes, torch.uint8), tri_seen)
 
@@ -453,6 +511,101 @@ def occluded_bf8i(bvh: BF8Instanced, origins: torch.Tensor,
     return out.view(torch.bool)
 
 
+def closest_ordered(pbvh: PacketBVH, origins: torch.Tensor,
+                    dirs: torch.Tensor, tmax: torch.Tensor,
+                    tmin: float = 1e-5,
+                    counts: Optional[WorkCounts] = None) -> Hit:
+    """Closest hit of N rays over a binary PacketBVH by the ordered
+    (near-child-first) stack walk. Arguments and result as closest_bf8. The
+    stack holds ORDERED_STACK entries; a tree with more levels raises
+    (`pbvh.depth`, worked out once on the host)."""
+    n = _check_rays(pbvh, origins, dirs, tmax, "tmax")
+    if pbvh.depth > ORDERED_STACK:
+        raise ValueError(f"binary tree depth {pbvh.depth} needs a stack of "
+                         f"{pbvh.depth} entries; the ordered kernel holds "
+                         f"{ORDERED_STACK}")
+    if origins.device.type == "cpu":
+        return closest_ordered_plain(pbvh, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_ordered", "ordered", _tree_args_v4(pbvh),
+                           pbvh, origins, dirs, tmax, tmin, n, counts)
+
+
+def _check_v6(bvh6, origins, dirs, limit, what: str, stack: int) -> int:
+    """`_check_rays` plus a BF8V6 walk's stack bound `stack`."""
+    n = _check_rays(bvh6, origins, dirs, limit, what)
+    if stack > V6_STACK:
+        raise ValueError(f"BF8V6 tree depth {bvh6.depth} needs a stack of "
+                         f"{stack} entries; the kernels hold {V6_STACK}")
+    return n
+
+
+def closest_v6(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+               tmax: torch.Tensor, tmin: float = 1e-5,
+               counts: Optional[WorkCounts] = None) -> Hit:
+    """Closest hit of N rays over a BF8V6, children pushed in their static
+    per-octant order, one pop per iteration (stack 7*D8 + 1). Arguments and
+    result as closest_bf8."""
+    n = _check_v6(bvh6, origins, dirs, tmax, "tmax", bvh6.stack_bound)
+    if origins.device.type == "cpu":
+        return closest_v6_plain(bvh6, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v6", "v6", _tree_args_v6(bvh6), bvh6,
+                           origins, dirs, tmax, tmin, n, counts,
+                           flags=(0, 1))
+
+
+def closest_v6k2(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+                 tmax: torch.Tensor, tmin: float = 1e-5,
+                 counts: Optional[WorkCounts] = None) -> Hit:
+    """closest_v6 with two pops per iteration, both tested against the best
+    t as the iteration starts (stack 16*D8, see v6_traverse.cuh)."""
+    n = _check_v6(bvh6, origins, dirs, tmax, "tmax", 16 * bvh6.depth)
+    if origins.device.type == "cpu":
+        return closest_v6k2_plain(bvh6, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v6k2", "v6", _tree_args_v6(bvh6), bvh6,
+                           origins, dirs, tmax, tmin, n, counts,
+                           flags=(1, 1))
+
+
+def closest_v7(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+               tmax: torch.Tensor, tmin: float = 1e-5, window: int = 8,
+               counts: Optional[WorkCounts] = None) -> Hit:
+    """Closest hit of N rays over a BF8V6 by pt's v7 walk: rounds of up to
+    `window` pops (>= 1) prune against the best t of the last round and
+    queue the leaves whose boxes pass, then test the queue (at most 48
+    leaves a round; see v6_traverse.cuh). The same function as closest_v6,
+    with more leaves visited; stack 7*D8 + 1."""
+    if int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    n = _check_v6(bvh6, origins, dirs, tmax, "tmax", bvh6.stack_bound)
+    if origins.device.type == "cpu":
+        return closest_v7_plain(bvh6, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v7", "v6", _tree_args_v6(bvh6), bvh6,
+                           origins, dirs, tmax, tmin, n, counts,
+                           flags=(2, int(window)))
+
+
+def occluded_v6(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+                dist: torch.Tensor, tmin: float = 1e-5,
+                counts: Optional[WorkCounts] = None) -> torch.Tensor:
+    """Any hit with tmin < t < dist for N rays over a BF8V6; bool (N,).
+    Every triangle occludes (pt's v6 has no `opaque_only`)."""
+    n = _check_v6(bvh6, origins, dirs, dist, "dist", bvh6.stack_bound)
+    if origins.device.type == "cpu":
+        return occluded_v6_plain(bvh6, origins, dirs, dist, tmin)
+    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
+    if n == 0:
+        return out.view(torch.bool)
+    lib = _lib("v6")
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    code = lib.pt_v6_occluded(*_tree_args_v6(bvh6), origins.data_ptr(),
+                              dirs.data_ptr(), dist.data_ptr(), float(tmin),
+                              n, out.data_ptr(),
+                              *_counts_ptrs(counts, bvh6), stream)
+    _raise_on(lib, code, "occluded_v6")
+    launches["occluded_v6"] += 1
+    return out.view(torch.bool)
+
+
 # ---------------------------------------------------------------- plain
 
 
@@ -562,6 +715,13 @@ def occluded_v4_plain(pbvh: PacketBVH, origins, dirs, dist,
     """Plain PyTorch version of K4 (no `opaque_only`: every triangle
     occludes)."""
     return occluded_bf8_plain(pbvh, origins, dirs, dist, tmin)
+
+
+# the archive kernels' plain versions: the page brute does not depend on
+# the walk or the tree over the pages (a BF8V6 shares its BF8 tree's pages)
+closest_ordered_plain = closest_v6_plain = closest_v6k2_plain = \
+    closest_v7_plain = closest_bf8_plain
+occluded_v6_plain = occluded_v4_plain
 
 
 def _instanced_decoded(bvh: BF8Instanced):

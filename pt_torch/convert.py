@@ -2,8 +2,8 @@
 
 In a path tracer the scene and accel arrays play the part of weights: to
 hold the port against `pt` on identical state, `pt`'s DeviceScene,
-DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH, BF8Instanced and
-AlphaSplit are read out as mappings of field name → numpy array (or Python scalar for
+DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH, BF8Instanced,
+BF8V6 and AlphaSplit are read out as mappings of field name → numpy array (or Python scalar for
 static metadata) and converted here.
 Arrays keep their bits: bf16 texel rows arrive as numpy `bfloat16` (or raw
 uint16) and are reinterpreted, and the f32 page id rows are copied as raw
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from pt_torch import default_device
+from pt_torch.accel.archive import BF8V6
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, bf8_depth
 from pt_torch.accel.instanced import BF8Instanced
 from pt_torch.render.integrator import AlphaSplit
@@ -89,3 +90,11 @@ def alpha_split(bvh_opaque, sel_opaque, bvh_alpha, sel_alpha,
                                             device),
                       bvh_alpha, to_tensor(np.asarray(sel_alpha, np.int32),
                                            device))
+
+
+def bf8_v6(fields: Mapping, device=None) -> BF8V6:
+    """`pt.accel.pallas_bvh_archive.BF8V6` fields → BF8V6, with its tree
+    depth worked out from the child entries."""
+    out = _convert(BF8V6, fields, device)
+    out.depth = bf8_depth(np.asarray(fields["c_ent"]))
+    return out

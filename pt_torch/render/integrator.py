@@ -5,8 +5,10 @@ Port of `pt.render.integrator`: raygen, then per bounce a closest trace,
 `finish_sample`. The traces dispatch on the structure's type: a `BF8BVH`
 (static scenes) goes to kernels K1/K2, a binary `PacketBVH` (the per-frame
 Morton tree of an animated scene, or a static tree whose BF8 collapse did
-not fit) to K3/K4, a `BF8Instanced` (static scenes with shared-BLAS
-instancing) to K5/K6 through its `closest` / `occluded` methods. The host drives the sample and bounce loops
+not fit) to K3/K4, and a structure that carries its own `closest` /
+`occluded` methods through them: a `BF8Instanced` (static scenes with
+shared-BLAS instancing) to K5/K6, the archive's `BF8V6` (A/B work) to its
+kernels. The host drives the sample and bounce loops
 (`pt_torch.run.renderer`); every stage is plain tensor code plus the kernel
 launches, with no host sync inside a bounce.
 
@@ -30,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, build_packet_bvh
-from pt_torch.accel.instanced import BF8Instanced
+from pt_torch.accel.lbvh import _expand_bits_10
 from pt_torch.accel.intersect import Hit
 from pt_torch.accel.kernels import (closest_bf8, closest_v4, occluded_bf8,
                                     occluded_v4)
@@ -106,7 +108,7 @@ class Accel(NamedTuple):
     tri_tan: torch.Tensor        # (T, 9)
     tri_bit: torch.Tensor        # (T, 9)
     tri_uv: torch.Tensor         # (T, 6) uv0|uv1|uv2
-    bvh: Optional[object]        # BF8BVH | PacketBVH | BF8Instanced (None:
+    bvh: Optional[object]        # BF8BVH | PacketBVH | BF8Instanced | BF8V6 (None:
                                  # not built yet)
     alpha_split: Optional[AlphaSplit] = None
 
@@ -455,16 +457,18 @@ def trace_occluded_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
 
 def trace_closest(bvh, origins, dirs, tmax):
     """Closest-hit query; the structure's type selects the kernel: K1 over
-    a BF8BVH, K3 over a PacketBVH, K5 over a BF8Instanced (their plain
-    versions on the CPU). tmax is (N,) f32. A BF8Instanced strips
-    ALPHA_TRI_BIT and, when it carries `seg_tri_base`, remaps (segment,
-    mesh-local) ids to global flattened ids."""
+    a BF8BVH, K3 over a PacketBVH (their plain versions on the CPU), and any
+    structure that carries its own `closest` method through it, as `pt`'s
+    duck dispatch does: K5 over a BF8Instanced, `closest_v6` over the
+    archive's BF8V6. tmax is (N,) f32. A BF8Instanced strips ALPHA_TRI_BIT
+    and, when it carries `seg_tri_base`, remaps (segment, mesh-local) ids
+    to global flattened ids."""
     args = (origins.contiguous(), dirs.contiguous(), tmax.contiguous(), TMIN)
     if isinstance(bvh, BF8BVH):
         return closest_bf8(bvh, *args)
     if isinstance(bvh, PacketBVH):
         return closest_v4(bvh, *args)
-    if isinstance(bvh, BF8Instanced):
+    if hasattr(bvh, "closest"):
         return bvh.closest(*args)
     raise NotImplementedError(
         f"no traversal kernel for {type(bvh).__name__}")
@@ -472,16 +476,34 @@ def trace_closest(bvh, origins, dirs, tmax):
 
 def trace_occluded(bvh, origins, dirs, dist):
     """Shadow query (≙ checkOccluded, raygen.rgen:22-33): K2 over a BF8BVH,
-    K4 over a PacketBVH, K6 over a BF8Instanced."""
+    K4 over a PacketBVH, a structure's own `occluded` method otherwise (K6
+    over a BF8Instanced, `occluded_v6` over a BF8V6)."""
     args = (origins.contiguous(), dirs.contiguous(), dist.contiguous(), TMIN)
     if isinstance(bvh, BF8BVH):
         return occluded_bf8(bvh, *args)
     if isinstance(bvh, PacketBVH):
         return occluded_v4(bvh, *args)
-    if isinstance(bvh, BF8Instanced):
+    if hasattr(bvh, "occluded"):
         return bvh.occluded(*args)
     raise NotImplementedError(
         f"no occlusion kernel for {type(bvh).__name__}")
+
+
+def _coherence_keys(bvh, origin, direction, alive):
+    """Ray-sorting keys for packet coherence, bit-equal to `pt`'s uint32
+    keys (carried in int64): direction octant (3 bits) above the 27-bit
+    Morton code of the origin within the tree's root box. Dead lanes key to
+    0xFFFFFFFF, so that a sort puts them last."""
+    lo, hi = bvh.root_lo, bvh.root_hi
+    ext = torch.clamp(hi - lo, min=1e-9)
+    q = torch.clamp((origin - lo) / ext * 512.0, 0.0, 511.0).to(torch.int64)
+    morton = (_expand_bits_10(q[:, 0]) << 2 | _expand_bits_10(q[:, 1]) << 1
+              | _expand_bits_10(q[:, 2])) & ((1 << 27) - 1)
+    octant = ((direction[:, 0] < 0).to(torch.int64) << 2
+              | (direction[:, 1] < 0).to(torch.int64) << 1
+              | (direction[:, 2] < 0).to(torch.int64))
+    key = (octant << 27) | morton
+    return torch.where(alive, key, 0xFFFFFFFF)
 
 
 def init_rng_state(px, py, width: int, frame) -> torch.Tensor:

@@ -7,15 +7,17 @@ neither JAX nor `pt`, so it also runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
 (`--noconftest`: tests/conftest.py configures JAX for the other files.)
-K1-K6 hold bit-equal to their plain PyTorch versions: the kernels are built
-with -fmad=false and run the plain version's f32 arithmetic in its order.
+K1-K6 and the archive kernels (closest_ordered, closest_v6, closest_v6k2,
+closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the kernels are
+built with -fmad=false and run the plain version's f32 arithmetic in its
+order.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pt_torch.accel import bvh8, instanced, kernels
+from pt_torch.accel import archive, bvh8, instanced, kernels
 
 
 @pytest.fixture
@@ -312,4 +314,77 @@ def test_cuda_instanced_film_matches_cpu_film(cuda_device):
             assert used == {"closest_bf8i": 27, "occluded_bf8i": 3}, used
         films.append(r.film_mean())
     assert np.isfinite(films[0]).all() and films[0].max() > 0
+    assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("soup", ["random", "heightfield"])
+def test_cuda_archive_kernels_match_plain(cuda_device, soup):
+    """closest_ordered over an SAH tree and a Morton tree, and the four
+    BF8V6 kernels over the SBVH's BF8V6, against their plain versions; the
+    counted variants give the same hits; dead lanes end at the root."""
+    from pt_torch.render.integrator import _degenerate_masked
+    verts, tri = (_random_tris(2000, 61) if soup == "random"
+                  else _heightfield(64))
+    opaque = (np.arange(tri.shape[0]) % 2) == 0
+    sah = bvh8.build_packet_bvh_sah(verts, tri, device=cuda_device)
+    morton = bvh8.build_packet_bvh(torch.as_tensor(verts, device=cuda_device),
+                                   torch.as_tensor(tri, device=cuda_device))
+    v6 = archive.build_bf8_v6(bvh8.build_packet_bvh_sah(
+        verts, tri, block=32, max_leaves=8192, tri_opaque_np=opaque,
+        spatial=True, device=cuda_device))
+    o, d = _rays(8192, 62, cuda_device)
+    tmax = torch.full((8192,), 1e4, device=cuda_device)
+    dead = torch.zeros(8192, dtype=torch.bool, device=cuda_device)
+    runs = [(kernels.closest_ordered, sah), (kernels.closest_ordered, morton),
+            (kernels.closest_v6, v6), (kernels.closest_v6k2, v6),
+            (kernels.closest_v7, v6)]
+    for fn, bvh in runs:
+        before = kernels.launches[fn.__name__]
+        hk = fn(bvh, o, d, tmax)
+        hp = getattr(kernels, fn.__name__ + "_plain")(bvh, o, d, tmax)
+        torch.cuda.synchronize()
+        assert kernels.launches[fn.__name__] == before + 1
+        assert int((hp.tri >= 0).sum()) > 100
+        for a, b in zip(hk, hp):
+            assert torch.equal(a, b), fn.__name__
+        counts = kernels.work_counts(bvh)
+        for a, b in zip(fn(bvh, o, d, tmax, counts=counts), hk):
+            assert torch.equal(a, b)
+        assert 0 < int(counts.totals[-1]) < 8192 * tri.shape[0]
+        od, dd, td = _degenerate_masked(bvh, o, d, 1e4, dead)
+        counts = kernels.work_counts(bvh)
+        h = fn(bvh, od.contiguous(), dd.contiguous(), td, counts=counts)
+        assert int(counts.totals[0]) == 8192 and int(counts.totals[-1]) == 0
+        assert bool((h.tri == -1).all())
+    dist = torch.full((8192,), 6.0, device=cuda_device)
+    got = kernels.occluded_v6(v6, o, d, dist)
+    assert torch.equal(got, kernels.occluded_v6_plain(v6, o, d, dist))
+    assert 0 < int(got.sum()) < 8192
+
+
+@pytest.mark.gpu
+def test_cuda_bf8_v6_film_matches_cpu_film(cuda_device):
+    """The Heightfield with its tree swapped for a BF8V6: every trace of the
+    card's render goes through closest_v6 / occluded_v6, and its film is
+    within MSE 1e-3 of the CPU's."""
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.renderer import Renderer
+    from pt_torch.scene.examples import make_heightfield_scene
+    films = []
+    for dev in (cuda_device, "cpu"):
+        r = Renderer(PathTracingSettings(bounce_count=3), device=dev)
+        r.set_scene(make_heightfield_scene(16))
+        r.on_resize(32, 32)
+        archive.swap_in_bf8_v6(r)
+        kernels.reset_launch_counts()
+        archive.reset_call_counts()
+        r.render(1)
+        if dev != "cpu":
+            used = {k: v for k, v in kernels.launches.items() if v}
+            assert used == {"closest_v6": 3, "occluded_v6": 3}, used
+            assert archive.launches == dict(
+                archive.calls, packet_closest_v6=3, packet_occluded_v6=3)
+        films.append(r.film_mean())
+    assert np.isfinite(films[0]).all()
     assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: no JAX, no `pt`, no `benches`, no Pillow.
 
-An AST scan finds no import of them under pt_torch/ or in chip_smoke.py; in
-a subprocess where they are made unimportable, pt_torch imports and renders
-an 8² Heightfield, the Default scene, a small Courtyard and an instanced
-alpha scene on the CPU; and with no device named, the entry points take the
-card and raise when there is none.
+An AST scan finds no import of them under pt_torch/ (the archive module and
+the ported A/B harnesses under pt_torch/benches/ included) or in
+chip_smoke.py; in a subprocess where they are made unimportable, pt_torch
+imports and renders an 8² Heightfield, the Default scene, a small Courtyard
+and an instanced alpha scene on the CPU, and runs the archive path (both
+harnesses, a frame through a BF8V6); and with no device named, the entry
+points take the card and raise when there is none.
 """
 
 import ast
@@ -104,6 +106,48 @@ def test_instanced_and_default_scenes_render_without_jax_pt_or_pillow():
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                           env=env, capture_output=True, text=True,
                           timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_archive_path_runs_without_jax_or_pt():
+    """`pt_torch.benches.bvh_kernels` / `.widesub_ab` and a frame whose tree
+    is a BF8V6, in a process where `jax`, `pt` and `benches` cannot be
+    imported."""
+    assert {"archive.py", "bvh_kernels.py", "widesub_ab.py"} <= {
+        p.name for p in _port_sources()}
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'pt', 'benches'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from pt_torch.accel import archive\n"
+        "from pt_torch.benches import bvh_kernels, widesub_ab\n"
+        "for bench in (bvh_kernels, widesub_ab):\n"
+        "    out = bench.main(device='cpu', n_rays=256, n=8,"
+        " emit=lambda line: None)\n"
+        "    assert all(a['oracle_mismatches'] == 0 for a in out['arms'])\n"
+        "from pt_torch.render.integrator import PathTracingSettings\n"
+        "from pt_torch.run.renderer import Renderer\n"
+        "from pt_torch.scene.examples import make_heightfield_scene\n"
+        "r = Renderer(PathTracingSettings(sample_count=1, bounce_count=2),"
+        " device='cpu')\n"
+        "r.set_scene(make_heightfield_scene(8))\n"
+        "r.on_resize(8, 8)\n"
+        "archive.swap_in_bf8_v6(r)\n"
+        "archive.reset_call_counts()\n"
+        "r.render()\n"
+        "assert archive.calls['packet_closest_v6'] == 2, archive.calls\n"
+        "assert not any(archive.launches.values())\n"
+        "assert np.isfinite(r.film_mean()).all()\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
+        " if v is not None}\n"
+        "assert not loaded & {'jax', 'pt', 'benches'}\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
 
