@@ -70,7 +70,22 @@ Phases, each fatal on failure (nothing is caught and passed over):
 10. cross-device film, card (kernels) against CPU (plain versions), MSE <
     1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
     alpha frames, the static alpha variant and a small instanced alpha scene
-    at 32².
+    at 32²;
+11. budget and drain: `pt`'s last two Pallas entry points through K1's pops
+    variant (each lane's walk iterations; a warp's rounds are its lanes'
+    most). `pt_torch.benches.budget.main` at its defaults (the Heightfield
+    n=224 under its SAH tree, 512², 5 bounces: per-bounce stage times,
+    `rounds_of` and the warp lockstep share, leaf-visit waste, the union
+    table, the shade parts, a bounce against lane count) and
+    `.drain_sim.main` (`done_rounds_of`) for the Heightfield and the
+    Courtyard at COURT_TEX_SCALE (whose triangles are checked equal to
+    those at COURT_TEX_SCALE_PARITY), launch counters as above. On every
+    bounce's wavefront: the pops launch's hits equal K1's on every lane,
+    its pops the plain walk's on 16,384 lanes, their sum a counted launch's
+    node visits plus leaf retests, rounds the most of done per block, no
+    stack above its bound. The pops variant timed beside K1 on the bounce-0
+    and bounce-2 wavefronts, with its plain walk and its bound (K1's plus 4
+    bytes a lane). The phase logs its own seconds.
 
 Phase 3 also holds K5 (closest_bf8i, with raw_ids) and K6 (occluded_bf8i,
 with opaque_only) against their plain versions over the 64-instance tree and
@@ -78,7 +93,8 @@ over the three trees of the Courtyard at detail 0.85; lanes that differ at
 |dt| = 0 (exact ties between leaves) are counted apart.
 
 Prints the kernels' JSON line (K1-K6, then one row per archive entry point,
-with the kernel it runs and the workload it was timed on), then the
+with the kernel it runs and the workload it was timed on, then the rows
+`rounds_of` and `done_rounds_of`, kernel "closest_bf8 (pops)"), then the
 `nvidia-smi` line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
@@ -1896,6 +1912,180 @@ def phase_cross_device():
               f"{what}: film MSE {mse} >= 1e-3")
 
 
+def _pops_checks(tag, bvh8, rows, rng):
+    """Phase 11's checks on every bounce's wavefront of a bench run: the
+    pops launch's hits equal the uncounted K1 launch's on every lane, its
+    pops equal the bench's own launch's and, on a 16,384-lane sample, the
+    plain walk's (whose hits equal the kernel's there); the pops sum to the
+    node visits plus leaf retests of a counted launch; rounds[b] is the most
+    of done[b, :]; no lane's stack passes the tree's bound. Returns the
+    largest difference found (0 when every check passed)."""
+    import torch
+    from pt_torch.accel import kernels
+    check(bvh8.stack_bound <= kernels.BF8_STACK,
+          f"{tag}: stack bound {bvh8.stack_bound}")
+    err = 0.0
+    for row in rows:
+        o, d, tmax = row["wavefront"]
+        o, d = o.contiguous(), d.contiguous()
+        n = o.shape[0]
+        limit = torch.full((n,), float(tmax), device=o.device)
+        hk = kernels.closest_bf8(bvh8, o, d, limit)
+        pops = torch.empty(n, dtype=torch.int32, device=o.device)
+        hp = kernels.closest_bf8(bvh8, o, d, limit, pops=pops)
+        counts = kernels.work_counts(bvh8)
+        kernels.closest_bf8(bvh8, o, d, limit, counts=counts)
+        same = all(torch.equal(a, b) for a, b in zip(hk, hp))
+        t_err = float((hk.t - hp.t).abs().max())
+        totals = counts.totals.tolist()
+        idx = torch.as_tensor(np.sort(rng.choice(n, min(N_PARITY, n),
+                                                 replace=False)),
+                              device=o.device)
+        peak = torch.zeros(idx.numel(), dtype=torch.int32, device=o.device)
+        hw, pw = kernels.closest_bf8_walk_plain(bvh8, o[idx], d[idx],
+                                                limit[idx], peak=peak)
+        walk_same = all(torch.equal(a, b[idx]) for a, b in zip(hw, hk))
+        p_err = float((pw - pops[idx]).abs().max())
+        log(f"[{tag}] bounce {row['bounce']}: {n} lanes, pops launch hits "
+            f"{'equal' if same else 'DIFFER from'} K1's (max|dt| "
+            f"{t_err:.3e}); pops sum {int(pops.sum())} against node visits "
+            f"+ leaf retests {totals[0] + totals[1]}; pops equal the plain "
+            f"walk's on {idx.numel()} lanes: {p_err == 0} (walk hits equal "
+            f"the kernel's: {walk_same}); lane pops mean "
+            f"{float(pops.float().mean()):.2f} max {int(pops.max())}; stack "
+            f"peak {int(peak.max())} of bound {bvh8.stack_bound}")
+        check(same, f"{tag} bounce {row['bounce']}: the pops launch's hits "
+              "differ from K1's")
+        check(torch.equal(pops, row["pops"]),
+              f"{tag} bounce {row['bounce']}: pops differ between launches")
+        check(int(pops.sum()) == totals[0] + totals[1],
+              f"{tag} bounce {row['bounce']}: pops sum {int(pops.sum())} "
+              f"against {totals[0] + totals[1]}")
+        check(p_err == 0 and walk_same,
+              f"{tag} bounce {row['bounce']}: pops differ from the plain walk")
+        if "done" in row:
+            check(bool((row["rounds"] == row["done"].max(axis=1)).all()),
+                  f"{tag} bounce {row['bounce']}: rounds != max(done)")
+        check(int(peak.max()) <= bvh8.stack_bound,
+              f"{tag} bounce {row['bounce']}: stack peak {int(peak.max())}")
+        err = max(err, t_err, p_err)
+    return err
+
+
+def _time_pops(bvh8, row, what):
+    """The pops variant beside uncounted K1 on one wavefront (CUDA events,
+    the least of 3 blocks of 5 launches each), its plain version's time
+    (one run; its pops must equal the kernel's on every lane), and its
+    bound: K1's bound on these rays from a counted launch, plus the 4 bytes
+    per lane the variant writes."""
+    import torch
+    from pt_torch.accel import kernels
+    o, d, tmax = row["wavefront"]
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    limit = torch.full((n,), float(tmax), device=o.device)
+    pops = torch.empty(n, dtype=torch.int32, device=o.device)
+    counts = kernels.work_counts(bvh8)
+    kernels.closest_bf8(bvh8, o, d, limit, counts=counts)
+    k1 = _bound(n, 16, counts, bvh8)
+    res = dict(n=n, k1_bound_ms=k1["bound_ms"],
+               **_bound_of(k1["bound_bytes"] + 4 * n, k1["bound_ops"]))
+    res["ms"] = min(cuda_ms(lambda: kernels.closest_bf8(
+        bvh8, o, d, limit, pops=pops), reps=5) for _ in range(3))
+    res["k1_ms"] = min(cuda_ms(lambda: kernels.closest_bf8(
+        bvh8, o, d, limit), reps=5) for _ in range(3))
+    out = {}
+    res["plain_ms"] = cuda_ms(lambda: out.update(
+        p=kernels.closest_bf8_walk_plain(bvh8, o, d, limit)), reps=1,
+        warm=False)
+    check(torch.equal(out["p"][1], pops),
+          f"{what}: the plain walk's pops differ from the kernel's")
+    log(f"[budget] closest_bf8 (pops) on {what}: {n} lanes, {res['ms']:.3f} "
+        f"ms against uncounted K1 {res['k1_ms']:.3f} ms (plain walk "
+        f"{res['plain_ms']:.1f} ms, pops equal on every lane), bound "
+        f"{res['bound_ms']:.5f} ms by {res['bound_by']} ({res['bound_bytes']}"
+        f" bytes: K1's {k1['bound_bytes']} + 4 per lane; K1's bound "
+        f"{k1['bound_ms']:.5f} ms)")
+    return res
+
+
+def phase_budget():
+    """Phase 11: pt's frame budget (`pt_torch.benches.budget`, B1 rounds_of)
+    at its defaults and pt's drain model (`.drain_sim`, B2 done_rounds_of)
+    for the Heightfield and the Courtyard at COURT_TEX_SCALE, each run with
+    the launch counters set to 0 just before and read just after; the
+    checks of `_pops_checks` on every bounce's wavefront; the pops variant
+    timed beside K1 on the bounce-0 and bounce-2 wavefronts of the budget
+    (B1) and of the Heightfield's drain run (B2). Returns the two entry
+    points' rows."""
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.benches import budget, drain_sim
+    from pt_torch.scene.flatten import flatten_scene, world_vertices
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    kernels.reset_launch_counts()
+    bud = budget.main(device="cuda", emit=lambda line: log(f"[budget] {line}"))
+    torch.cuda.synchronize()
+    b_launches = {k: v for k, v in kernels.launches.items() if v}
+    log(f"[budget] launches in budget.main: {b_launches}")
+    check(b_launches.get("closest_bf8_pops") == len(bud["bounces"])
+          and b_launches.get("closest_bf8", 0) > 0
+          and b_launches.get("occluded_bf8", 0) > 0,
+          f"budget.main: launches {b_launches}")
+    t1 = time.perf_counter()
+    kernels.reset_launch_counts()
+    drains = {scene: drain_sim.main(
+        device="cuda", scene=scene, tex_scale=COURT_TEX_SCALE,
+        emit=lambda line, s=scene: log(f"[drain] {line}"))
+        for scene in ("heightfield", "courtyard")}
+    torch.cuda.synchronize()
+    d_launches = {k: v for k, v in kernels.launches.items() if v}
+    log(f"[drain] launches in drain_sim.main (both scenes): {d_launches}")
+    check(d_launches.get("closest_bf8_pops") == sum(
+        len(r["bounces"]) for r in drains.values())
+        and d_launches.get("closest_bf8", 0) > 0,
+        f"drain_sim.main: launches {d_launches}")
+    t2 = time.perf_counter()
+    # the Courtyard's texture cut: drain_sim shades with the default pool
+    geo = []
+    for scale in (COURT_TEX_SCALE, COURT_TEX_SCALE_PARITY):
+        ds = flatten_scene(drain_sim.make_scene("courtyard",
+                                                tex_scale=scale),
+                           device="cuda")
+        geo.append((world_vertices(ds)[0], ds.tri_idx, ds.tri_opaque))
+    same = all(torch.equal(a, b) for a, b in zip(*geo))
+    log(f"[drain] Courtyard at tex_scale {COURT_TEX_SCALE} and "
+        f"{COURT_TEX_SCALE_PARITY}: {geo[0][1].shape[0]} triangles, world "
+        f"vertices, indices and opacity bit-equal: {same} (the texture cut "
+        "changes no triangle; drain_sim shades with the default pool)")
+    check(same and geo[0][1].shape[0] == drains["courtyard"]["triangles"],
+          "the Courtyard's texture cut changes its triangles")
+    errs = {"rounds_of": _pops_checks("budget", bud["tree"], bud["bounces"],
+                                      rng),
+            "done_rounds_of": max(_pops_checks(f"drain {s}", r["tree"],
+                                               r["bounces"], rng)
+                                  for s, r in drains.items())}
+    t3 = time.perf_counter()
+    runs = {"rounds_of": (bud, "budget", b_launches),
+            "done_rounds_of": (drains["heightfield"], "drain_sim Heightfield",
+                               d_launches)}
+    rows = {}
+    for entry, (res, what, launches) in runs.items():
+        tm = {b: _time_pops(res["tree"], res["bounces"][b],
+                            f"{what} bounce {b}") for b in (0, 2)}
+        rows[entry] = dict(tm[0], launches=launches["closest_bf8_pops"],
+                           err=errs[entry], workload=f"{what} bounce 0",
+                           ms_bounce2=tm[2]["ms"],
+                           k1_ms_bounce2=tm[2]["k1_ms"],
+                           plain_ms_bounce2=tm[2]["plain_ms"],
+                           bound_ms_bounce2=tm[2]["bound_ms"])
+    log(f"[budget] phase 11 in {time.perf_counter() - t0:.1f} s (budget.main "
+        f"{t1 - t0:.1f} s, drain_sim.main {t2 - t1:.1f} s, checks "
+        f"{t3 - t2:.1f} s, times {time.perf_counter() - t3:.1f} s)")
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1915,6 +2105,7 @@ def main() -> None:
     phase_courtyard()
     phase_default()
     phase_cross_device()
+    b_rows = phase_budget()
     counts.update(a_counts)
     counts.update(i_counts)
     times.update(a_times)
@@ -1945,6 +2136,21 @@ def main() -> None:
                      "bound_by": tm["bound_by"], "library_ms": None,
                      "kernel": kernel, "workload": tm["workload"],
                      "lanes": tm["n"]})
+    for entry, line in (("rounds_of", "benches/budget.py:56"),
+                        ("done_rounds_of", "benches/drain_sim.py:40")):
+        tm = b_rows[entry]
+        rows.append({"name": entry, "route": "cuda",
+                     "source": SOURCES["closest_bf8"],
+                     "replaces": f"{line} {entry}",
+                     "launches": tm["launches"], "max_abs_err": tm["err"],
+                     "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                     "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                     "library_ms": None, "kernel": "closest_bf8 (pops)",
+                     "workload": tm["workload"], "lanes": tm["n"],
+                     "k1_ms": tm["k1_ms"], "ms_bounce2": tm["ms_bounce2"],
+                     "k1_ms_bounce2": tm["k1_ms_bounce2"],
+                     "plain_ms_bounce2": tm["plain_ms_bounce2"],
+                     "bound_ms_bounce2": tm["bound_ms_bounce2"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; static main path "
         f"{json.dumps(main_stats)}; animated main path "
         f"{json.dumps(anim_stats)}; instanced main path "

@@ -94,18 +94,25 @@ BF8_HD void count_tri(Counts* c, const Tree& tree, int32_t lid, int j) {
 // far-first (insertion sort on max(tnear, 0)), so the nearest pops first.
 // With kCount, `counts` (then never null) accumulates the work of this
 // traversal; without it, `counts` is not read and no counting code is built.
-template <bool kCount>
+// With kPops, `pops` (then never null) receives the iterations of the walk
+// loop: one per pop, of a wide node or of a leaf. Each pop is a node visit
+// or a leaf-box retest, so the pops of a launch's lanes sum to its
+// Counts.nodes + Counts.leaf_boxes. Without kPops `pops` is not read and no
+// counting code is built.
+template <bool kCount, bool kPops = false>
 BF8_HD void closest(const Tree& tree, const Ray& r, float tmin, float tmax,
                     float* t_out, int32_t* tri_out, float* u_out,
-                    float* v_out, Counts* counts) {
+                    float* v_out, Counts* counts, int32_t* pops = nullptr) {
     int32_t stack[kStackDepth];
     int sp = 0;
     stack[sp++] = 0;
     float best_t = tmax;
     int32_t best_tri = -1;
     float best_u = 0.0f, best_v = 0.0f;
+    [[maybe_unused]] int32_t n_pops = 0;
     while (sp > 0) {
         int32_t ent = stack[--sp];
+        if constexpr (kPops) ++n_pops;
         if (ent >= kLeafBit) {
             int32_t lid = ent - kLeafBit;
             float tn;
@@ -161,6 +168,7 @@ BF8_HD void closest(const Tree& tree, const Ray& r, float tmin, float tmax,
     *tri_out = best_tri;
     *u_out = best_u;
     *v_out = best_v;
+    if constexpr (kPops) *pops = n_pops;
 }
 
 // Any hit with tmin < t < dist. Children push unsorted; with opaque_only,

@@ -34,9 +34,18 @@ all rays tested against all of them in chunks
 space first), with the kernel's Woop arithmetic and tie rule. The trees are
 conservative, so it computes the same function as the traversal.
 
+K1 has a pops variant (`closest_bf8(..., pops=...)`): each lane writes the
+iterations of its walk loop, one per pop of a wide node or a leaf. It is the
+port's counterpart of the diagnostic rows that benches/budget.py:rounds_of
+and benches/drain_sim.py:done_rounds_of read from pt's K1 (lockstep rounds
+per program, per sub-packet), reduced per warp by pt_torch/benches/. Its
+plain version is `closest_bf8_walk_plain`, a vectorised stack walk over all
+lanes that repeats the kernel step by step.
+
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises. Each
-launch adds one to `launches[name]`.
+launch adds one to `launches[name]` (a pops launch to
+`launches["closest_bf8_pops"]`).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import threading
 from typing import Dict, NamedTuple, Optional
@@ -51,7 +61,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from pt_torch.accel.bvh8 import ALPHA_TRI_BIT, BF8BVH, PacketBVH
+from pt_torch.accel.bvh8 import ALPHA_TRI_BIT, LEAF_BIT, BF8BVH, PacketBVH
 from pt_torch.accel.instanced import SEG_SHIFT, BF8Instanced
 from pt_torch.accel.intersect import Hit
 from pt_torch.accel.native import BUILD_DIR, compile_shared
@@ -78,14 +88,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # launch counts per kernel: each wrapper adds one where it launches
-launches = {"closest_bf8": 0, "occluded_bf8": 0, "closest_v4": 0,
-            "occluded_v4": 0, "closest_bf8i": 0, "occluded_bf8i": 0,
-            "closest_ordered": 0, "closest_v6": 0, "closest_v6k2": 0,
-            "closest_v7": 0, "occluded_v6": 0}
+launches = {"closest_bf8": 0, "closest_bf8_pops": 0, "occluded_bf8": 0,
+            "closest_v4": 0, "occluded_v4": 0, "closest_bf8i": 0,
+            "occluded_bf8i": 0, "closest_ordered": 0, "closest_v6": 0,
+            "closest_v6k2": 0, "closest_v7": 0, "occluded_v6": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
 # v6_traverse.cuh); the wrappers raise on a tree that could overflow them
 ORDERED_STACK = 64
 V6_STACK = 128
+# K1's per-thread stack (kStackDepth in bf8_traverse.cuh)
+BF8_STACK = 128
 
 _lock = threading.Lock()
 _cuda_handles: Dict[str, ctypes.CDLL] = {}
@@ -162,8 +174,10 @@ def _lib(name: str) -> ctypes.CDLL:
             if name == "bf8":
                 tree = [p, p, p, p, p, p, i, i]
                 lib.pt_bf8_closest.restype = i
-                lib.pt_bf8_closest.argtypes = (tree + rays
-                                               + [i, p, p, p, p, p, p, p, p])
+                lib.pt_bf8_closest.argtypes = (tree + rays + [i]
+                                               + [p] * 9)
+                lib.pt_bf8_threads_per_block.restype = i
+                lib.pt_bf8_threads_per_block.argtypes = []
                 lib.pt_bf8_occluded.restype = i
                 lib.pt_bf8_occluded.argtypes = (tree + rays
                                                 + [i, i, p, p, p, p, p])
@@ -216,10 +230,37 @@ def _check_rays(bvh, origins, dirs, limit, what: str) -> int:
 def _check(bvh8, origins, dirs, limit, what: str) -> int:
     """`_check_rays` plus the stack bound of a BF8BVH or BF8Instanced."""
     n = _check_rays(bvh8, origins, dirs, limit, what)
-    if bvh8.stack_bound > 128:
+    if bvh8.stack_bound > BF8_STACK:
         raise ValueError(f"BF8 tree depth {bvh8.depth} needs a stack of "
-                         f"{bvh8.stack_bound} entries; the kernels hold 128")
+                         f"{bvh8.stack_bound} entries; the kernels hold "
+                         f"{BF8_STACK}")
     return n
+
+
+def _check_pops(pops, n: int, device) -> None:
+    """`pops` must be a contiguous (N,) int32 tensor on the rays' device."""
+    if not isinstance(pops, torch.Tensor):
+        raise TypeError(f"pops: expected a tensor, got {type(pops).__name__}")
+    if tuple(pops.shape) != (n,):
+        raise ValueError(f"pops: expected shape {(n,)}, got "
+                         f"{tuple(pops.shape)}")
+    if pops.dtype != torch.int32:
+        raise TypeError(f"pops: expected torch.int32, got {pops.dtype}")
+    if pops.device != device:
+        raise ValueError(f"pops is on {pops.device}, the rays on {device}")
+    if not pops.is_contiguous():
+        raise ValueError("pops must be contiguous")
+
+
+def bf8_threads_per_block(device) -> int:
+    """Threads per block of K1's launches: lane i runs in block i // T and
+    warp (i % T) // 32. On the card the built library reports it
+    (`pt_bf8_threads_per_block`); on the CPU, where nothing is built, it is
+    read from the same constant in csrc/bf8_kernels.cu."""
+    if torch.device(device).type == "cuda":
+        return int(_lib("bf8").pt_bf8_threads_per_block())
+    src = (CSRC / "bf8_kernels.cu").read_text()
+    return int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
 
 
 def _tree_args(bvh8: BF8BVH):
@@ -375,10 +416,11 @@ def _raise_on(lib, code: int, name: str) -> None:
 
 def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
                     tmax, tmin: float, n: int,
-                    counts, flags=()) -> Hit:
+                    counts, flags=(), tail=()) -> Hit:
     """Allocate the outputs and launch closest kernel `name` on the rays'
     stream; adds one to its launch count. `flags`: the kernel's int
-    arguments between tmin and n."""
+    arguments between tmin and n; `tail`: its pointers between the counts'
+    and the stream."""
     t = torch.empty(n, dtype=torch.float32, device=origins.device)
     tri = torch.empty(n, dtype=torch.int32, device=origins.device)
     u = torch.empty_like(t)
@@ -390,7 +432,7 @@ def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
     code = getattr(lib, f"pt_{lib_name}_closest")(
         *tree_args, origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(),
         float(tmin), *flags, n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), *_counts_ptrs(counts, bvh), stream)
+        v.data_ptr(), *_counts_ptrs(counts, bvh), *tail, stream)
     _raise_on(lib, code, name)
     launches[name] += 1
     return Hit(t, tri, u, v)
@@ -398,16 +440,28 @@ def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
 
 def closest_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
                 tmax: torch.Tensor, tmin: float = 1e-5,
-                counts: Optional[WorkCounts] = None) -> Hit:
+                counts: Optional[WorkCounts] = None,
+                pops: Optional[torch.Tensor] = None) -> Hit:
     """Closest hit of N rays (origins/dirs (N,3) f32, tmax (N,) f32) over a
     BF8BVH. Returns Hit(t, tri, u, v); a miss gives t = tmax, tri = -1.
     `counts`, from `work_counts(bvh8)` on the card, selects the counted
-    kernel variant, which adds the launch's work there."""
+    kernel variant, which adds the launch's work there. `pops`, a (N,)
+    int32 tensor on the rays' device, selects the pops variant: each lane
+    writes the iterations of its walk loop there, and the hits stay those
+    of the plain launch (on the CPU `closest_bf8_walk_plain` fills it)."""
     n = _check(bvh8, origins, dirs, tmax, "tmax")
+    if pops is not None:
+        _check_pops(pops, n, origins.device)
     if origins.device.type == "cpu":
-        return closest_bf8_plain(bvh8, origins, dirs, tmax, tmin)
-    return _launch_closest("closest_bf8", "bf8", _tree_args(bvh8), bvh8,
-                           origins, dirs, tmax, tmin, n, counts)
+        if pops is None:
+            return closest_bf8_plain(bvh8, origins, dirs, tmax, tmin)
+        hit, walked = closest_bf8_walk_plain(bvh8, origins, dirs, tmax, tmin)
+        pops.copy_(walked)
+        return hit
+    return _launch_closest("closest_bf8" if pops is None
+                           else "closest_bf8_pops", "bf8", _tree_args(bvh8),
+                           bvh8, origins, dirs, tmax, tmin, n, counts,
+                           tail=(None if pops is None else pops.data_ptr(),))
 
 
 def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
@@ -627,16 +681,18 @@ def decode_pages(bvh):
 
 
 def _woop_chunk(o, d, w, bias, wd, tmin, limit):
-    """(C, T) Woop t/u/v and the acceptance mask, in the kernel's order."""
+    """(C, T) Woop t/u/v and the acceptance mask, in the kernel's order: C
+    rays against T columns (w (T, 3, 3)), or each ray against its own row
+    of T columns (w (C, T, 3, 3))."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
 
     def op(k):
-        return ((w[:, k, 0] * ox + w[:, k, 1] * oy) + w[:, k, 2] * oz) \
-            + bias[:, k]
+        return ((w[..., k, 0] * ox + w[..., k, 1] * oy)
+                + w[..., k, 2] * oz) + bias[..., k]
 
     def dp(k):
-        return (wd[:, k, 0] * dx + wd[:, k, 1] * dy) + wd[:, k, 2] * dz
+        return (wd[..., k, 0] * dx + wd[..., k, 1] * dy) + wd[..., k, 2] * dz
 
     t = -op(2) / dp(2)
     u = op(0) + t * dp(0)
@@ -683,6 +739,135 @@ def closest_bf8_plain(bvh, origins, dirs, tmax, tmin: float = 1e-5) -> Hit:
                        torch.where(hit, u.gather(1, j)[:, 0], zero),
                        torch.where(hit, v.gather(1, j)[:, 0], zero)))
     return Hit(*(torch.cat(p) for p in zip(*out)))
+
+
+def _safe_inv(d):
+    """pt's safe_inv, as rt_common.cuh: |a| < 1e-12 becomes +-1e-12 (the
+    sign of a; +0 and -0 both +1e-12) before the reciprocal."""
+    tiny = torch.where(d < 0, -1e-12, 1e-12)
+    return 1.0 / torch.where(torch.abs(d) < 1e-12, tiny, d)
+
+
+def _slab(lo, hi, o, inv, limit):
+    """rt::slab on broadcast tensors (..., 3): (passes, tnear)."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    near = torch.minimum(t0, t1)
+    far = torch.maximum(t0, t1)
+    tnear = torch.maximum(torch.maximum(near[..., 0], near[..., 1]),
+                          near[..., 2])
+    tfar = torch.minimum(torch.minimum(far[..., 0], far[..., 1]), far[..., 2])
+    return (tnear <= tfar) & (tfar > 0.0) & (tnear < limit), tnear
+
+
+def _leaf_columns(bvh8):
+    """Every page column of every leaf, decoded as `decode_pages` does but
+    kept per leaf: W (L, B, 3, 3), b (L, B, 3), Wd (L, B, 3, 3) and the id
+    (L, B) int32 (-1: padding; ALPHA_TRI_BIT kept). Kept on the structure."""
+    cache = getattr(bvh8, "_walk_cache", None)
+    if cache is None:
+        pages, b = bvh8.pages, bvh8.block
+        ids = pages[:, 0, 6 * b:7 * b].contiguous().view(torch.int32)
+        cols = pages[:, :, :6 * b].reshape(pages.shape[0], 8, 6, b) \
+            .permute(0, 3, 2, 1)                   # (L, B, group, row)
+        cache = (cols[:, :, 0:3, 0:3].contiguous(),
+                 cols[:, :, 0:3, 3].contiguous(),
+                 cols[:, :, 3:6, 4:7].contiguous(), ids)
+        bvh8._walk_cache = cache
+    return cache
+
+
+def closest_bf8_walk_plain(bvh8: BF8BVH, origins, dirs, tmax,
+                           tmin: float = 1e-5,
+                           peak: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K1's pops variant: the kernel's stack walk
+    (bf8_traverse.cuh), one step of every live lane at a time. Returns
+    (Hit, pops (N,) int32): pops counts each lane's iterations, one per pop
+    of a wide node or a leaf. Step by step as the kernel: a BF8_STACK-deep
+    int32 stack per lane, holding the root first; a popped leaf retests its
+    box against the lane's best t, then tests its page's columns with the
+    Woop arithmetic and the (t, id) tie rule; a popped wide node slab-tests
+    its 8 children against the best t and pushes those that pass far-first
+    (a stable sort on max(tnear, 0): equal keys keep child order, as the
+    kernel's insertion sort does). Its hits are bit-equal to
+    `closest_bf8_plain`'s but on a lane whose t ties exactly across two
+    leaves (the retest can cull the second). `peak`, an (N,) int32 tensor,
+    receives each lane's highest stack height. Raises where a lane's stack
+    would pass BF8_STACK entries."""
+    w, bias, wd, ids = _leaf_columns(bvh8)
+    dev = origins.device
+    n = origins.shape[0]
+    inv = _safe_inv(dirs)
+    stack = torch.zeros((n, BF8_STACK), dtype=torch.int32, device=dev)
+    sp = torch.ones(n, dtype=torch.int64, device=dev)       # the root, 0
+    high = torch.ones(n, dtype=torch.int64, device=dev)
+    best_t = tmax.clone()
+    best_id = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+    pops = torch.zeros(n, dtype=torch.int32, device=dev)
+    slot = torch.arange(8, device=dev)
+    while True:
+        lanes = torch.nonzero(sp > 0).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        sp[lanes] -= 1
+        ent = stack[lanes, sp[lanes]].to(torch.int64)
+        pops[lanes] += 1
+        leaf = ent >= LEAF_BIT
+
+        ll = lanes[leaf]                        # leaf pops: retest, then page
+        lid = ent[leaf] - LEAF_BIT
+        ok, _ = _slab(bvh8.l_lo[lid], bvh8.l_hi[lid], origins[ll], inv[ll],
+                      best_t[ll])
+        ll, lid = ll[ok], lid[ok]
+        if ll.numel():
+            t, u, v, acc = _woop_chunk(origins[ll], dirs[ll], w[lid],
+                                       bias[lid], wd[lid], tmin, tmax[ll])
+            col_id = ids[lid].to(torch.int64)
+            acc &= col_id >= 0
+            idc = col_id & ~ALPHA_TRI_BIT
+            tm = torch.where(acc, t, float("inf"))
+            leaf_t = tm.min(dim=1).values
+            at_min = acc & (tm == leaf_t[:, None])
+            leaf_id = torch.where(at_min, idc, _INT32_MAX).min(dim=1).values
+            j = torch.argmax((at_min & (idc == leaf_id[:, None]))
+                             .to(torch.int8), dim=1)[:, None]
+            bt, bi = best_t[ll], best_id[ll]
+            better = (leaf_t < bt) | ((leaf_t == bt) & (leaf_id < bi))
+            best_t[ll] = torch.where(better, leaf_t, bt)
+            best_id[ll] = torch.where(better, leaf_id, bi)
+            best_u[ll] = torch.where(better, u.gather(1, j)[:, 0], best_u[ll])
+            best_v[ll] = torch.where(better, v.gather(1, j)[:, 0], best_v[ll])
+
+        nl = lanes[~leaf]                       # wide-node pops: push children
+        if nl.numel():
+            k = ent[~leaf][:, None] * 8 + slot                    # (A, 8)
+            e = bvh8.c_ent[k]
+            ok, tn = _slab(bvh8.c_lo[k], bvh8.c_hi[k], origins[nl][:, None],
+                           inv[nl][:, None], best_t[nl][:, None])
+            ok &= e != -1
+            key = torch.where(ok, torch.clamp(tn, min=0.0), float("inf"))
+            near_first = e.gather(1, torch.sort(key, dim=1, stable=True)
+                                  .indices)
+            cnt = ok.sum(dim=1)
+            top = sp[nl] + cnt
+            if int(top.max()) > BF8_STACK:
+                raise ValueError(f"a lane's stack passes {BF8_STACK} entries")
+            # the kernel pushes the sorted children last first: the nearest
+            # ends on top
+            push = slot < cnt[:, None]
+            src = torch.clamp(cnt[:, None] - 1 - slot, min=0)
+            rows = nl[:, None].expand(-1, 8)[push]
+            stack[rows, (sp[nl][:, None] + slot)[push]] = \
+                near_first.gather(1, src)[push]
+            sp[nl] = top
+            high[nl] = torch.maximum(high[nl], top)
+    if peak is not None:
+        peak.copy_(high)
+    hit = best_id >= 0
+    return Hit(best_t, torch.where(hit, best_id, -1).to(torch.int32), best_u,
+               best_v), pops
 
 
 def occluded_bf8_plain(bvh, origins, dirs, dist, tmin: float = 1e-5,

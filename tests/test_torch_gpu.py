@@ -10,7 +10,7 @@ neither JAX nor `pt`, so it also runs on a machine that has only PyTorch:
 K1-K6 and the archive kernels (closest_ordered, closest_v6, closest_v6k2,
 closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the kernels are
 built with -fmad=false and run the plain version's f32 arithmetic in its
-order.
+order. K1's pops variant gives K1's hits and the plain walk's pops.
 """
 
 import numpy as np
@@ -388,3 +388,46 @@ def test_cuda_bf8_v6_film_matches_cpu_film(cuda_device):
         films.append(r.film_mean())
     assert np.isfinite(films[0]).all()
     assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("soup", ["random", "heightfield"])
+def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
+    """K1's pops variant: hits bit-equal to the uncounted launch's, pops
+    equal to `closest_bf8_walk_plain`'s on every lane and summing to a
+    counted launch's node visits plus leaf retests; the drain layout uses
+    the library's threads per block, which the kernel source states."""
+    from pt_torch.benches import drain_sim
+    verts, tri = (_random_tris(2000, 71) if soup == "random"
+                  else _heightfield(64))
+    b8 = bvh8.build_bf8(bvh8.build_packet_bvh_sah(
+        verts, tri, block=32, max_leaves=8192, spatial=True,
+        device=cuda_device))
+    n = 8000                                   # no multiple of 32
+    o, d = _rays(n, 72, cuda_device)
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    before = dict(kernels.launches)
+    hk = kernels.closest_bf8(b8, o, d, tmax)
+    pops = torch.empty(n, dtype=torch.int32, device=cuda_device)
+    hp = kernels.closest_bf8(b8, o, d, tmax, pops=pops)
+    torch.cuda.synchronize()
+    assert kernels.launches["closest_bf8"] == before["closest_bf8"] + 1
+    assert kernels.launches["closest_bf8_pops"] == \
+        before["closest_bf8_pops"] + 1
+    for a, b in zip(hp, hk):
+        assert torch.equal(a, b)
+    hw, pw = kernels.closest_bf8_walk_plain(b8, o, d, tmax)
+    assert torch.equal(pops, pw)
+    for a, b in zip(hw, hk):
+        assert torch.equal(a, b)
+    counts = kernels.work_counts(b8)
+    kernels.closest_bf8(b8, o, d, tmax, counts=counts)
+    nodes, leaf_boxes, _ = counts.totals.tolist()
+    assert int(pops.sum()) == nodes + leaf_boxes
+    threads = kernels.bf8_threads_per_block(cuda_device)
+    assert threads == kernels.bf8_threads_per_block("cpu")
+    rounds, done = drain_sim.done_rounds_of(b8, o, d, tmax=1e4)
+    assert done.shape == (-(-n // threads), threads // 32)
+    assert (rounds == done.max(axis=1)).all()
+    with pytest.raises(ValueError):
+        kernels.closest_bf8(b8, o, d, tmax, pops=pops.cpu())

@@ -4,9 +4,10 @@ An AST scan finds no import of them under pt_torch/ (the archive module and
 the ported A/B harnesses under pt_torch/benches/ included) or in
 chip_smoke.py; in a subprocess where they are made unimportable, pt_torch
 imports and renders an 8² Heightfield, the Default scene, a small Courtyard
-and an instanced alpha scene on the CPU, and runs the archive path (both
-harnesses, a frame through a BF8V6); and with no device named, the entry
-points take the card and raise when there is none.
+and an instanced alpha scene on the CPU, runs the archive path (both
+harnesses, a frame through a BF8V6) and the frame budget and drain model
+(`pt_torch.benches.budget`, `.drain_sim`); and with no device named, the
+entry points take the card and raise when there is none.
 """
 
 import ast
@@ -140,6 +141,35 @@ def test_archive_path_runs_without_jax_or_pt():
         "assert archive.calls['packet_closest_v6'] == 2, archive.calls\n"
         "assert not any(archive.launches.values())\n"
         "assert np.isfinite(r.film_mean()).all()\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
+        " if v is not None}\n"
+        "assert not loaded & {'jax', 'pt', 'benches'}\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_budget_and_drain_run_without_jax_or_pt():
+    """`pt_torch.benches.budget` and `.drain_sim` (K1's pops variant through
+    its plain walk) in a process where `jax`, `pt` and `benches` cannot be
+    imported."""
+    assert {"budget.py", "drain_sim.py"} <= {p.name for p in _port_sources()}
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'pt', 'benches'):\n"
+        "    sys.modules[m] = None\n"
+        "from pt_torch.benches import budget, drain_sim\n"
+        "b = budget.main(device='cpu', width=32, bounces=1, n=16,"
+        " n_sample=1024, emit=lambda line: None)\n"
+        "assert b['bounces'][0]['rounds_max'] >= 1 and b['union']\n"
+        "d = drain_sim.main(device='cpu', width=32, bounces=1, n=16,"
+        " emit=lambda line: None)\n"
+        "r = d['bounces'][0]\n"
+        "assert (r['rounds'] == r['done'].max(axis=1)).all()\n"
         "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
         " if v is not None}\n"
         "assert not loaded & {'jax', 'pt', 'benches'}\n"
