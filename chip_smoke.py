@@ -8,13 +8,19 @@ Phases, each fatal on failure (nothing is caught and passed over):
 1. device: name, count, versions, `nvidia-smi` name and power limit;
 2. build: every traversal kernel (one nvcc per source for sm_90a, with
    -Xptxas -v) and the native SBVH library (g++), all started together;
+   the warp K3/K4's resident blocks per SM and shared memory per block;
 3. kernel parity at full size, each kernel against its plain PyTorch version
    on the card: K1 (closest_bf8) and K2 (occluded_bf8, and opaque_only on a
    structure with every other triangle non-opaque) over the Heightfield
-   (n=224) SBVH→BF8; K3 (closest_v4) and K4 (occluded_v4) over the Morton
-   tree of the Animated Heightfield; 16,384 rays each from real wavefronts
-   (bounce 0, a later bounce, and a later bounce with the lanes the
-   integrator has killed) and 16,384 seeded random rays;
+   (n=224) SBVH→BF8; K3 (closest_v4) and K4 (occluded_v4), the warp
+   kernels, over the Morton tree of the Animated Heightfield; 16,384 rays
+   each from real wavefronts (bounce 0, a later bounce, and a later bounce
+   with the lanes the integrator has killed) and 16,384 seeded random rays;
+   on the same sets the warp kernels bit-equal to the per-ray arm
+   (closest_v4_per_ray, occluded_v4_per_ray) on every lane, over that tree,
+   the Morton tree of the same triangles at block 128 and two static SAH
+   trees (the v4 fallback, and one at block >= 512), each also against
+   the plain versions;
 4. main path, static: `Renderer(device="cuda")` on the Heightfield at 512²,
    5 bounces, 4 spp: one warm render, then 3 timed renders with the launch
    counters set to 0 just before and read just after; film checks, a PNG
@@ -30,7 +36,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
    and peak memory; the tree must change and the film be reset every frame;
    a PNG; torch.profiler breakdowns of one sample and of one rebuild; K3/K4's
    time on the real bounce-0 and bounce-2 wavefronts against plain version
-   and bound;
+   and bound; the A/B of K3/K4's two designs on the same wavefronts (per-ray,
+   warp, warp, per-ray), each against that bound, and the plain warp
+   schedule's groups and lanes per group there (its hits equal the
+   kernels');
 6. alpha variants at 256², 3 bounces: the animated one (the ground plus
    5,200 alpha-tested card triangles: single-tree re-trace loops over K3)
    and the static one (split trees, K1/K2), with checks that decals and
@@ -92,8 +101,10 @@ with opaque_only) against their plain versions over the 64-instance tree and
 over the three trees of the Courtyard at detail 0.85; lanes that differ at
 |dt| = 0 (exact ties between leaves) are counted apart.
 
-Prints the kernels' JSON line (K1-K6, then one row per archive entry point,
-with the kernel it runs and the workload it was timed on, then the rows
+Prints the kernels' JSON line (K1-K6, K3/K4 with their per-ray arm's time
+from the A/B, then one row per archive entry point, with the kernel it runs
+and the workload it was timed on (A8/A9: also the per-ray arm's time on the
+same rays), then the rows
 `rounds_of` and `done_rounds_of`, kernel "closest_bf8 (pops)"), then the
 `nvidia-smi` line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -169,12 +180,16 @@ REPLACES = {
 SOURCES = {
     "closest_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
     "occluded_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
-    "closest_v4": "pt_torch/accel/csrc/v4_kernels.cu",
-    "occluded_v4": "pt_torch/accel/csrc/v4_kernels.cu",
+    "closest_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
+    "occluded_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
     "closest_bf8i": "pt_torch/accel/csrc/bf8i_kernels.cu",
     "occluded_bf8i": "pt_torch/accel/csrc/bf8i_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
+# K3/K4's first design, the per-ray arm of the A/B; it also carries their
+# counted variant (the walk is the same)
+PER_RAY = {"closest_v4": "closest_v4_per_ray",
+           "occluded_v4": "occluded_v4_per_ray"}
 # the archive's entry points (pt/accel/pallas_bvh_archive.py), in pt's order
 # A1-A10, each with the port's kernel that it runs
 ARCHIVE = {
@@ -194,6 +209,11 @@ SOURCES.update(closest_ordered="pt_torch/accel/csrc/ordered_kernels.cu",
                closest_v6k2="pt_torch/accel/csrc/v6_kernels.cu",
                closest_v7="pt_torch/accel/csrc/v6_kernels.cu",
                occluded_v6="pt_torch/accel/csrc/v6_kernels.cu")
+
+
+def counted(kernels, name: str):
+    """The wrapper that runs kernel `name`'s counted variant."""
+    return getattr(kernels, PER_RAY.get(name, name))
 
 
 def fail(msg: str) -> None:
@@ -469,6 +489,9 @@ def phase_build():
     for line in ptxas.splitlines():
         if line.strip():
             log(f"[build] {line.strip()}")
+    occ = kernels.v4_warp_occupancy("cuda")
+    check(min(occ.values()) > 0, f"warp K3/K4 occupancy query failed: {occ}")
+    log(f"[build] warp K3/K4 (128 threads a block): {occ}")
 
 
 def _renderer(scene, width: int, spp: int, bounces: int, device: str,
@@ -623,10 +646,41 @@ def phase_parity():
     return errs
 
 
+def _bits(h):
+    """A Hit's fields with the floats as their int32 bits."""
+    import torch
+    return [a.view(torch.int32) if a.dtype == torch.float32 else a
+            for a in h]
+
+
+def _arms_equal(bvh, o, d, t, dist, what):
+    """The warp-cooperative K3/K4 against the per-ray arm on one ray set:
+    t, u and v bits and ids of every lane, and its occlusion bool, must be
+    equal."""
+    from pt_torch.accel import kernels
+    hw = kernels.closest_v4(bvh, o, d, t)
+    hr = kernels.closest_v4_per_ray(bvh, o, d, t)
+    differ = sum((a != b) for a, b in zip(_bits(hw), _bits(hr))) > 0
+    ow = kernels.occluded_v4(bvh, o, d, dist)
+    orr = kernels.occluded_v4_per_ray(bvh, o, d, dist)
+    n_c, n_o = int(differ.sum()), int((ow != orr).sum())
+    log(f"[parity] warp K3/K4 against the per-ray arm, {what}: {o.shape[0]} "
+        f"rays, {n_c} lanes differ in (t, tri, u, v) bits "
+        f"({int((hr.tri >= 0).sum())} hits), {n_o} in occlusion "
+        f"({int(orr.sum())} occluded)")
+    check(n_c == 0 and n_o == 0, f"warp K3/K4 {what}: {n_c} closest and "
+          f"{n_o} occlusion lanes differ from the per-ray arm")
+
+
 def _parity_v4(rng):
     """K3/K4 against their plain versions over the Morton tree of the
-    Animated Heightfield's second frame, on real wavefronts."""
+    Animated Heightfield's second frame, on real wavefronts; the warp
+    kernels against the per-ray arm bit for bit on the same sets, over that
+    tree, the Morton tree of the same triangles at block 128 and two static
+    SAH trees (the fallback at the default block, and one at block >= 512
+    whose pages are staged in 16 or more chunks)."""
     import torch
+    from pt_torch.accel.bvh8 import build_packet_bvh, build_packet_bvh_sah
     t0 = time.perf_counter()
     scene = build_animated_scene(port_namespace(), 224)
     r = _renderer(scene, 512, 1, 3, "cuda")
@@ -641,30 +695,53 @@ def _parity_v4(rng):
         f"{bvh.n_top} top nodes")
     live2 = (rec.closest[2][2] > 1e-4).cpu().numpy()
     check(0 < (~live2).sum(), "bounce 2 has no killed lanes")
-    lo, hi = bvh.root_lo.cpu().numpy(), bvh.root_hi.cpu().numpy()
-    ro = rng.uniform(lo - 2.0, hi + 2.0, (N_PARITY, 3)).astype(np.float32)
-    rd = rng.normal(size=(N_PARITY, 3))
-    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
     sets = (("bounce0", _sample_rows(rec.closest[0], N_PARITY, rng)),
             ("bounce2", _sample_rows(rec.closest[2], N_PARITY, rng, live2)),
             ("bounce2 with killed lanes",
              _sample_rows(rec.closest[2], N_PARITY, rng)),
-            ("random", [torch.as_tensor(ro, device="cuda"),
-                        torch.as_tensor(rd, device="cuda"),
-                        torch.full((N_PARITY,), 1e4, device="cuda")]))
+            ("random", _random_rays(bvh, N_PARITY, rng)))
+    dists = [torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
+                             .astype(np.float32), device="cuda")
+             for _, (o, _, _) in sets]
+    shadow = [(f"shadow rays of bounce {b}",
+               _sample_rows(rec.occluded[b], N_PARITY, rng)) for b in (0, 2)]
+    wpos, tri = r.accel.wpos, r.ds.tri_idx
+    opq = r.ds.tri_opaque.cpu().numpy()
+    t1 = time.perf_counter()
+    trees = [("Morton tree", bvh),
+             ("Morton tree at block 128",
+              build_packet_bvh(wpos, tri, block=128,
+                               tri_opaque=r.ds.tri_opaque)),
+             ("static SAH fallback",
+              build_packet_bvh_sah(wpos.cpu().numpy(), tri.cpu().numpy(),
+                                   tri_opaque_np=opq, spatial=True,
+                                   device="cuda")),
+             ("static SAH at 256 leaves",
+              build_packet_bvh_sah(wpos.cpu().numpy(), tri.cpu().numpy(),
+                                   tri_opaque_np=opq, spatial=True,
+                                   max_leaves=256, device="cuda"))]
+    log(f"[parity] trees for the warp kernels: "
+        + "; ".join(f"{name}: block {tr.block}, {tr.pages.shape[0]} leaves, "
+                    f"{tr.n_top} nodes" for name, tr in trees)
+        + f" ({time.perf_counter() - t1:.1f} s to build the three more)")
+    check([tr.block for _, tr in trees[:2]] == [64, 128]
+          and trees[3][1].block >= 512, "the trees' blocks are not 64, 128 "
+          "and >= 512")
     errs = {"closest_v4": 0.0, "occluded_v4": 0.0}
-    for what, (o, d, t) in sets:
-        errs["closest_v4"] = max(errs["closest_v4"], _compare_closest(
-            bvh, o, d, t, what, name="closest_v4"))
-        dist = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
-                               .astype(np.float32), device="cuda")
-        errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
-            bvh, o, d, dist, what, name="occluded_v4"))
-    # the shadow wavefronts as the integrator sends them (killed lanes too)
-    for b in (0, 2):
-        o, d, t = _sample_rows(rec.occluded[b], N_PARITY, rng)
-        errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
-            bvh, o, d, t, f"shadow rays of bounce {b}", name="occluded_v4"))
+    for name, tree in trees:
+        tag = "" if tree is bvh else f"{name}, "
+        for (what, (o, d, t)), dist in zip(sets, dists):
+            _arms_equal(tree, o, d, t, dist, tag + what)
+            errs["closest_v4"] = max(errs["closest_v4"], _compare_closest(
+                tree, o, d, t, tag + what, name="closest_v4"))
+            errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
+                tree, o, d, dist, tag + what, name="occluded_v4"))
+        # the shadow wavefronts as the integrator sends them (killed lanes
+        # too)
+        for what, (o, d, t) in shadow:
+            _arms_equal(tree, o, d, t, t, tag + what)
+            errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
+                tree, o, d, t, tag + what, name="occluded_v4"))
     torch.cuda.synchronize()
     log(f"[parity] K3/K4 done in {time.perf_counter() - t0:.1f} s")
     return errs
@@ -877,7 +954,7 @@ def _time_kernel(name, bvh, args):
     k_fn = getattr(kernels, name)
     p_fn = getattr(kernels, name + "_plain")
     counts = kernels.work_counts(bvh)
-    k_fn(bvh, *args, counts=counts)
+    counted(kernels, name)(bvh, *args, counts=counts)
     n = args[0].shape[0]
     bound = _bound(n, 16 if name.startswith("closest") else 1, counts, bvh)
     out = {}
@@ -997,12 +1074,13 @@ def phase_main():
                                ms_per_step_blocks=blocks)
 
 
-def _kernel_times(r, pairs, tag):
+def _kernel_times(r, pairs, tag, rec=None):
     """CUDA-event time, plain time and bound of each (kernel name, recorded
     calls) pair on the bounce-0 and bounce-2 wavefronts of one more sample
-    (outside any counted run)."""
-    with _Recorder() as rec:
-        r.render(1)
+    (outside any counted run), or of the recorded sample `rec`."""
+    if rec is None:
+        with _Recorder() as rec:
+            r.render(1)
     bvh = r.accel.bvh
     times = {}
     for name, which in pairs:
@@ -1116,13 +1194,72 @@ def phase_animated():
         r._accel_dirty = True
         r._ensure_accel()
     _profile(rebuild, "animated, one rebuild (99458 triangles)", top=8)
+    with _Recorder() as rec:
+        r.render(1)
     times = _kernel_times(r, (("closest_v4", "closest"),
-                              ("occluded_v4", "occluded")), "anim")
+                              ("occluded_v4", "occluded")), "anim", rec)
+    _ab_v4(r.accel.bvh, rec, times)
     mean = lambda k: float(np.mean([fr[k] for fr in frames]))  # noqa: E731
     return counts, times, dict(frames=frames, peak_mib=peak,
                                rebuild_ms=mean("rebuild_ms"),
                                render_ms=mean("render_ms"),
                                mrays=mean("mrays"))
+
+
+def _ab_v4(bvh, rec, times):
+    """The A/B of K3/K4's two designs inside this call, on the real
+    bounce-0 and bounce-2 wavefronts: the per-ray arm and the warp kernels
+    in turns (per-ray, warp, warp, per-ray; each the least of 2 blocks of 5
+    launches behind the device sleep), against the unchanged bound of
+    `_kernel_times`. The plain warp schedule runs on the same rays: its
+    hits must equal the kernel's bit for bit, and its counts (groups per
+    warp round, lanes per group, chunks staged) explain the A/B. Adds
+    `per_ray_ms`, `ab_ms` and `schedule` to `times`."""
+    import torch
+    from pt_torch.accel import kernels
+    for name, which in (("closest_v4", "closest"),
+                        ("occluded_v4", "occluded")):
+        warp_fn = getattr(kernels, name)
+        ray_fn = getattr(kernels, PER_RAY[name])
+        plain_fn = getattr(kernels, name + "_warp_plain")
+        for b in (0, 2):
+            args = getattr(rec, which)[b]
+            n = args[0].shape[0]
+            tw, tr = warp_fn(bvh, *args), ray_fn(bvh, *args)
+            t0 = time.perf_counter()
+            plain, sched = plain_fn(bvh, *args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if name.startswith("closest"):
+                same = all(torch.equal(a, c) and torch.equal(a, e) for a, c, e
+                           in zip(_bits(tw), _bits(tr), _bits(plain)))
+            else:
+                same = torch.equal(tw, tr) and torch.equal(tw, plain)
+            check(same, f"{name} bounce {b}: the warp kernel, the per-ray "
+                  "arm and the plain warp schedule differ")
+            arms = {"per_ray": [], "warp": []}
+            for arm in ("per_ray", "warp", "warp", "per_ray"):
+                fn = ray_fn if arm == "per_ray" else warp_fn
+                arms[arm].append(min(cuda_ms(lambda: fn(bvh, *args), reps=5)
+                                     for _ in range(2)))
+            tm = times[(name, b)]
+            tm["per_ray_ms"] = float(np.mean(arms["per_ray"]))
+            tm["ab_ms"] = float(np.mean(arms["warp"]))
+            tm["schedule"] = sched._asdict()
+            bound = tm["bound_ms"]
+            log(f"[anim] A/B {name} bounce {b}, {n} lanes: per-ray "
+                f"{arms['per_ray'][0]:.3f} / {arms['per_ray'][1]:.3f} ms, "
+                f"warp {arms['warp'][0]:.3f} / {arms['warp'][1]:.3f} ms "
+                f"({tm['per_ray_ms'] / tm['ab_ms']:.2f}x); bound "
+                f"{bound:.5f} ms by {tm['bound_by']}: per-ray "
+                f"{tm['per_ray_ms'] / bound:.1f}x, warp "
+                f"{tm['ab_ms'] / bound:.1f}x the bound")
+            log(f"[anim] warp schedule {name} bounce {b} (plain, "
+                f"{plain_s:.1f} s; hits equal the kernels'): "
+                f"{sched.groups / max(sched.rounds, 1):.2f} leaf groups per "
+                f"warp round, {sched.leaf_visits / max(sched.groups, 1):.2f} "
+                f"lanes per group, {sched.rounds / max(sched.warps, 1):.1f} "
+                f"rounds per warp; {sched._asdict()}")
 
 
 def _alpha_hits(r):
@@ -1448,7 +1585,7 @@ def _time_walk(kernel, fn, bvh, args, what, plain=True, node_bytes=None):
     it takes seconds) and its agreement with the kernel."""
     from pt_torch.accel import kernels
     counts = kernels.work_counts(bvh)
-    getattr(kernels, kernel)(bvh, *args, counts=counts)
+    counted(kernels, kernel)(bvh, *args, counts=counts)
     n = args[0].shape[0]
     closest = kernel.startswith("closest")
     res = dict(n=n, **_bound(n, 16 if closest else 1, counts, bvh,
@@ -1733,6 +1870,14 @@ def phase_archive():
                 for k in ("plain_ms", "bound_ms", "bound_by", "bound_bytes",
                           "bound_ops"):
                     tm[k] = by_kernel[kernel][k]
+            if kernel in PER_RAY:
+                # K4's first design on the same rays, in the same call
+                ray_fn = getattr(kernels, PER_RAY[kernel])
+                tm["per_ray_ms"] = min(
+                    cuda_ms(lambda: ray_fn(tree, *args), reps=5)
+                    for _ in range(3))
+                log(f"[archive] {entry} on {what}: warp {kernel} "
+                    f"{tm['ms']:.3f} ms, per-ray {tm['per_ray_ms']:.3f} ms")
             by_kernel.setdefault(kernel, tm)
         else:
             tm = dict(times[(kernel, 0)])
@@ -2124,6 +2269,10 @@ def main() -> None:
                      "ms_bounce2": times[(k, 2)]["ms"],
                      "plain_ms_bounce2": times[(k, 2)]["plain_ms"],
                      "bound_ms_bounce2": times[(k, 2)]["bound_ms"]})
+        if k in PER_RAY:        # the in-call A/B against the first design
+            rows[-1].update(per_ray_ms=tm["per_ray_ms"], ab_ms=tm["ab_ms"],
+                            per_ray_ms_bounce2=times[(k, 2)]["per_ray_ms"],
+                            ab_ms_bounce2=times[(k, 2)]["ab_ms"])
     for entry, (line, kernel) in ARCHIVE.items():
         tm = ar_rows[entry]
         rows.append({"name": entry, "route": "cuda",
@@ -2136,6 +2285,8 @@ def main() -> None:
                      "bound_by": tm["bound_by"], "library_ms": None,
                      "kernel": kernel, "workload": tm["workload"],
                      "lanes": tm["n"]})
+        if "per_ray_ms" in tm:
+            rows[-1]["per_ray_ms"] = tm["per_ray_ms"]
     for entry, line in (("rounds_of", "benches/budget.py:56"),
                         ("done_rounds_of", "benches/drain_sim.py:40")):
         tm = b_rows[entry]

@@ -1,5 +1,10 @@
-// CUDA kernels K3 (closest hit) and K4 (occlusion) over a binary PacketBVH,
-// for sm_90a, with extern "C" launchers for ctypes.
+// The first design of K3 (closest hit) and K4 (occlusion) over a binary
+// PacketBVH, for sm_90a, with extern "C" launchers for ctypes: the per-ray
+// arm of the A/B against the warp-cooperative kernels of
+// v4_warp_kernels.cu, which the render path launches. Exported as
+// pt_v4_closest_per_ray / pt_v4_occluded_per_ray; the counted variant lives
+// only here (its walk is the warp kernels' walk, so its counts describe
+// their work too).
 //
 // K3 replaces pt/accel/pallas_bvh.py:packet_closest_v4 and K4 replaces
 // pt/accel/pallas_bvh.py:packet_occluded_v4. One thread per ray, blocks of
@@ -14,7 +19,7 @@
 // Python wrapper can raise on a refused launch.
 //
 // What bounds them: dependent global loads of node and page rows, not FLOPs;
-// this first design does nothing about that yet.
+// a lane tests each leaf alone with scattered scalar loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,7 +102,7 @@ v4::Tree make_tree(const float* top_lo, const float* top_hi,
 
 extern "C" {
 
-int pt_v4_closest(const float* top_lo, const float* top_hi,
+int pt_v4_closest_per_ray(const float* top_lo, const float* top_hi,
                   const int32_t* top_miss, const int32_t* top_leaf,
                   const float* pages, int n_top, int block, int page_cols,
                   const float* orig, const float* dir, const float* tmax,
@@ -118,7 +123,7 @@ int pt_v4_closest(const float* top_lo, const float* top_hi,
     return (int)cudaGetLastError();
 }
 
-int pt_v4_occluded(const float* top_lo, const float* top_hi,
+int pt_v4_occluded_per_ray(const float* top_lo, const float* top_hi,
                    const int32_t* top_miss, const int32_t* top_leaf,
                    const float* pages, int n_top, int block, int page_cols,
                    const float* orig, const float* dir, const float* dist,

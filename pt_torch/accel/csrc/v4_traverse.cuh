@@ -35,7 +35,9 @@
 // Padded page columns (id -1) never hit.
 //
 // Bound: dependent global loads (each step waits on the node it loads), not
-// FLOPs. This first design does nothing about that yet.
+// FLOPs. v4_kernels.cu runs closest()/occluded() one thread per ray (the
+// first design, and the counted variant); v4_warp_kernels.cu walks the same
+// way per lane but tests each leaf with the warp.
 #pragma once
 
 #include "rt_common.cuh"

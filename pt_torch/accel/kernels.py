@@ -13,16 +13,22 @@ TPU schedules of it), `closest_v6` packet_closest_v6, `closest_v6k2`
 packet_closest_v6k2, `closest_v7` packet_closest_v7 and `occluded_v6`
 packet_occluded_v6 (pt_torch/accel/archive.py binds each of pt's entry
 points). The kernels are CUDA C++ for sm_90a (csrc/bf8_kernels.cu over
-csrc/bf8_traverse.cuh, csrc/v4_kernels.cu over csrc/v4_traverse.cuh,
-csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh, csrc/ordered_kernels.cu
-over csrc/ordered_traverse.cuh, csrc/v6_kernels.cu over csrc/v6_traverse.cuh,
+csrc/bf8_traverse.cuh, csrc/v4_warp_kernels.cu and csrc/v4_kernels.cu
+over csrc/v4_traverse.cuh, csrc/bf8i_kernels.cu over
+csrc/bf8i_traverse.cuh, csrc/ordered_kernels.cu over
+csrc/ordered_traverse.cuh, csrc/v6_kernels.cu over csrc/v6_traverse.cuh,
 the last two sharing their leaf tests in csrc/page_leaf.cuh, all over
 csrc/rt_common.cuh), built with nvcc at first use into the port's
 git-ignored build directory, one library per source, and bound through
 ctypes. They are bound by dependent global loads of node and page rows, not
 by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6, the archive
-walks) or the preorder skip links (K3/K4), and this first design does
-nothing about that yet.
+walks) or the preorder skip links (K3/K4). K3/K4 are redesigned for the
+card: each ray keeps its walk, and the warp tests each pending leaf
+together, its page staged into shared memory once per group of lanes
+(csrc/v4_warp_kernels.cu). Their first design, one thread per ray testing
+each leaf alone, stays as the baseline arm of the A/B and as their counted
+variant, reached only by name: `closest_v4_per_ray`, `occluded_v4_per_ray`
+(csrc/v4_kernels.cu).
 
 Beside each kernel sits its plain PyTorch version (`closest_bf8_plain`,
 `occluded_bf8_plain`, `closest_v4_plain`, `occluded_v4_plain`,
@@ -32,7 +38,11 @@ Beside each kernel sits its plain PyTorch version (`closest_bf8_plain`,
 all rays tested against all of them in chunks
 (for K5/K6 segment by segment, the rays mapped into the segment's object
 space first), with the kernel's Woop arithmetic and tie rule. The trees are
-conservative, so it computes the same function as the traversal.
+conservative, so it computes the same function as the traversal. The warp
+K3/K4's schedule has its own plain version (`closest_v4_warp_plain`,
+`occluded_v4_warp_plain`): the per-ray walk of every lane at once, paused
+at each leaf, grouped by (warp, leaf) and reduced with the kernels' key;
+its hits are the per-ray walk's bit for bit, and it counts the groups.
 
 K1 has a pops variant (`closest_bf8(..., pops=...)`): each lane writes the
 iterations of its walk loop, one per pop of a wide node or a leaf. It is the
@@ -45,7 +55,8 @@ lanes that repeats the kernel step by step.
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises. Each
 launch adds one to `launches[name]` (a pops launch to
-`launches["closest_bf8_pops"]`).
+`launches["closest_bf8_pops"]`, a per-ray K3/K4 launch to
+`launches["closest_v4_per_ray"]` / `["occluded_v4_per_ray"]`).
 """
 
 from __future__ import annotations
@@ -74,6 +85,9 @@ _CUDA_LIBS = {
             (CSRC / "bf8_kernels.cu", CSRC / "bf8_traverse.cuh", _COMMON)),
     "v4": (BUILD_DIR / "libpt_v4_sm90a.so",
            (CSRC / "v4_kernels.cu", CSRC / "v4_traverse.cuh", _COMMON)),
+    "v4w": (BUILD_DIR / "libpt_v4w_sm90a.so",
+            (CSRC / "v4_warp_kernels.cu", CSRC / "v4_traverse.cuh",
+             _COMMON)),
     "bf8i": (BUILD_DIR / "libpt_bf8i_sm90a.so",
              (CSRC / "bf8i_kernels.cu", CSRC / "bf8i_traverse.cuh",
               CSRC / "bf8_traverse.cuh", _COMMON)),
@@ -89,7 +103,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"closest_bf8": 0, "closest_bf8_pops": 0, "occluded_bf8": 0,
-            "closest_v4": 0, "occluded_v4": 0, "closest_bf8i": 0,
+            "closest_v4": 0, "occluded_v4": 0, "closest_v4_per_ray": 0,
+            "occluded_v4_per_ray": 0, "closest_bf8i": 0,
             "occluded_bf8i": 0, "closest_ordered": 0, "closest_v6": 0,
             "closest_v6k2": 0, "closest_v7": 0, "occluded_v6": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
@@ -189,21 +204,40 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_bf8i_occluded.restype = i
                 lib.pt_bf8i_occluded.argtypes = (
                     tree + rays + [i, i, p, p, p, p, p, p])
+            elif name == "v4w":     # the warp kernels: no counted variant
+                tree = [p, p, p, p, p, i, i, i]
+                lib.pt_v4w_closest.restype = i
+                lib.pt_v4w_closest.argtypes = tree + rays + [i] + [p] * 5
+                lib.pt_v4w_occluded.restype = i
+                lib.pt_v4w_occluded.argtypes = tree + rays + [i, p, p]
+                lib.pt_v4w_blocks_per_sm.restype = i
+                lib.pt_v4w_blocks_per_sm.argtypes = [i]
+                lib.pt_v4w_smem_per_block.restype = i
+                lib.pt_v4w_smem_per_block.argtypes = []
             else:           # v4, ordered, v6: five pointers, three ints
                 tree = [p, p, p, p, p, i, i, i]
                 flags = [i, i] if name == "v6" else []  # walk, window
-                closest = getattr(lib, f"pt_{name}_closest")
+                closest = getattr(lib, _closest_symbol(name))
                 closest.restype = i
                 closest.argtypes = (tree + rays + flags
                                     + [i, p, p, p, p, p, p, p, p])
                 if name != "ordered":
-                    occluded = getattr(lib, f"pt_{name}_occluded")
+                    occluded = getattr(lib, f"pt_{name}_occluded"
+                                       + _PER_RAY.get(name, ""))
                     occluded.restype = i
                     occluded.argtypes = tree + rays + [i, p, p, p, p, p]
             lib.pt_cuda_error_string.restype = ctypes.c_char_p
             lib.pt_cuda_error_string.argtypes = [i]
             _cuda_handles[name] = lib
         return lib
+
+
+# the per-ray K3/K4 (v4_kernels.cu) are exported under this suffix
+_PER_RAY = {"v4": "_per_ray"}
+
+
+def _closest_symbol(lib_name: str) -> str:
+    return f"pt_{lib_name}_closest" + _PER_RAY.get(lib_name, "")
 
 
 def _check_rays(bvh, origins, dirs, limit, what: str) -> int:
@@ -429,7 +463,7 @@ def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
         return Hit(t, tri, u, v)
     lib = _lib(lib_name)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = getattr(lib, f"pt_{lib_name}_closest")(
+    code = getattr(lib, _closest_symbol(lib_name))(
         *tree_args, origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(),
         float(tmin), *flags, n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
         v.data_ptr(), *_counts_ptrs(counts, bvh), *tail, stream)
@@ -489,24 +523,101 @@ def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
     return out.view(torch.bool)
 
 
+def _check_warp_pages(pbvh: PacketBVH) -> None:
+    """The warp kernels stage a page in chunks of 32 columns by 16-byte
+    copies: block % 32 == 0 (every builder's page-group granularity),
+    page width % 4 == 0 and a 16-byte aligned base."""
+    if (pbvh.block % 32 or pbvh.pages.shape[-1] % 4
+            or pbvh.pages.data_ptr() % 16):
+        raise ValueError(f"PacketBVH: block {pbvh.block} and page width "
+                         f"{pbvh.pages.shape[-1]} must be multiples of 32 "
+                         "and 4 and the pages 16-byte aligned")
+
+
 def closest_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
-               tmax: torch.Tensor, tmin: float = 1e-5,
-               counts: Optional[WorkCounts] = None) -> Hit:
+               tmax: torch.Tensor, tmin: float = 1e-5) -> Hit:
     """Closest hit of N rays over a binary PacketBVH (the Morton tree of an
     animated frame, or a static SAH tree whose BF8 collapse did not fit).
-    Arguments and result as closest_bf8."""
+    Arguments and result as closest_bf8. On the card it launches the warp
+    kernel (v4_warp_kernels.cu): each ray walks as the per-ray kernel does,
+    and the warp tests each pending leaf together. Its counted variant is
+    the per-ray one (`closest_v4_per_ray(..., counts=)`), since the walk is
+    the same."""
     n = _check_rays(pbvh, origins, dirs, tmax, "tmax")
     if origins.device.type == "cpu":
         return closest_v4_plain(pbvh, origins, dirs, tmax, tmin)
-    return _launch_closest("closest_v4", "v4", _tree_args_v4(pbvh), pbvh,
-                           origins, dirs, tmax, tmin, n, counts)
+    _check_warp_pages(pbvh)
+    t = torch.empty(n, dtype=torch.float32, device=origins.device)
+    tri = torch.empty(n, dtype=torch.int32, device=origins.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    if n == 0:
+        return Hit(t, tri, u, v)
+    lib = _lib("v4w")
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    code = lib.pt_v4w_closest(*_tree_args_v4(pbvh), origins.data_ptr(),
+                              dirs.data_ptr(), tmax.data_ptr(), float(tmin),
+                              n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+                              v.data_ptr(), stream)
+    _raise_on(lib, code, "closest_v4")
+    launches["closest_v4"] += 1
+    return Hit(t, tri, u, v)
 
 
 def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
-                dist: torch.Tensor, tmin: float = 1e-5,
-                counts: Optional[WorkCounts] = None) -> torch.Tensor:
+                dist: torch.Tensor, tmin: float = 1e-5) -> torch.Tensor:
     """Any hit with tmin < t < dist for N rays over a PacketBVH; bool (N,).
-    An alpha-tagged triangle occludes like any other."""
+    An alpha-tagged triangle occludes like any other. On the card the warp
+    kernel, as closest_v4; counted variant: `occluded_v4_per_ray`."""
+    n = _check_rays(pbvh, origins, dirs, dist, "dist")
+    if origins.device.type == "cpu":
+        return occluded_v4_plain(pbvh, origins, dirs, dist, tmin)
+    _check_warp_pages(pbvh)
+    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
+    if n == 0:
+        return out.view(torch.bool)
+    lib = _lib("v4w")
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    code = lib.pt_v4w_occluded(*_tree_args_v4(pbvh), origins.data_ptr(),
+                               dirs.data_ptr(), dist.data_ptr(), float(tmin),
+                               n, out.data_ptr(), stream)
+    _raise_on(lib, code, "occluded_v4")
+    launches["occluded_v4"] += 1
+    return out.view(torch.bool)
+
+
+def v4_warp_occupancy(device) -> Dict[str, int]:
+    """The warp kernels' resident blocks per SM (closest, occluded) and
+    static shared memory per block, as the built library reports them."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("the warp kernels' occupancy needs the card")
+    lib = _lib("v4w")
+    return {"closest_blocks_per_sm": int(lib.pt_v4w_blocks_per_sm(0)),
+            "occluded_blocks_per_sm": int(lib.pt_v4w_blocks_per_sm(1)),
+            "smem_bytes_per_block": int(lib.pt_v4w_smem_per_block())}
+
+
+def closest_v4_per_ray(pbvh: PacketBVH, origins: torch.Tensor,
+                       dirs: torch.Tensor, tmax: torch.Tensor,
+                       tmin: float = 1e-5,
+                       counts: Optional[WorkCounts] = None) -> Hit:
+    """K3's first design, one thread per ray testing each leaf alone
+    (v4_kernels.cu): the baseline arm of the A/B against closest_v4, and
+    its counted variant (`counts` as for closest_bf8). Nothing on the
+    render path calls it."""
+    n = _check_rays(pbvh, origins, dirs, tmax, "tmax")
+    if origins.device.type == "cpu":
+        return closest_v4_plain(pbvh, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v4_per_ray", "v4", _tree_args_v4(pbvh),
+                           pbvh, origins, dirs, tmax, tmin, n, counts)
+
+
+def occluded_v4_per_ray(pbvh: PacketBVH, origins: torch.Tensor,
+                        dirs: torch.Tensor, dist: torch.Tensor,
+                        tmin: float = 1e-5,
+                        counts: Optional[WorkCounts] = None) -> torch.Tensor:
+    """K4's first design, one thread per ray: the baseline arm of the A/B
+    against occluded_v4, and its counted variant."""
     n = _check_rays(pbvh, origins, dirs, dist, "dist")
     if origins.device.type == "cpu":
         return occluded_v4_plain(pbvh, origins, dirs, dist, tmin)
@@ -515,12 +626,13 @@ def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
         return out.view(torch.bool)
     lib = _lib("v4")
     stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_v4_occluded(*_tree_args_v4(pbvh), origins.data_ptr(),
-                              dirs.data_ptr(), dist.data_ptr(), float(tmin),
-                              n, out.data_ptr(),
-                              *_counts_ptrs(counts, pbvh), stream)
-    _raise_on(lib, code, "occluded_v4")
-    launches["occluded_v4"] += 1
+    code = lib.pt_v4_occluded_per_ray(*_tree_args_v4(pbvh),
+                                      origins.data_ptr(), dirs.data_ptr(),
+                                      dist.data_ptr(), float(tmin), n,
+                                      out.data_ptr(),
+                                      *_counts_ptrs(counts, pbvh), stream)
+    _raise_on(lib, code, "occluded_v4_per_ray")
+    launches["occluded_v4_per_ray"] += 1
     return out.view(torch.bool)
 
 
@@ -900,6 +1012,190 @@ def occluded_v4_plain(pbvh: PacketBVH, origins, dirs, dist,
     """Plain PyTorch version of K4 (no `opaque_only`: every triangle
     occludes)."""
     return occluded_bf8_plain(pbvh, origins, dirs, dist, tmin)
+
+
+# ----------------------------------------- the warp kernels' schedule
+
+WARP = 32
+_NO_KEY = 0xFFFFFFFF
+
+
+class WarpSchedule(NamedTuple):
+    """What the warp kernels (v4_warp_kernels.cu) do on a launch's rays, as
+    `closest_v4_warp_plain` / `occluded_v4_warp_plain` count it. A warp is
+    32 consecutive lanes; in a round every lane of a warp that is not done
+    holds a pending leaf. Per launch: `node_visits` (slab tests, as the
+    per-ray walk's counted variant counts them), `warps` with any leaf
+    round, `rounds` (summed over warps), `groups` (distinct leaves of a
+    warp's round: one page read each), `leaf_visits` ((lane, leaf) pairs,
+    the sum of the lanes in each group), `chunk_loads` (32-triangle chunks
+    staged;
+    an occlusion group stops after its last member is occluded, with the
+    chunk already in flight), `ray_chunk_tests` (warp-wide Woop tests of one
+    ray against one chunk) and `lanes_per_group` (groups of 1, 2-3, 4-7,
+    8-15, 16-31 and 32 lanes)."""
+    warps: int
+    rounds: int
+    groups: int
+    leaf_visits: int
+    chunk_loads: int
+    ray_chunk_tests: int
+    lanes_per_group: tuple
+    node_visits: int
+
+
+def t_order_key(t: torch.Tensor) -> torch.Tensor:
+    """The warp kernels' order-preserving key of f32 `t` (no NaN), int64 in
+    [0, 2**32): a < b iff key(a) < key(b), and -0.0 shares +0.0's key."""
+    b = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where((b & 0x7FFFFFFF) == 0, torch.zeros_like(b), b)
+    return torch.where((b & 0x80000000) != 0, b ^ 0xFFFFFFFF,
+                       b | 0x80000000)
+
+
+def _chunk_winner(t, u, v, acc, idc):
+    """The warp kernels' reduction over the columns of a chunk ((C, 32)
+    each; `idc` the ids with ALPHA_TRI_BIT stripped): per row, whether any
+    column accepted, and the winner's (t, id, u, v): the least key of t,
+    then the least id at that key, the first such column."""
+    key = torch.where(acc, t_order_key(t), _NO_KEY)
+    kmin = key.min(dim=1).values
+    at = acc & (key == kmin[:, None])
+    imin = torch.where(at, idc, _NO_KEY).min(dim=1).values
+    col = torch.argmax((at & (idc == imin[:, None])).to(torch.int8),
+                       dim=1)[:, None]
+    return (kmin != _NO_KEY, t.gather(1, col)[:, 0], imin,
+            u.gather(1, col)[:, 0], v.gather(1, col)[:, 0])
+
+
+def _merge_best(best, has, wt, wid, wu, wv):
+    """v4_traverse.cuh's rule, applied by a ray's own lane to a chunk's
+    winner: a smaller t, or an exact tie with a smaller id."""
+    bt, bi, bu, bv = best
+    better = has & ((wt < bt) | ((wt == bt) & (bi >= 0) & (wid < bi)))
+    return (torch.where(better, wt, bt), torch.where(better, wid, bi),
+            torch.where(better, wu, bu), torch.where(better, wv, bv))
+
+
+def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
+                      any_hit: bool):
+    """The warp kernels' schedule, every lane at once: each live lane walks
+    the skip links (pruning closest with its best t) to its next leaf whose
+    box it hits; the round's pending lanes are grouped by (warp, leaf) and
+    tested chunk by chunk with the kernels' reduction; then they resume.
+    A lane's r-th leaf is its warp's r-th round, whatever the other warps
+    do, so all warps run together here. Returns ((t, id, u, v) or the
+    occlusion bools, WarpSchedule)."""
+    w, bias, wd, ids = _leaf_columns(pbvh)
+    dev = origins.device
+    n, blk, n_top = origins.shape[0], pbvh.block, pbvh.n_top
+    nc = blk // WARP
+    inv = _safe_inv(dirs)
+    top_miss = pbvh.top_miss.to(torch.int64)
+    top_leaf = pbvh.top_leaf.to(torch.int64)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    best = (limit.clone(), torch.full((n,), -1, dtype=torch.int64,
+                                      device=dev),
+            torch.zeros_like(limit), torch.zeros_like(limit))
+    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
+    warp_rounds = torch.zeros((n + WARP - 1) // WARP, dtype=torch.int64,
+                              device=dev)
+    hist = torch.zeros(6, dtype=torch.int64, device=dev)
+    groups = visits = loads = tests = nodes = 0
+    per_slice = max(1, (1 << 22) // blk)
+    while True:
+        pending = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        walking = torch.nonzero((node >= 0) & (node < n_top)).squeeze(1)
+        while walking.numel():
+            nodes += walking.numel()
+            i = node[walking]
+            ok, _ = _slab(pbvh.top_lo[i], pbvh.top_hi[i], origins[walking],
+                          inv[walking], best[0][walking])
+            leaf = top_leaf[i]
+            at_leaf = ok & (leaf >= 0)
+            pending[walking[at_leaf]] = leaf[at_leaf]
+            node[walking] = torch.where(ok, torch.where(leaf >= 0, i, i + 1),
+                                        top_miss[i])
+            walking = walking[~at_leaf]
+            walking = walking[(node[walking] >= 0)
+                              & (node[walking] < n_top)]
+        lanes = torch.nonzero(pending >= 0).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        lid = pending[lanes]
+        gkey = (lanes // WARP) * pbvh.pages.shape[0] + lid
+        uniq, inverse, cnt = torch.unique(gkey, return_inverse=True,
+                                          return_counts=True)
+        warp_rounds[torch.unique(lanes // WARP)] += 1
+        groups += uniq.numel()
+        visits += lanes.numel()
+        hist += torch.bincount(sum((cnt >= k).long() for k in (2, 4, 8, 16,
+                                                               32)),
+                               minlength=6)
+        tested = torch.empty(lanes.numel(), dtype=torch.int64, device=dev)
+        for s0 in range(0, lanes.numel(), per_slice):
+            sl = slice(s0, s0 + per_slice)
+            ln, li = lanes[sl], lid[sl]
+            t, u, v, acc = _woop_chunk(origins[ln], dirs[ln], w[li],
+                                       bias[li], wd[li], tmin, limit[ln])
+            col_id = ids[li].to(torch.int64)
+            acc &= col_id >= 0
+            if any_hit:
+                hit = acc.reshape(-1, nc, WARP).any(dim=2)     # (C, nc)
+                occ = hit.any(dim=1)
+                tested[sl] = torch.where(
+                    occ, torch.argmax(hit.to(torch.int8), dim=1) + 1, nc)
+                occluded[ln[occ]] = True
+                continue
+            idc = col_id & ~ALPHA_TRI_BIT
+            mine = tuple(b[ln] for b in best)
+            for c in range(nc):
+                cs = slice(c * WARP, (c + 1) * WARP)
+                mine = _merge_best(mine, *_chunk_winner(
+                    t[:, cs], u[:, cs], v[:, cs], acc[:, cs], idc[:, cs]))
+            for b, m in zip(best, mine):
+                b[ln] = m
+            tested[sl] = nc
+        tests += int(tested.sum())
+        if any_hit:
+            # a group stops staging once its last member is occluded; the
+            # chunk after that one is already in flight
+            occ_l = occluded[lanes]
+            last = torch.zeros_like(uniq).scatter_reduce(
+                0, inverse, tested, "amax")
+            all_occ = torch.ones_like(uniq).scatter_reduce(
+                0, inverse, occ_l.long(), "amin")
+            loads += int(torch.where(all_occ > 0,
+                                     torch.clamp(last + 1, max=nc),
+                                     nc).sum())
+            node[lanes] = torch.where(occ_l, n_top, top_miss[node[lanes]])
+        else:
+            loads += uniq.numel() * nc
+            node[lanes] = top_miss[node[lanes]]
+    sched = WarpSchedule(int((warp_rounds > 0).sum()),
+                         int(warp_rounds.sum()), groups, visits, loads,
+                         tests, tuple(int(x) for x in hist.tolist()), nodes)
+    if any_hit:
+        return occluded, sched
+    t, bid, u, v = best
+    return (t, torch.where(bid >= 0, bid, -1).to(torch.int32), u, v), sched
+
+
+def closest_v4_warp_plain(pbvh: PacketBVH, origins, dirs, tmax,
+                          tmin: float = 1e-5):
+    """Plain PyTorch version of the closest_v4 warp kernel's schedule:
+    (Hit, WarpSchedule). Its hits are bit-equal to the per-ray walk's
+    (v4_traverse.cuh), ties across leaves included."""
+    (t, tri, u, v), sched = _v4_warp_schedule(pbvh, origins, dirs, tmax,
+                                              tmin, any_hit=False)
+    return Hit(t, tri, u, v), sched
+
+
+def occluded_v4_warp_plain(pbvh: PacketBVH, origins, dirs, dist,
+                           tmin: float = 1e-5):
+    """Plain PyTorch version of the occluded_v4 warp kernel's schedule:
+    (bool (N,), WarpSchedule)."""
+    return _v4_warp_schedule(pbvh, origins, dirs, dist, tmin, any_hit=True)
 
 
 # the archive kernels' plain versions: the page brute does not depend on

@@ -10,7 +10,8 @@ neither JAX nor `pt`, so it also runs on a machine that has only PyTorch:
 K1-K6 and the archive kernels (closest_ordered, closest_v6, closest_v6k2,
 closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the kernels are
 built with -fmad=false and run the plain version's f32 arithmetic in its
-order. K1's pops variant gives K1's hits and the plain walk's pops.
+order. K1's pops variant gives K1's hits and the plain walk's pops. The
+warp-cooperative K3/K4 give the per-ray arm's bits on every lane.
 """
 
 import numpy as np
@@ -132,9 +133,14 @@ def test_cuda_v4_kernels_match_plain(cuda_device, soup):
     got = kernels.occluded_v4(pb, o, d, dist)
     assert kernels.launches["occluded_v4"] == before["occluded_v4"] + 1
     assert torch.equal(got, kernels.occluded_v4_plain(pb, o, d, dist))
+    assert kernels.launches["closest_v4_per_ray"] == \
+        before["closest_v4_per_ray"]
     counts = kernels.work_counts(pb)
-    counted = kernels.closest_v4(pb, o, d, tmax, counts=counts)
-    for a, b in zip(counted, hk):          # the counted variant: same hits
+    # the counted variant is the per-ray walk's: same hits
+    counted = kernels.closest_v4_per_ray(pb, o, d, tmax, counts=counts)
+    assert kernels.launches["closest_v4_per_ray"] == \
+        before["closest_v4_per_ray"] + 1
+    for a, b in zip(counted, hk):
         assert torch.equal(a, b)
     nodes, tris = counts.totals.tolist()
     assert nodes >= 8192 and tris < 8192 * tri.shape[0]
@@ -148,9 +154,81 @@ def test_cuda_v4_kernels_match_plain(cuda_device, soup):
     dead = torch.zeros(8192, dtype=torch.bool, device=cuda_device)
     od, dd, td = _degenerate_masked(pb, o, d, 1e4, dead)
     counts = kernels.work_counts(pb)
-    h = kernels.closest_v4(pb, od.contiguous(), dd.contiguous(), td,
-                           counts=counts)
+    h = kernels.closest_v4_per_ray(pb, od.contiguous(), dd.contiguous(), td,
+                                   counts=counts)
     assert counts.totals.tolist() == [8192, 0] and bool((h.tri == -1).all())
+
+
+def _bits(h):
+    return [a.view(torch.int32) if a.dtype == torch.float32 else a
+            for a in h]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_cuda_v4_warp_kernels_match_per_ray(cuda_device, block, n):
+    """The warp-cooperative K3/K4 against the per-ray arm on every lane:
+    t, u, v bits, ids and occlusion, on a seeded soup with alpha tags and
+    padded leaves, with lanes that fill no whole warp."""
+    verts, tri = _random_tris(1100 if block == 64 else 2300, 50 + block)
+    opaque = (np.arange(tri.shape[0]) % 3) != 0
+    pb = bvh8.build_packet_bvh(
+        torch.as_tensor(verts, device=cuda_device),
+        torch.as_tensor(tri, device=cuda_device), block=block,
+        tri_opaque=torch.as_tensor(opaque, device=cuda_device))
+    assert pb.block == block
+    o, d = _rays(4096, 51, cuda_device)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    dist = torch.linspace(0.5, 20.0, n, device=cuda_device)
+    before = dict(kernels.launches)
+    hw = kernels.closest_v4(pb, o, d, tmax)
+    hr = kernels.closest_v4_per_ray(pb, o, d, tmax)
+    ow = kernels.occluded_v4(pb, o, d, dist)
+    orr = kernels.occluded_v4_per_ray(pb, o, d, dist)
+    torch.cuda.synchronize()
+    for k in ("closest_v4", "closest_v4_per_ray", "occluded_v4",
+              "occluded_v4_per_ray"):
+        assert kernels.launches[k] == before[k] + 1, k
+    for a, b in zip(_bits(hw), _bits(hr)):
+        assert torch.equal(a, b)
+    assert torch.equal(ow, orr)
+    if n == 1000:
+        assert int((hr.tri >= 0).sum()) > 20 and 0 < int(orr.sum()) < n
+
+
+@pytest.mark.gpu
+def test_cuda_v4_warp_kernels_launch_nothing_on_no_rays(cuda_device):
+    verts, tri = _random_tris(300, 52)
+    pb = bvh8.build_packet_bvh(torch.as_tensor(verts, device=cuda_device),
+                               torch.as_tensor(tri, device=cuda_device))
+    empty = torch.empty((0, 3), device=cuda_device)
+    none = torch.empty((0,), device=cuda_device)
+    before = dict(kernels.launches)
+    h = kernels.closest_v4(pb, empty, empty, none)
+    occ = kernels.occluded_v4(pb, empty, empty, none)
+    assert h.t.shape == (0,) and occ.shape == (0,) and occ.dtype == torch.bool
+    assert kernels.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_v4_warp_kernels_on_a_static_sah_tree(cuda_device):
+    """The static fallback at a large block: pages staged in many chunks."""
+    verts, tri = _random_tris(3000, 53)
+    opaque = (np.arange(3000) % 2) == 0
+    pb = bvh8.build_packet_bvh_sah(verts, tri, tri_opaque_np=opaque,
+                                   spatial=True, max_leaves=8,
+                                   device=cuda_device)
+    assert pb.block >= 512
+    o, d = _rays(4096, 54, cuda_device)
+    tmax = torch.full((4096,), 1e4, device=cuda_device)
+    dist = torch.full((4096,), 6.0, device=cuda_device)
+    for a, b in zip(_bits(kernels.closest_v4(pb, o, d, tmax)),
+                    _bits(kernels.closest_v4_per_ray(pb, o, d, tmax))):
+        assert torch.equal(a, b)
+    assert torch.equal(kernels.occluded_v4(pb, o, d, dist),
+                       kernels.occluded_v4_per_ray(pb, o, d, dist))
 
 
 @pytest.mark.gpu
@@ -192,6 +270,12 @@ def test_cuda_wrapper_rejects_mixed_devices(cuda_device):
     with pytest.raises(ValueError):
         kernels.closest_bf8(b8, o, d, torch.full((16,), 1e4,
                                                  device=cuda_device))
+    pb = bvh8.build_packet_bvh(torch.as_tensor(verts), torch.as_tensor(tri))
+    far = torch.full((16,), 1e4, device=cuda_device)
+    for fn in (kernels.closest_v4, kernels.occluded_v4,
+               kernels.closest_v4_per_ray, kernels.occluded_v4_per_ray):
+        with pytest.raises(ValueError):
+            fn(pb, o, d, far)
 
 
 @pytest.mark.gpu
