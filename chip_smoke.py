@@ -8,7 +8,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
 1. device: name, count, versions, `nvidia-smi` name and power limit;
 2. build: every traversal kernel (one nvcc per source for sm_90a, with
    -Xptxas -v) and the native SBVH library (g++), all started together;
-   the warp K3/K4's resident blocks per SM and shared memory per block;
+   the warp K3/K4's and K5/K6's resident blocks per SM and shared memory
+   per block;
 3. kernel parity at full size, each kernel against its plain PyTorch version
    on the card: K1 (closest_bf8) and K2 (occluded_bf8, and opaque_only on a
    structure with every other triangle non-opaque) over the Heightfield
@@ -51,9 +52,15 @@ Phases, each fatal on failure (nothing is caught and passed over):
    on the alpha variant for both subset trees too), every trace then runs
    K5/K6 (launch counters as above); build seconds, ms per step, Mrays/s,
    peak memory, shared against flattened page bytes, K5/K6's time on the real
-   bounce-0 and bounce-2 wavefronts against plain version and bound; the same
-   scene with `instancing="flatten"` for the gates: primary-hit flips <=
-   0.5% of the pixels, mean film shift <= 2%;
+   bounce-0 and bounce-2 wavefronts against plain version and bound; the A/B
+   of K5/K6's two designs on the same wavefronts (per-ray, warp, warp,
+   per-ray), each against that bound, and the plain warp schedule's groups
+   (pages staged), the distinct leaves in them and lanes per group there
+   (its hits equal the kernels'), and on the alpha variant the same A/B of
+   K5 on the alpha-card tree's first alpha round of bounces 0 and 2; the
+   same scene with
+   `instancing="flatten"` for the gates: primary-hit flips <= 0.5% of the
+   pixels, mean film shift <= 2%;
 8. archive: `pt`'s archive kernels through the entry points that select
    them (`pt_torch.accel.archive`), with the launch and call counters set to
    0 before each run and read after. Path (a): `pt_torch.benches.bvh_kernels`
@@ -97,11 +104,13 @@ Phases, each fatal on failure (nothing is caught and passed over):
     bytes a lane). The phase logs its own seconds.
 
 Phase 3 also holds K5 (closest_bf8i, with raw_ids) and K6 (occluded_bf8i,
-with opaque_only) against their plain versions over the 64-instance tree and
-over the three trees of the Courtyard at detail 0.85; lanes that differ at
-|dt| = 0 (exact ties between leaves) are counted apart.
+with opaque_only), the warp kernels, against their plain versions over the
+64-instance tree and over the three trees of the Courtyard at detail 0.85
+(lanes that differ at |dt| = 0, exact ties between leaves, are counted
+apart), and bit-equal to their per-ray arm (closest_bf8i_per_ray,
+occluded_bf8i_per_ray) on every lane of the same sets.
 
-Prints the kernels' JSON line (K1-K6, K3/K4 with their per-ray arm's time
+Prints the kernels' JSON line (K1-K6, K3-K6 with their per-ray arm's time
 from the A/B, then one row per archive entry point, with the kernel it runs
 and the workload it was timed on (A8/A9: also the per-ray arm's time on the
 same rays), then the rows
@@ -182,14 +191,16 @@ SOURCES = {
     "occluded_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
     "closest_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
     "occluded_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
-    "closest_bf8i": "pt_torch/accel/csrc/bf8i_kernels.cu",
-    "occluded_bf8i": "pt_torch/accel/csrc/bf8i_kernels.cu",
+    "closest_bf8i": "pt_torch/accel/csrc/bf8i_warp_kernels.cu",
+    "occluded_bf8i": "pt_torch/accel/csrc/bf8i_warp_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
-# K3/K4's first design, the per-ray arm of the A/B; it also carries their
+# K3-K6's first design, the per-ray arm of the A/B; it also carries their
 # counted variant (the walk is the same)
 PER_RAY = {"closest_v4": "closest_v4_per_ray",
-           "occluded_v4": "occluded_v4_per_ray"}
+           "occluded_v4": "occluded_v4_per_ray",
+           "closest_bf8i": "closest_bf8i_per_ray",
+           "occluded_bf8i": "occluded_bf8i_per_ray"}
 # the archive's entry points (pt/accel/pallas_bvh_archive.py), in pt's order
 # A1-A10, each with the port's kernel that it runs
 ARCHIVE = {
@@ -489,9 +500,11 @@ def phase_build():
     for line in ptxas.splitlines():
         if line.strip():
             log(f"[build] {line.strip()}")
-    occ = kernels.v4_warp_occupancy("cuda")
-    check(min(occ.values()) > 0, f"warp K3/K4 occupancy query failed: {occ}")
-    log(f"[build] warp K3/K4 (128 threads a block): {occ}")
+    for lib, which in (("v4w", "K3/K4"), ("bf8iw", "K5/K6")):
+        occ = kernels.warp_occupancy(lib, "cuda")
+        check(min(occ.values()) > 0,
+              f"warp {which} occupancy query failed: {occ}")
+        log(f"[build] warp {which} (128 threads a block): {occ}")
 
 
 def _renderer(scene, width: int, spp: int, bounces: int, device: str,
@@ -653,22 +666,32 @@ def _bits(h):
             for a in h]
 
 
-def _arms_equal(bvh, o, d, t, dist, what):
-    """The warp-cooperative K3/K4 against the per-ray arm on one ray set:
-    t, u and v bits and ids of every lane, and its occlusion bool, must be
-    equal."""
+def _arms_equal(bvh, o, d, t, dist, what, pair=("closest_v4",
+                                              "occluded_v4")):
+    """The warp-cooperative kernels of `pair` (K3/K4, or K5/K6 each with
+    raw_ids and opaque_only off and on) against the per-ray arm on one ray
+    set: t, u and v bits and ids of every lane, and its occlusion bool,
+    must be equal."""
     from pt_torch.accel import kernels
-    hw = kernels.closest_v4(bvh, o, d, t)
-    hr = kernels.closest_v4_per_ray(bvh, o, d, t)
-    differ = sum((a != b) for a, b in zip(_bits(hw), _bits(hr))) > 0
-    ow = kernels.occluded_v4(bvh, o, d, dist)
-    orr = kernels.occluded_v4_per_ray(bvh, o, d, dist)
-    n_c, n_o = int(differ.sum()), int((ow != orr).sum())
-    log(f"[parity] warp K3/K4 against the per-ray arm, {what}: {o.shape[0]} "
-        f"rays, {n_c} lanes differ in (t, tri, u, v) bits "
+    closest, occluded = pair
+    label = "K3/K4" if closest == "closest_v4" else "K5/K6"
+    flags = ([({}, {})] if label == "K3/K4" else
+             [({"raw_ids": f}, {"opaque_only": f}) for f in (False, True)])
+    n_c = n_o = 0
+    for kc, ko in flags:
+        hw = getattr(kernels, closest)(bvh, o, d, t, **kc)
+        hr = getattr(kernels, PER_RAY[closest])(bvh, o, d, t, **kc)
+        differ = sum((a != b) for a, b in zip(_bits(hw), _bits(hr))) > 0
+        ow = getattr(kernels, occluded)(bvh, o, d, dist, **ko)
+        orr = getattr(kernels, PER_RAY[occluded])(bvh, o, d, dist, **ko)
+        n_c += int(differ.sum())
+        n_o += int((ow != orr).sum())
+    log(f"[parity] warp {label} against the per-ray arm, {what}: "
+        f"{o.shape[0]} rays{'' if len(flags) == 1 else ' x 2 flags'}, "
+        f"{n_c} lanes differ in (t, tri, u, v) bits "
         f"({int((hr.tri >= 0).sum())} hits), {n_o} in occlusion "
         f"({int(orr.sum())} occluded)")
-    check(n_c == 0 and n_o == 0, f"warp K3/K4 {what}: {n_c} closest and "
+    check(n_c == 0 and n_o == 0, f"warp {label} {what}: {n_c} closest and "
           f"{n_o} occlusion lanes differ from the per-ray arm")
 
 
@@ -749,11 +772,12 @@ def _parity_v4(rng):
 
 def _compare_bf8i(bvh, o, d, t, what, errs, rng):
     """K5 (plain and raw ids) and K6 (all and opaque only) against their
-    plain versions on one ray set. A lane whose ids differ at |dt| = 0 is an
-    exact tie between two leaves (the kernel's leaf-box retest `tnear <
-    best_t` may cull the second leaf before the smaller id is seen): counted
-    apart. Any other differing lane is a hit at the rim of a leaf box that
-    the walk's slab test and the plain version's exhaustive test decide
+    plain versions on one ray set, and bit-equal to their per-ray arm. A
+    lane whose ids differ from the plain version's at |dt| = 0 is an exact
+    tie between two leaves (the kernel's leaf-box retest `tnear < best_t`
+    may cull the second leaf before the smaller id is seen): counted apart.
+    Any other differing lane is a hit at the rim of a leaf box that the
+    walk's slab test and the plain version's exhaustive test decide
     differently; both kinds together may be at most 1 lane in 1000. Where
     the ids agree, t, u and v must be bit-equal."""
     import torch
@@ -785,6 +809,7 @@ def _compare_bf8i(bvh, o, d, t, what, errs, rng):
     for flag in (False, True):
         errs["occluded_bf8i"] = max(errs["occluded_bf8i"], _compare_occluded(
             bvh, o, d, dist, what, name="occluded_bf8i", opaque_only=flag))
+    _arms_equal(bvh, o, d, t, dist, what, ("closest_bf8i", "occluded_bf8i"))
 
 
 def _random_rays(bvh, n, rng):
@@ -822,10 +847,11 @@ def courtyard_renderer(detail: float, instancing: str, spp: int,
 
 
 def _parity_bf8i(rng):
-    """K5/K6 against their plain versions: over the 64-instance tree that
-    "auto" selects, and over the three trees of the Courtyard at detail 0.85
-    with instancing="shared" (both `leaf_retest` values, the alpha bit, the
-    2-page alpha tree), on real wavefronts and random rays."""
+    """K5/K6 against their plain versions and bit-equal to their per-ray
+    arm: over the 64-instance tree that "auto" selects, and over the three
+    trees of the Courtyard at detail 0.85 with instancing="shared" (both
+    `leaf_retest` values, the alpha bit, the 2-page alpha tree), on real
+    wavefronts and random rays."""
     import torch
     t0 = time.perf_counter()
     errs = {"closest_bf8i": 0.0, "occluded_bf8i": 0.0}
@@ -1196,9 +1222,9 @@ def phase_animated():
     _profile(rebuild, "animated, one rebuild (99458 triangles)", top=8)
     with _Recorder() as rec:
         r.render(1)
-    times = _kernel_times(r, (("closest_v4", "closest"),
-                              ("occluded_v4", "occluded")), "anim", rec)
-    _ab_v4(r.accel.bvh, rec, times)
+    pairs = (("closest_v4", "closest"), ("occluded_v4", "occluded"))
+    times = _kernel_times(r, pairs, "anim", rec)
+    _ab_bounces(r.accel.bvh, rec, times, pairs, "anim")
     mean = lambda k: float(np.mean([fr[k] for fr in frames]))  # noqa: E731
     return counts, times, dict(frames=frames, peak_mib=peak,
                                rebuild_ms=mean("rebuild_ms"),
@@ -1206,60 +1232,66 @@ def phase_animated():
                                mrays=mean("mrays"))
 
 
-def _ab_v4(bvh, rec, times):
-    """The A/B of K3/K4's two designs inside this call, on the real
-    bounce-0 and bounce-2 wavefronts: the per-ray arm and the warp kernels
-    in turns (per-ray, warp, warp, per-ray; each the least of 2 blocks of 5
-    launches behind the device sleep), against the unchanged bound of
-    `_kernel_times`. The plain warp schedule runs on the same rays: its
-    hits must equal the kernel's bit for bit, and its counts (groups per
-    warp round, lanes per group, chunks staged) explain the A/B. Adds
-    `per_ray_ms`, `ab_ms` and `schedule` to `times`."""
+def _ab_warp(bvh, cases, tag):
+    """The A/B of a warp kernel's two designs inside this call, on recorded
+    wavefronts: `cases` of (kernel name, label, the call's arguments, its
+    `_time_kernel` record). The per-ray arm and the warp kernel in turns
+    (per-ray, warp, warp, per-ray; each the least of 2 blocks of 5 launches
+    behind the device sleep), against the record's unchanged bound. The
+    plain warp schedule runs on the same rays: its hits must equal the
+    kernel's bit for bit, and its counts (pages staged per warp round, the
+    distinct leaves in them, lanes per group, chunks staged, warp steps)
+    explain the A/B. Adds `per_ray_ms`, `ab_ms` and `schedule` to each
+    record."""
     import torch
     from pt_torch.accel import kernels
-    for name, which in (("closest_v4", "closest"),
-                        ("occluded_v4", "occluded")):
+    for name, label, args, tm in cases:
         warp_fn = getattr(kernels, name)
         ray_fn = getattr(kernels, PER_RAY[name])
-        plain_fn = getattr(kernels, name + "_warp_plain")
-        for b in (0, 2):
-            args = getattr(rec, which)[b]
-            n = args[0].shape[0]
-            tw, tr = warp_fn(bvh, *args), ray_fn(bvh, *args)
-            t0 = time.perf_counter()
-            plain, sched = plain_fn(bvh, *args)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-            if name.startswith("closest"):
-                same = all(torch.equal(a, c) and torch.equal(a, e) for a, c, e
-                           in zip(_bits(tw), _bits(tr), _bits(plain)))
-            else:
-                same = torch.equal(tw, tr) and torch.equal(tw, plain)
-            check(same, f"{name} bounce {b}: the warp kernel, the per-ray "
-                  "arm and the plain warp schedule differ")
-            arms = {"per_ray": [], "warp": []}
-            for arm in ("per_ray", "warp", "warp", "per_ray"):
-                fn = ray_fn if arm == "per_ray" else warp_fn
-                arms[arm].append(min(cuda_ms(lambda: fn(bvh, *args), reps=5)
-                                     for _ in range(2)))
-            tm = times[(name, b)]
-            tm["per_ray_ms"] = float(np.mean(arms["per_ray"]))
-            tm["ab_ms"] = float(np.mean(arms["warp"]))
-            tm["schedule"] = sched._asdict()
-            bound = tm["bound_ms"]
-            log(f"[anim] A/B {name} bounce {b}, {n} lanes: per-ray "
-                f"{arms['per_ray'][0]:.3f} / {arms['per_ray'][1]:.3f} ms, "
-                f"warp {arms['warp'][0]:.3f} / {arms['warp'][1]:.3f} ms "
-                f"({tm['per_ray_ms'] / tm['ab_ms']:.2f}x); bound "
-                f"{bound:.5f} ms by {tm['bound_by']}: per-ray "
-                f"{tm['per_ray_ms'] / bound:.1f}x, warp "
-                f"{tm['ab_ms'] / bound:.1f}x the bound")
-            log(f"[anim] warp schedule {name} bounce {b} (plain, "
-                f"{plain_s:.1f} s; hits equal the kernels'): "
-                f"{sched.groups / max(sched.rounds, 1):.2f} leaf groups per "
-                f"warp round, {sched.leaf_visits / max(sched.groups, 1):.2f} "
-                f"lanes per group, {sched.rounds / max(sched.warps, 1):.1f} "
-                f"rounds per warp; {sched._asdict()}")
+        n = args[0].shape[0]
+        tw, tr = warp_fn(bvh, *args), ray_fn(bvh, *args)
+        t0 = time.perf_counter()
+        plain, sched = getattr(kernels, name + "_warp_plain")(bvh, *args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if name.startswith("closest"):
+            same = all(torch.equal(a, c) and torch.equal(a, e) for a, c, e
+                       in zip(_bits(tw), _bits(tr), _bits(plain)))
+        else:
+            same = torch.equal(tw, tr) and torch.equal(tw, plain)
+        check(same, f"{name} {label}: the warp kernel, the per-ray arm and "
+              "the plain warp schedule differ")
+        arms = {"per_ray": [], "warp": []}
+        for arm in ("per_ray", "warp", "warp", "per_ray"):
+            fn = ray_fn if arm == "per_ray" else warp_fn
+            arms[arm].append(min(cuda_ms(lambda: fn(bvh, *args), reps=5)
+                                 for _ in range(2)))
+        tm["per_ray_ms"] = float(np.mean(arms["per_ray"]))
+        tm["ab_ms"] = float(np.mean(arms["warp"]))
+        tm["schedule"] = sched._asdict()
+        bound = tm["bound_ms"]
+        log(f"[{tag}] A/B {name} {label}, {n} lanes: per-ray "
+            f"{arms['per_ray'][0]:.3f} / {arms['per_ray'][1]:.3f} ms, "
+            f"warp {arms['warp'][0]:.3f} / {arms['warp'][1]:.3f} ms "
+            f"({tm['per_ray_ms'] / tm['ab_ms']:.2f}x); bound "
+            f"{bound:.5f} ms by {tm['bound_by']}: per-ray "
+            f"{tm['per_ray_ms'] / bound:.1f}x, warp "
+            f"{tm['ab_ms'] / bound:.1f}x the bound")
+        log(f"[{tag}] warp schedule {name} {label} (plain, {plain_s:.1f} s; "
+            f"hits equal the kernels'): "
+            f"{sched.groups / max(sched.rounds, 1):.2f} page groups per "
+            f"warp round, {sched.leaves / max(sched.groups, 1):.2f} "
+            f"leaves and {sched.leaf_visits / max(sched.groups, 1):.2f} "
+            f"lanes per group, {sched.rounds / max(sched.warps, 1):.1f} "
+            f"rounds per warp; {sched._asdict()}")
+
+
+def _ab_bounces(bvh, rec, times, pairs, tag):
+    """`_ab_warp` on the bounce-0 and bounce-2 wavefronts of `rec`, against
+    the records `_kernel_times` made of them."""
+    _ab_warp(bvh, [(name, f"bounce {b}", getattr(rec, which)[b],
+                    times[(name, b)]) for name, which in pairs
+                   for b in (0, 2)], tag)
 
 
 def _alpha_hits(r):
@@ -1501,16 +1533,45 @@ def phase_instanced():
         if not alpha:
             _profile(lambda: sh["r"].render(1),
                      "instanced, one sample (5 bounces, 262144 lanes)", top=6)
-            out["times"] = _kernel_times(sh["r"], (("closest_bf8i", "closest"),
-                                                   ("occluded_bf8i",
-                                                    "occluded")), tag)
+            with _Recorder() as rec:
+                sh["r"].render(1)
+            pairs = (("closest_bf8i", "closest"), ("occluded_bf8i",
+                                                   "occluded"))
+            out["times"] = _kernel_times(sh["r"], pairs, tag, rec)
+            _ab_bounces(sh["r"].accel.bvh, rec, out["times"], pairs, tag)
+            del rec             # its wavefronts would count in the next peak
             out["counts"] = sh["counts"]
+        else:
+            out["alpha_tree"] = _ab_alpha_tree(sh["r"], tag)
         out[tag] = {k: v for k, v in sh.items() if k != "r"}
         out[tag]["flatten_ms"] = fl["ms"]
         out[tag]["flatten_build_s"] = fl["build_s"]
         del arms, sh, fl, r
-    return out["counts"], out["times"], {k: out[k] for k in ("inst",
-                                                              "inst-alpha")}
+    return out["counts"], out["times"], {k: out[k] for k in (
+        "inst", "inst-alpha", "alpha_tree")}
+
+
+def _ab_alpha_tree(r, tag):
+    """K5 on the alpha-card tree (64 leaves over one shared page: a card's
+    four triangles, a cross of two quads, padded out to 32 columns), where
+    it runs 8 of its 9 launches a bounce: the A/B of its two designs on the
+    first alpha round of bounces 0 and 2, each against its bound."""
+    with _Recorder() as rec:
+        r.render(1)
+    # per bounce 9 closest traces: 1 opaque, then 4 alpha rounds for the
+    # camera or bounce rays, then 4 for the shadow rays
+    check(len(rec.closest) == 45, f"{tag}: {len(rec.closest)} closest traces")
+    tree = r.accel.alpha_split.bvh_alpha
+    times = {}
+    cases = []
+    for b in (0, 2):
+        args = rec.closest[9 * b + 1]
+        times[b] = _time_kernel("closest_bf8i", tree, args)
+        cases.append(("closest_bf8i", f"alpha tree, bounce {b} round 1",
+                      args, times[b]))
+    _ab_warp(tree, cases, tag)
+    return {b: {k: v for k, v in tm.items() if k != "schedule"}
+            for b, tm in times.items()}
 
 
 def _agreement(kernel, hk, hp, what):

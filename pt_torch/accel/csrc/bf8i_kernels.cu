@@ -1,21 +1,27 @@
 // CUDA kernels K5 (closest hit) and K6 (occlusion) over an instanced BF8 BVH
 // (shared object-space pages behind per-leaf instance transforms), for
-// sm_90a, with extern "C" launchers for ctypes.
+// sm_90a, with extern "C" launchers for ctypes: their first design, one
+// thread per ray.
 //
 // K5 replaces pt/accel/instanced.py:packet_closest_bf8i and K6 replaces
-// pt/accel/instanced.py:packet_occluded_bf8i. One thread per ray, blocks of
-// 128 threads on a 1-D grid; the per-ray code is bf8i_traverse.cuh. Rays come
-// as contiguous (N, 3) f32 origins and directions and an (N,) f32 tmax or
-// dist. A launch with `stats` (4 uint64) null runs the uncounted variant,
-// which carries no counting code; with it, the counted variant adds the
-// run's totals of node visits, leaf-box retests, leaf visits and triangle
-// tests there and sets node_seen (n8,), leaf_seen (L,) and tri_seen
-// (P * block,) to 1 where a wide node or a leaf was visited or a page column
-// tested. The kernels allocate nothing; each launcher returns
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// pt/accel/instanced.py:packet_occluded_bf8i. The render path launches the
+// warp-cooperative design (bf8i_warp_kernels.cu); these kernels are the
+// per-ray arm of its A/B and its counted variant (the walk is the same),
+// exported as `pt_bf8i_closest_per_ray` / `pt_bf8i_occluded_per_ray`. One
+// thread per ray, blocks of 128 threads on a 1-D grid; the per-ray code is
+// bf8i_traverse.cuh. Rays come as contiguous (N, 3) f32 origins and
+// directions and an (N,) f32 tmax or dist. A launch with `stats` (4 uint64)
+// null runs the uncounted variant, which carries no counting code; with it,
+// the counted variant adds the run's totals of node visits, leaf-box
+// retests, leaf visits and triangle tests there and sets node_seen (n8,),
+// leaf_seen (L,) and tri_seen (P * block,) to 1 where a wide node or a leaf
+// was visited or a page column tested. The kernels allocate nothing; each
+// launcher returns cudaGetLastError() so the Python wrapper can raise on a
+// refused launch.
 //
 // What bounds them: dependent global loads of node, index, transform and
-// page rows, not FLOPs; this first design does nothing about that yet.
+// page rows, not FLOPs; a lane tests each leaf alone, `block` iterations of
+// scattered page loads (see bf8i_warp_kernels.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,16 +121,18 @@ bf8i::Tree make_tree(const float* c_lo, const float* c_hi,
 
 extern "C" {
 
-int pt_bf8i_closest(const float* c_lo, const float* c_hi,
-                    const int32_t* c_ent, const float* l_lo,
-                    const float* l_hi, const int32_t* leaf_page,
-                    const int32_t* leaf_seg, const float* seg_inv,
-                    const float* pages, int block, int page_cols,
-                    const float* orig, const float* dir, const float* tmax,
-                    float tmin, int raw_ids, int n, float* t_out,
-                    int32_t* tri_out, float* u_out, float* v_out,
-                    unsigned long long* stats, uint8_t* node_seen,
-                    uint8_t* leaf_seen, uint8_t* tri_seen, void* stream) {
+int pt_bf8i_closest_per_ray(const float* c_lo, const float* c_hi,
+                            const int32_t* c_ent, const float* l_lo,
+                            const float* l_hi, const int32_t* leaf_page,
+                            const int32_t* leaf_seg, const float* seg_inv,
+                            const float* pages, int block, int page_cols,
+                            const float* orig, const float* dir,
+                            const float* tmax, float tmin, int raw_ids,
+                            int n, float* t_out, int32_t* tri_out,
+                            float* u_out, float* v_out,
+                            unsigned long long* stats, uint8_t* node_seen,
+                            uint8_t* leaf_seen, uint8_t* tri_seen,
+                            void* stream) {
     if (n <= 0) return 0;
     bf8i::Tree tree = make_tree(c_lo, c_hi, c_ent, l_lo, l_hi, leaf_page,
                                 leaf_seg, seg_inv, pages, block, page_cols);
@@ -141,15 +149,16 @@ int pt_bf8i_closest(const float* c_lo, const float* c_hi,
     return (int)cudaGetLastError();
 }
 
-int pt_bf8i_occluded(const float* c_lo, const float* c_hi,
-                     const int32_t* c_ent, const float* l_lo,
-                     const float* l_hi, const int32_t* leaf_page,
-                     const int32_t* leaf_seg, const float* seg_inv,
-                     const float* pages, int block, int page_cols,
-                     const float* orig, const float* dir, const float* dist,
-                     float tmin, int opaque_only, int n, uint8_t* out,
-                     unsigned long long* stats, uint8_t* node_seen,
-                     uint8_t* leaf_seen, uint8_t* tri_seen, void* stream) {
+int pt_bf8i_occluded_per_ray(const float* c_lo, const float* c_hi,
+                             const int32_t* c_ent, const float* l_lo,
+                             const float* l_hi, const int32_t* leaf_page,
+                             const int32_t* leaf_seg, const float* seg_inv,
+                             const float* pages, int block, int page_cols,
+                             const float* orig, const float* dir,
+                             const float* dist, float tmin, int opaque_only,
+                             int n, uint8_t* out, unsigned long long* stats,
+                             uint8_t* node_seen, uint8_t* leaf_seen,
+                             uint8_t* tri_seen, void* stream) {
     if (n <= 0) return 0;
     bf8i::Tree tree = make_tree(c_lo, c_hi, c_ent, l_lo, l_hi, leaf_page,
                                 leaf_seg, seg_inv, pages, block, page_cols);

@@ -34,8 +34,10 @@
 // in pt_torch/accel/kernels.py.
 //
 // Bound: as bf8_traverse.cuh, dependent global loads of node and page rows,
-// with two index loads and twelve transform loads more per leaf visit. This
-// first design does nothing about that yet.
+// with two index loads and twelve transform loads more per leaf visit. The
+// per-ray kernels (bf8i_kernels.cu) test each leaf on one lane;
+// bf8i_warp_kernels.cu runs the same walk per lane and tests each pending
+// page with the whole warp.
 #pragma once
 
 #include "bf8_traverse.cuh"
@@ -89,9 +91,51 @@ BF8_HD Ray to_object(const float* seg_inv, int32_t seg, const Ray& r) {
     return q;
 }
 
+// Push the children of wide node `ent` whose boxes the ray hits before
+// `t_limit`, far-first (an insertion sort on max(tnear, 0), equal keys in
+// child order), so that the nearest pops first.
+BF8_HD void push_near_first(const bf8::Tree& top, int32_t ent, const Ray& r,
+                            float t_limit, int32_t* stack, int* sp) {
+    float keys[8];
+    int32_t ents[8];
+    int cnt = 0;
+    for (int c = 0; c < 8; ++c) {
+        int k = ent * 8 + c;
+        int32_t e = top.c_ent[k];
+        if (e == -1) continue;
+        float tn;
+        if (!slab(top.c_lo + 3 * k, top.c_hi + 3 * k, r, t_limit, &tn))
+            continue;
+        float key = fmaxf(tn, 0.0f);
+        int p = cnt++;
+        while (p > 0 && keys[p - 1] > key) {
+            keys[p] = keys[p - 1];
+            ents[p] = ents[p - 1];
+            --p;
+        }
+        keys[p] = key;
+        ents[p] = e;
+    }
+    for (int q = cnt - 1; q >= 0; --q) stack[(*sp)++] = ents[q];
+}
+
+// Push the children of wide node `ent` whose boxes the ray hits before
+// `t_limit`, in child order (the last pops first).
+BF8_HD void push_hit(const bf8::Tree& top, int32_t ent, const Ray& r,
+                     float t_limit, int32_t* stack, int* sp) {
+    for (int c = 0; c < 8; ++c) {
+        int k = ent * 8 + c;
+        int32_t e = top.c_ent[k];
+        if (e == -1) continue;
+        float tn;
+        if (slab(top.c_lo + 3 * k, top.c_hi + 3 * k, r, t_limit, &tn))
+            stack[(*sp)++] = e;
+    }
+}
+
 // Closest hit of one ray. Children that pass the slab test are pushed
-// far-first, so the nearest pops first. kCount and `counts` as in
-// bf8::closest.
+// far-first (push_near_first), so the nearest pops first. kCount and
+// `counts` as in bf8::closest.
 template <bool kCount>
 BF8_HD void closest(const Tree& tree, const Ray& r, float tmin, float tmax,
                     bool raw_ids, float* t_out, int32_t* tri_out,
@@ -149,27 +193,7 @@ BF8_HD void closest(const Tree& tree, const Ray& r, float tmin, float tmax,
                 ++counts->nodes;
                 counts->node_seen[ent] = 1;
             }
-            float keys[8];
-            int32_t ents[8];
-            int cnt = 0;
-            for (int c = 0; c < 8; ++c) {
-                int k = ent * 8 + c;
-                int32_t e = top.c_ent[k];
-                if (e == -1) continue;
-                float tn;
-                if (!slab(top.c_lo + 3 * k, top.c_hi + 3 * k, r, best_t, &tn))
-                    continue;
-                float key = fmaxf(tn, 0.0f);
-                int p = cnt++;
-                while (p > 0 && keys[p - 1] > key) {
-                    keys[p] = keys[p - 1];
-                    ents[p] = ents[p - 1];
-                    --p;
-                }
-                keys[p] = key;
-                ents[p] = e;
-            }
-            for (int q = cnt - 1; q >= 0; --q) stack[sp++] = ents[q];
+            push_near_first(top, ent, r, best_t, stack, &sp);
         }
     }
     *t_out = best_t;
@@ -178,8 +202,8 @@ BF8_HD void closest(const Tree& tree, const Ray& r, float tmin, float tmax,
     *v_out = best_v;
 }
 
-// Any hit with tmin < t < dist. Children push unsorted; with opaque_only,
-// triangles tagged ALPHA_TRI_BIT are ignored.
+// Any hit with tmin < t < dist. Children push unsorted (push_hit); with
+// opaque_only, triangles tagged ALPHA_TRI_BIT are ignored.
 template <bool kCount>
 BF8_HD bool occluded(const Tree& tree, const Ray& r, float tmin, float dist,
                      bool opaque_only, Counts* counts) {
@@ -218,14 +242,7 @@ BF8_HD bool occluded(const Tree& tree, const Ray& r, float tmin, float dist,
                 ++counts->nodes;
                 counts->node_seen[ent] = 1;
             }
-            for (int c = 0; c < 8; ++c) {
-                int k = ent * 8 + c;
-                int32_t e = top.c_ent[k];
-                if (e == -1) continue;
-                float tn;
-                if (slab(top.c_lo + 3 * k, top.c_hi + 3 * k, r, dist, &tn))
-                    stack[sp++] = e;
-            }
+            push_hit(top, ent, r, dist, stack, &sp);
         }
     }
     return false;

@@ -14,21 +14,24 @@ packet_closest_v6k2, `closest_v7` packet_closest_v7 and `occluded_v6`
 packet_occluded_v6 (pt_torch/accel/archive.py binds each of pt's entry
 points). The kernels are CUDA C++ for sm_90a (csrc/bf8_kernels.cu over
 csrc/bf8_traverse.cuh, csrc/v4_warp_kernels.cu and csrc/v4_kernels.cu
-over csrc/v4_traverse.cuh, csrc/bf8i_kernels.cu over
-csrc/bf8i_traverse.cuh, csrc/ordered_kernels.cu over
+over csrc/v4_traverse.cuh, csrc/bf8i_warp_kernels.cu and
+csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh (the two warp sources
+sharing their leaf test in csrc/warp_leaf.cuh), csrc/ordered_kernels.cu over
 csrc/ordered_traverse.cuh, csrc/v6_kernels.cu over csrc/v6_traverse.cuh,
 the last two sharing their leaf tests in csrc/page_leaf.cuh, all over
 csrc/rt_common.cuh), built with nvcc at first use into the port's
 git-ignored build directory, one library per source, and bound through
 ctypes. They are bound by dependent global loads of node and page rows, not
 by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6, the archive
-walks) or the preorder skip links (K3/K4). K3/K4 are redesigned for the
-card: each ray keeps its walk, and the warp tests each pending leaf
-together, its page staged into shared memory once per group of lanes
-(csrc/v4_warp_kernels.cu). Their first design, one thread per ray testing
-each leaf alone, stays as the baseline arm of the A/B and as their counted
-variant, reached only by name: `closest_v4_per_ray`, `occluded_v4_per_ray`
-(csrc/v4_kernels.cu).
+walks) or the preorder skip links (K3/K4). K3/K4 and K5/K6 are redesigned
+for the card: each ray keeps its walk (K5/K6: in its own instance space),
+and the warp tests each pending leaf (K5/K6: each pending shared page)
+together, the page staged into shared memory once per group of lanes
+(csrc/v4_warp_kernels.cu, csrc/bf8i_warp_kernels.cu). Their first design,
+one thread per ray testing each leaf alone, stays as the baseline arm of
+the A/B and as their counted variant, reached only by name:
+`closest_v4_per_ray`, `occluded_v4_per_ray` (csrc/v4_kernels.cu),
+`closest_bf8i_per_ray`, `occluded_bf8i_per_ray` (csrc/bf8i_kernels.cu).
 
 Beside each kernel sits its plain PyTorch version (`closest_bf8_plain`,
 `occluded_bf8_plain`, `closest_v4_plain`, `occluded_v4_plain`,
@@ -39,10 +42,12 @@ all rays tested against all of them in chunks
 (for K5/K6 segment by segment, the rays mapped into the segment's object
 space first), with the kernel's Woop arithmetic and tie rule. The trees are
 conservative, so it computes the same function as the traversal. The warp
-K3/K4's schedule has its own plain version (`closest_v4_warp_plain`,
-`occluded_v4_warp_plain`): the per-ray walk of every lane at once, paused
-at each leaf, grouped by (warp, leaf) and reduced with the kernels' key;
-its hits are the per-ray walk's bit for bit, and it counts the groups.
+kernels' schedules have their own plain versions (`closest_v4_warp_plain`,
+`occluded_v4_warp_plain`, `closest_bf8i_warp_plain`,
+`occluded_bf8i_warp_plain`): the per-ray walk of every lane at once, paused
+at each leaf, grouped by (warp, leaf) or (warp, page) and reduced with the
+kernels' key; their hits are the per-ray walk's bit for bit, and they count
+the groups.
 
 K1 has a pops variant (`closest_bf8(..., pops=...)`): each lane writes the
 iterations of its walk loop, one per pop of a wide node or a leaf. It is the
@@ -55,8 +60,8 @@ lanes that repeats the kernel step by step.
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises. Each
 launch adds one to `launches[name]` (a pops launch to
-`launches["closest_bf8_pops"]`, a per-ray K3/K4 launch to
-`launches["closest_v4_per_ray"]` / `["occluded_v4_per_ray"]`).
+`launches["closest_bf8_pops"]`, a per-ray K3-K6 launch to
+`launches["closest_v4_per_ray"]`, `["closest_bf8i_per_ray"]` and so on).
 """
 
 from __future__ import annotations
@@ -86,11 +91,15 @@ _CUDA_LIBS = {
     "v4": (BUILD_DIR / "libpt_v4_sm90a.so",
            (CSRC / "v4_kernels.cu", CSRC / "v4_traverse.cuh", _COMMON)),
     "v4w": (BUILD_DIR / "libpt_v4w_sm90a.so",
-            (CSRC / "v4_warp_kernels.cu", CSRC / "v4_traverse.cuh",
-             _COMMON)),
+            (CSRC / "v4_warp_kernels.cu", CSRC / "warp_leaf.cuh",
+             CSRC / "v4_traverse.cuh", _COMMON)),
     "bf8i": (BUILD_DIR / "libpt_bf8i_sm90a.so",
              (CSRC / "bf8i_kernels.cu", CSRC / "bf8i_traverse.cuh",
               CSRC / "bf8_traverse.cuh", _COMMON)),
+    "bf8iw": (BUILD_DIR / "libpt_bf8iw_sm90a.so",
+              (CSRC / "bf8i_warp_kernels.cu", CSRC / "warp_leaf.cuh",
+               CSRC / "bf8i_traverse.cuh", CSRC / "bf8_traverse.cuh",
+               _COMMON)),
     "ordered": (BUILD_DIR / "libpt_ordered_sm90a.so",
                 (CSRC / "ordered_kernels.cu", CSRC / "ordered_traverse.cuh",
                  CSRC / "v4_traverse.cuh", CSRC / "page_leaf.cuh", _COMMON)),
@@ -105,7 +114,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = {"closest_bf8": 0, "closest_bf8_pops": 0, "occluded_bf8": 0,
             "closest_v4": 0, "occluded_v4": 0, "closest_v4_per_ray": 0,
             "occluded_v4_per_ray": 0, "closest_bf8i": 0,
-            "occluded_bf8i": 0, "closest_ordered": 0, "closest_v6": 0,
+            "occluded_bf8i": 0, "closest_bf8i_per_ray": 0,
+            "occluded_bf8i_per_ray": 0, "closest_ordered": 0, "closest_v6": 0,
             "closest_v6k2": 0, "closest_v7": 0, "occluded_v6": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
 # v6_traverse.cuh); the wrappers raise on a tree that could overflow them
@@ -197,23 +207,29 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_bf8_occluded.argtypes = (tree + rays
                                                 + [i, i, p, p, p, p, p])
             elif name == "bf8i":
-                tree = [p, p, p, p, p, p, p, p, p, i, i]
-                lib.pt_bf8i_closest.restype = i
-                lib.pt_bf8i_closest.argtypes = (
-                    tree + rays + [i, i, p, p, p, p, p, p, p, p, p])
-                lib.pt_bf8i_occluded.restype = i
-                lib.pt_bf8i_occluded.argtypes = (
-                    tree + rays + [i, i, p, p, p, p, p, p])
-            elif name == "v4w":     # the warp kernels: no counted variant
-                tree = [p, p, p, p, p, i, i, i]
-                lib.pt_v4w_closest.restype = i
-                lib.pt_v4w_closest.argtypes = tree + rays + [i] + [p] * 5
-                lib.pt_v4w_occluded.restype = i
-                lib.pt_v4w_occluded.argtypes = tree + rays + [i, p, p]
-                lib.pt_v4w_blocks_per_sm.restype = i
-                lib.pt_v4w_blocks_per_sm.argtypes = [i]
-                lib.pt_v4w_smem_per_block.restype = i
-                lib.pt_v4w_smem_per_block.argtypes = []
+                tree = [p] * 9 + [i, i]
+                closest = getattr(lib, _closest_symbol(name))
+                closest.restype = i
+                closest.argtypes = (tree + rays
+                                    + [i, i, p, p, p, p, p, p, p, p, p])
+                occluded = getattr(lib, _occluded_symbol(name))
+                occluded.restype = i
+                occluded.argtypes = tree + rays + [i, i, p, p, p, p, p, p]
+            elif name in _WARP_LIBS:    # no counted variant
+                # v4w: five pointers, three ints; bf8iw: nine pointers, two
+                # ints, and an int flag (raw_ids, opaque_only)
+                tree, flags = (([p] * 5 + [i] * 3, []) if name == "v4w"
+                               else ([p] * 9 + [i, i], [i]))
+                closest = getattr(lib, _closest_symbol(name))
+                closest.restype = i
+                closest.argtypes = tree + rays + flags + [i] + [p] * 5
+                occluded = getattr(lib, _occluded_symbol(name))
+                occluded.restype = i
+                occluded.argtypes = tree + rays + flags + [i, p, p]
+                getattr(lib, f"pt_{name}_blocks_per_sm").restype = i
+                getattr(lib, f"pt_{name}_blocks_per_sm").argtypes = [i]
+                getattr(lib, f"pt_{name}_smem_per_block").restype = i
+                getattr(lib, f"pt_{name}_smem_per_block").argtypes = []
             else:           # v4, ordered, v6: five pointers, three ints
                 tree = [p, p, p, p, p, i, i, i]
                 flags = [i, i] if name == "v6" else []  # walk, window
@@ -222,8 +238,7 @@ def _lib(name: str) -> ctypes.CDLL:
                 closest.argtypes = (tree + rays + flags
                                     + [i, p, p, p, p, p, p, p, p])
                 if name != "ordered":
-                    occluded = getattr(lib, f"pt_{name}_occluded"
-                                       + _PER_RAY.get(name, ""))
+                    occluded = getattr(lib, _occluded_symbol(name))
                     occluded.restype = i
                     occluded.argtypes = tree + rays + [i, p, p, p, p, p]
             lib.pt_cuda_error_string.restype = ctypes.c_char_p
@@ -232,12 +247,19 @@ def _lib(name: str) -> ctypes.CDLL:
         return lib
 
 
-# the per-ray K3/K4 (v4_kernels.cu) are exported under this suffix
-_PER_RAY = {"v4": "_per_ray"}
+# the per-ray K3-K6 (v4_kernels.cu, bf8i_kernels.cu) are exported under
+# this suffix
+_PER_RAY = {"v4": "_per_ray", "bf8i": "_per_ray"}
+# the warp-cooperative K3/K4 and K5/K6: no counted variant
+_WARP_LIBS = ("v4w", "bf8iw")
 
 
 def _closest_symbol(lib_name: str) -> str:
     return f"pt_{lib_name}_closest" + _PER_RAY.get(lib_name, "")
+
+
+def _occluded_symbol(lib_name: str) -> str:
+    return f"pt_{lib_name}_occluded" + _PER_RAY.get(lib_name, "")
 
 
 def _check_rays(bvh, origins, dirs, limit, what: str) -> int:
@@ -450,11 +472,12 @@ def _raise_on(lib, code: int, name: str) -> None:
 
 def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
                     tmax, tmin: float, n: int,
-                    counts, flags=(), tail=()) -> Hit:
+                    counts=None, flags=(), tail=()) -> Hit:
     """Allocate the outputs and launch closest kernel `name` on the rays'
     stream; adds one to its launch count. `flags`: the kernel's int
-    arguments between tmin and n; `tail`: its pointers between the counts'
-    and the stream."""
+    arguments between tmin and n; `counts`: the counted variant's (not for
+    a warp library, which has none); `tail`: its pointers between the
+    counts' and the stream."""
     t = torch.empty(n, dtype=torch.float32, device=origins.device)
     tri = torch.empty(n, dtype=torch.int32, device=origins.device)
     u = torch.empty_like(t)
@@ -463,13 +486,32 @@ def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
         return Hit(t, tri, u, v)
     lib = _lib(lib_name)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
+    counted = () if lib_name in _WARP_LIBS else _counts_ptrs(counts, bvh)
     code = getattr(lib, _closest_symbol(lib_name))(
         *tree_args, origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(),
         float(tmin), *flags, n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), *_counts_ptrs(counts, bvh), *tail, stream)
+        v.data_ptr(), *counted, *tail, stream)
     _raise_on(lib, code, name)
     launches[name] += 1
     return Hit(t, tri, u, v)
+
+
+def _launch_occluded(name: str, lib_name: str, tree_args, bvh, origins,
+                     dirs, dist, tmin: float, n: int, counts=None,
+                     flags=()) -> torch.Tensor:
+    """As `_launch_closest`, for an occlusion kernel: a bool (N,)."""
+    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
+    if n == 0:
+        return out.view(torch.bool)
+    lib = _lib(lib_name)
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    counted = () if lib_name in _WARP_LIBS else _counts_ptrs(counts, bvh)
+    code = getattr(lib, _occluded_symbol(lib_name))(
+        *tree_args, origins.data_ptr(), dirs.data_ptr(), dist.data_ptr(),
+        float(tmin), *flags, n, out.data_ptr(), *counted, stream)
+    _raise_on(lib, code, name)
+    launches[name] += 1
+    return out.view(torch.bool)
 
 
 def closest_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
@@ -509,29 +551,20 @@ def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
     if origins.device.type == "cpu":
         return occluded_bf8_plain(bvh8, origins, dirs, dist, tmin,
                                   opaque_only)
-    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
-    if n == 0:
-        return out.view(torch.bool)
-    lib = _lib("bf8")
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_bf8_occluded(*_tree_args(bvh8), origins.data_ptr(),
-                               dirs.data_ptr(), dist.data_ptr(), float(tmin),
-                               int(bool(opaque_only)), n, out.data_ptr(),
-                               *_counts_ptrs(counts, bvh8), stream)
-    _raise_on(lib, code, "occluded_bf8")
-    launches["occluded_bf8"] += 1
-    return out.view(torch.bool)
+    return _launch_occluded("occluded_bf8", "bf8", _tree_args(bvh8), bvh8,
+                            origins, dirs, dist, tmin, n, counts,
+                            flags=(int(bool(opaque_only)),))
 
 
-def _check_warp_pages(pbvh: PacketBVH) -> None:
+def _check_warp_pages(bvh) -> None:
     """The warp kernels stage a page in chunks of 32 columns by 16-byte
     copies: block % 32 == 0 (every builder's page-group granularity),
     page width % 4 == 0 and a 16-byte aligned base."""
-    if (pbvh.block % 32 or pbvh.pages.shape[-1] % 4
-            or pbvh.pages.data_ptr() % 16):
-        raise ValueError(f"PacketBVH: block {pbvh.block} and page width "
-                         f"{pbvh.pages.shape[-1]} must be multiples of 32 "
-                         "and 4 and the pages 16-byte aligned")
+    if (bvh.block % 32 or bvh.pages.shape[-1] % 4
+            or bvh.pages.data_ptr() % 16):
+        raise ValueError(f"{type(bvh).__name__}: block {bvh.block} and page "
+                         f"width {bvh.pages.shape[-1]} must be multiples of "
+                         "32 and 4 and the pages 16-byte aligned")
 
 
 def closest_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
@@ -547,21 +580,8 @@ def closest_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
     if origins.device.type == "cpu":
         return closest_v4_plain(pbvh, origins, dirs, tmax, tmin)
     _check_warp_pages(pbvh)
-    t = torch.empty(n, dtype=torch.float32, device=origins.device)
-    tri = torch.empty(n, dtype=torch.int32, device=origins.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    if n == 0:
-        return Hit(t, tri, u, v)
-    lib = _lib("v4w")
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_v4w_closest(*_tree_args_v4(pbvh), origins.data_ptr(),
-                              dirs.data_ptr(), tmax.data_ptr(), float(tmin),
-                              n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-                              v.data_ptr(), stream)
-    _raise_on(lib, code, "closest_v4")
-    launches["closest_v4"] += 1
-    return Hit(t, tri, u, v)
+    return _launch_closest("closest_v4", "v4w", _tree_args_v4(pbvh), pbvh,
+                           origins, dirs, tmax, tmin, n)
 
 
 def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
@@ -573,28 +593,24 @@ def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
     if origins.device.type == "cpu":
         return occluded_v4_plain(pbvh, origins, dirs, dist, tmin)
     _check_warp_pages(pbvh)
-    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
-    if n == 0:
-        return out.view(torch.bool)
-    lib = _lib("v4w")
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_v4w_occluded(*_tree_args_v4(pbvh), origins.data_ptr(),
-                               dirs.data_ptr(), dist.data_ptr(), float(tmin),
-                               n, out.data_ptr(), stream)
-    _raise_on(lib, code, "occluded_v4")
-    launches["occluded_v4"] += 1
-    return out.view(torch.bool)
+    return _launch_occluded("occluded_v4", "v4w", _tree_args_v4(pbvh), pbvh,
+                            origins, dirs, dist, tmin, n)
 
 
-def v4_warp_occupancy(device) -> Dict[str, int]:
-    """The warp kernels' resident blocks per SM (closest, occluded) and
-    static shared memory per block, as the built library reports them."""
+def warp_occupancy(lib_name: str, device) -> Dict[str, int]:
+    """A warp library's ("v4w": K3/K4, "bf8iw": K5/K6) resident blocks per
+    SM (closest, occluded) and static shared memory per block, as the built
+    library reports them."""
+    if lib_name not in _WARP_LIBS:
+        raise ValueError(f"{lib_name!r} is not a warp library: {_WARP_LIBS}")
     if torch.device(device).type != "cuda":
         raise ValueError("the warp kernels' occupancy needs the card")
-    lib = _lib("v4w")
-    return {"closest_blocks_per_sm": int(lib.pt_v4w_blocks_per_sm(0)),
-            "occluded_blocks_per_sm": int(lib.pt_v4w_blocks_per_sm(1)),
-            "smem_bytes_per_block": int(lib.pt_v4w_smem_per_block())}
+    lib = _lib(lib_name)
+    per_sm = getattr(lib, f"pt_{lib_name}_blocks_per_sm")
+    return {"closest_blocks_per_sm": int(per_sm(0)),
+            "occluded_blocks_per_sm": int(per_sm(1)),
+            "smem_bytes_per_block":
+                int(getattr(lib, f"pt_{lib_name}_smem_per_block")())}
 
 
 def closest_v4_per_ray(pbvh: PacketBVH, origins: torch.Tensor,
@@ -621,60 +637,76 @@ def occluded_v4_per_ray(pbvh: PacketBVH, origins: torch.Tensor,
     n = _check_rays(pbvh, origins, dirs, dist, "dist")
     if origins.device.type == "cpu":
         return occluded_v4_plain(pbvh, origins, dirs, dist, tmin)
-    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
-    if n == 0:
-        return out.view(torch.bool)
-    lib = _lib("v4")
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_v4_occluded_per_ray(*_tree_args_v4(pbvh),
-                                      origins.data_ptr(), dirs.data_ptr(),
-                                      dist.data_ptr(), float(tmin), n,
-                                      out.data_ptr(),
-                                      *_counts_ptrs(counts, pbvh), stream)
-    _raise_on(lib, code, "occluded_v4_per_ray")
-    launches["occluded_v4_per_ray"] += 1
-    return out.view(torch.bool)
+    return _launch_occluded("occluded_v4_per_ray", "v4", _tree_args_v4(pbvh),
+                            pbvh, origins, dirs, dist, tmin, n, counts)
 
 
 def closest_bf8i(bvh: BF8Instanced, origins: torch.Tensor,
                  dirs: torch.Tensor, tmax: torch.Tensor, tmin: float = 1e-5,
-                 raw_ids: bool = False,
-                 counts: Optional[InstancedWorkCounts] = None) -> Hit:
+                 raw_ids: bool = False) -> Hit:
     """Closest hit of N rays over a BF8Instanced. Hit ids carry the segment
     in bits [SEG_SHIFT, SEG_SHIFT + 10) and the mesh-local triangle id below
     (`decode_instanced_tri`); `raw_ids` keeps ALPHA_TRI_BIT. A miss gives
-    t = tmax, tri = -1. `counts` as for closest_bf8."""
+    t = tmax, tri = -1. On the card it launches the warp kernel
+    (bf8i_warp_kernels.cu): each ray walks as the per-ray kernel does, and
+    the warp tests each pending shared page together. Its counted variant
+    is the per-ray one (`closest_bf8i_per_ray(..., counts=)`)."""
     n = _check(bvh, origins, dirs, tmax, "tmax")
     if origins.device.type == "cpu":
         return closest_bf8i_plain(bvh, origins, dirs, tmax, tmin, raw_ids)
-    return _launch_closest("closest_bf8i", "bf8i", _tree_args_bf8i(bvh), bvh,
-                           origins, dirs, tmax, tmin, n, counts,
+    _check_warp_pages(bvh)
+    return _launch_closest("closest_bf8i", "bf8iw", _tree_args_bf8i(bvh), bvh,
+                           origins, dirs, tmax, tmin, n,
                            flags=(int(bool(raw_ids)),))
 
 
 def occluded_bf8i(bvh: BF8Instanced, origins: torch.Tensor,
                   dirs: torch.Tensor, dist: torch.Tensor, tmin: float = 1e-5,
-                  opaque_only: bool = False,
-                  counts: Optional[InstancedWorkCounts] = None) -> torch.Tensor:
+                  opaque_only: bool = False) -> torch.Tensor:
     """Any hit with tmin < t < dist for N rays over a BF8Instanced; bool
-    (N,). With `opaque_only`, triangles tagged ALPHA_TRI_BIT are ignored."""
+    (N,). With `opaque_only`, triangles tagged ALPHA_TRI_BIT are ignored.
+    On the card the warp kernel, as closest_bf8i; counted variant:
+    `occluded_bf8i_per_ray`."""
     n = _check(bvh, origins, dirs, dist, "dist")
     if origins.device.type == "cpu":
         return occluded_bf8i_plain(bvh, origins, dirs, dist, tmin,
                                    opaque_only)
-    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
-    if n == 0:
-        return out.view(torch.bool)
-    lib = _lib("bf8i")
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_bf8i_occluded(*_tree_args_bf8i(bvh), origins.data_ptr(),
-                                dirs.data_ptr(), dist.data_ptr(),
-                                float(tmin), int(bool(opaque_only)), n,
-                                out.data_ptr(), *_counts_ptrs(counts, bvh),
-                                stream)
-    _raise_on(lib, code, "occluded_bf8i")
-    launches["occluded_bf8i"] += 1
-    return out.view(torch.bool)
+    _check_warp_pages(bvh)
+    return _launch_occluded("occluded_bf8i", "bf8iw", _tree_args_bf8i(bvh),
+                            bvh, origins, dirs, dist, tmin, n,
+                            flags=(int(bool(opaque_only)),))
+
+
+def closest_bf8i_per_ray(bvh: BF8Instanced, origins: torch.Tensor,
+                         dirs: torch.Tensor, tmax: torch.Tensor,
+                         tmin: float = 1e-5, raw_ids: bool = False,
+                         counts: Optional[InstancedWorkCounts] = None) -> Hit:
+    """K5's first design, one thread per ray testing each leaf alone
+    (bf8i_kernels.cu): the baseline arm of the A/B against closest_bf8i,
+    and its counted variant (`counts` from `work_counts(bvh)`). Nothing on
+    the render path calls it."""
+    n = _check(bvh, origins, dirs, tmax, "tmax")
+    if origins.device.type == "cpu":
+        return closest_bf8i_plain(bvh, origins, dirs, tmax, tmin, raw_ids)
+    return _launch_closest("closest_bf8i_per_ray", "bf8i",
+                           _tree_args_bf8i(bvh), bvh, origins, dirs, tmax,
+                           tmin, n, counts, flags=(int(bool(raw_ids)),))
+
+
+def occluded_bf8i_per_ray(bvh: BF8Instanced, origins: torch.Tensor,
+                          dirs: torch.Tensor, dist: torch.Tensor,
+                          tmin: float = 1e-5, opaque_only: bool = False,
+                          counts: Optional[InstancedWorkCounts] = None
+                          ) -> torch.Tensor:
+    """K6's first design, one thread per ray: the baseline arm of the A/B
+    against occluded_bf8i, and its counted variant."""
+    n = _check(bvh, origins, dirs, dist, "dist")
+    if origins.device.type == "cpu":
+        return occluded_bf8i_plain(bvh, origins, dirs, dist, tmin,
+                                   opaque_only)
+    return _launch_occluded("occluded_bf8i_per_ray", "bf8i",
+                            _tree_args_bf8i(bvh), bvh, origins, dirs, dist,
+                            tmin, n, counts, flags=(int(bool(opaque_only)),))
 
 
 def closest_ordered(pbvh: PacketBVH, origins: torch.Tensor,
@@ -758,18 +790,8 @@ def occluded_v6(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
     n = _check_v6(bvh6, origins, dirs, dist, "dist", bvh6.stack_bound)
     if origins.device.type == "cpu":
         return occluded_v6_plain(bvh6, origins, dirs, dist, tmin)
-    out = torch.empty(n, dtype=torch.uint8, device=origins.device)
-    if n == 0:
-        return out.view(torch.bool)
-    lib = _lib("v6")
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    code = lib.pt_v6_occluded(*_tree_args_v6(bvh6), origins.data_ptr(),
-                              dirs.data_ptr(), dist.data_ptr(), float(tmin),
-                              n, out.data_ptr(),
-                              *_counts_ptrs(counts, bvh6), stream)
-    _raise_on(lib, code, "occluded_v6")
-    launches["occluded_v6"] += 1
-    return out.view(torch.bool)
+    return _launch_occluded("occluded_v6", "v6", _tree_args_v6(bvh6), bvh6,
+                            origins, dirs, dist, tmin, n, counts)
 
 
 # ---------------------------------------------------------------- plain
@@ -889,19 +911,67 @@ def _leaf_columns(bvh8):
     return cache
 
 
+class _Stacks:
+    """The per-lane stacks of the BF8 walks (bf8_traverse.cuh,
+    bf8i_traverse.cuh), every lane at once: a BF8_STACK-deep int32 stack per
+    lane, holding the root first; `high` is each lane's highest height."""
+
+    def __init__(self, n: int, device):
+        self.stack = torch.zeros((n, BF8_STACK), dtype=torch.int32,
+                                 device=device)
+        self.sp = torch.ones(n, dtype=torch.int64, device=device)
+        self.high = torch.ones(n, dtype=torch.int64, device=device)
+
+    def pop(self, lanes):
+        """The top entry of each lane of `lanes` (int64), popped."""
+        self.sp[lanes] -= 1
+        return self.stack[lanes, self.sp[lanes]].to(torch.int64)
+
+    def push_children(self, tree, lanes, ent, origins, inv, limit,
+                      near_first: bool):
+        """Push the children of wide node ent[i] whose boxes lane lanes[i]'s
+        ray hits before limit[i]: far-first, so that the nearest ends on top
+        (bf8i::push_near_first; a stable sort on max(tnear, 0) keeps equal
+        keys in child order, as the kernel's insertion sort does), or in
+        child order, the last on top (push_hit). Raises where a stack would
+        pass BF8_STACK entries."""
+        slot = torch.arange(8, device=lanes.device)
+        k = ent[:, None] * 8 + slot                               # (A, 8)
+        e = tree.c_ent[k]
+        ok, tn = _slab(tree.c_lo[k], tree.c_hi[k], origins[lanes][:, None],
+                       inv[lanes][:, None], limit[:, None])
+        ok &= e != -1
+        cnt = ok.sum(dim=1)
+        sp = self.sp[lanes]
+        top = sp + cnt
+        if int(top.max()) > BF8_STACK:
+            raise ValueError(f"a lane's stack passes {BF8_STACK} entries")
+        if near_first:
+            key = torch.where(ok, torch.clamp(tn, min=0.0), float("inf"))
+            src = torch.clamp(cnt[:, None] - 1 - slot, min=0)
+        else:
+            key = torch.where(ok, 0.0, 1.0)
+            src = slot.expand(lanes.numel(), -1)
+        seq = e.gather(1, torch.sort(key, dim=1, stable=True).indices)
+        push = slot < cnt[:, None]
+        rows = lanes[:, None].expand(-1, 8)[push]
+        self.stack[rows, (sp[:, None] + slot)[push]] = \
+            seq.gather(1, src)[push]
+        self.sp[lanes] = top
+        self.high[lanes] = torch.maximum(self.high[lanes], top)
+
+
 def closest_bf8_walk_plain(bvh8: BF8BVH, origins, dirs, tmax,
                            tmin: float = 1e-5,
                            peak: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K1's pops variant: the kernel's stack walk
     (bf8_traverse.cuh), one step of every live lane at a time. Returns
     (Hit, pops (N,) int32): pops counts each lane's iterations, one per pop
-    of a wide node or a leaf. Step by step as the kernel: a BF8_STACK-deep
-    int32 stack per lane, holding the root first; a popped leaf retests its
-    box against the lane's best t, then tests its page's columns with the
-    Woop arithmetic and the (t, id) tie rule; a popped wide node slab-tests
-    its 8 children against the best t and pushes those that pass far-first
-    (a stable sort on max(tnear, 0): equal keys keep child order, as the
-    kernel's insertion sort does). Its hits are bit-equal to
+    of a wide node or a leaf. Step by step as the kernel (`_Stacks`): a
+    popped leaf retests its box against the lane's best t, then tests its
+    page's columns with the Woop arithmetic and the (t, id) tie rule; a
+    popped wide node slab-tests its 8 children against the best t and
+    pushes those that pass far-first. Its hits are bit-equal to
     `closest_bf8_plain`'s but on a lane whose t ties exactly across two
     leaves (the retest can cull the second). `peak`, an (N,) int32 tensor,
     receives each lane's highest stack height. Raises where a lane's stack
@@ -910,21 +980,17 @@ def closest_bf8_walk_plain(bvh8: BF8BVH, origins, dirs, tmax,
     dev = origins.device
     n = origins.shape[0]
     inv = _safe_inv(dirs)
-    stack = torch.zeros((n, BF8_STACK), dtype=torch.int32, device=dev)
-    sp = torch.ones(n, dtype=torch.int64, device=dev)       # the root, 0
-    high = torch.ones(n, dtype=torch.int64, device=dev)
+    st = _Stacks(n, dev)
     best_t = tmax.clone()
     best_id = torch.full((n,), -1, dtype=torch.int64, device=dev)
     best_u = torch.zeros_like(best_t)
     best_v = torch.zeros_like(best_t)
     pops = torch.zeros(n, dtype=torch.int32, device=dev)
-    slot = torch.arange(8, device=dev)
     while True:
-        lanes = torch.nonzero(sp > 0).squeeze(1)
+        lanes = torch.nonzero(st.sp > 0).squeeze(1)
         if lanes.numel() == 0:
             break
-        sp[lanes] -= 1
-        ent = stack[lanes, sp[lanes]].to(torch.int64)
+        ent = st.pop(lanes)
         pops[lanes] += 1
         leaf = ent >= LEAF_BIT
 
@@ -954,29 +1020,10 @@ def closest_bf8_walk_plain(bvh8: BF8BVH, origins, dirs, tmax,
 
         nl = lanes[~leaf]                       # wide-node pops: push children
         if nl.numel():
-            k = ent[~leaf][:, None] * 8 + slot                    # (A, 8)
-            e = bvh8.c_ent[k]
-            ok, tn = _slab(bvh8.c_lo[k], bvh8.c_hi[k], origins[nl][:, None],
-                           inv[nl][:, None], best_t[nl][:, None])
-            ok &= e != -1
-            key = torch.where(ok, torch.clamp(tn, min=0.0), float("inf"))
-            near_first = e.gather(1, torch.sort(key, dim=1, stable=True)
-                                  .indices)
-            cnt = ok.sum(dim=1)
-            top = sp[nl] + cnt
-            if int(top.max()) > BF8_STACK:
-                raise ValueError(f"a lane's stack passes {BF8_STACK} entries")
-            # the kernel pushes the sorted children last first: the nearest
-            # ends on top
-            push = slot < cnt[:, None]
-            src = torch.clamp(cnt[:, None] - 1 - slot, min=0)
-            rows = nl[:, None].expand(-1, 8)[push]
-            stack[rows, (sp[nl][:, None] + slot)[push]] = \
-                near_first.gather(1, src)[push]
-            sp[nl] = top
-            high[nl] = torch.maximum(high[nl], top)
+            st.push_children(bvh8, nl, ent[~leaf], origins, inv, best_t[nl],
+                             near_first=True)
     if peak is not None:
-        peak.copy_(high)
+        peak.copy_(st.high)
     hit = best_id >= 0
     return Hit(best_t, torch.where(hit, best_id, -1).to(torch.int32), best_u,
                best_v), pops
@@ -1021,25 +1068,31 @@ _NO_KEY = 0xFFFFFFFF
 
 
 class WarpSchedule(NamedTuple):
-    """What the warp kernels (v4_warp_kernels.cu) do on a launch's rays, as
-    `closest_v4_warp_plain` / `occluded_v4_warp_plain` count it. A warp is
+    """What the warp kernels (v4_warp_kernels.cu, bf8i_warp_kernels.cu) do
+    on a launch's rays, as their plain schedules (`closest_v4_warp_plain`,
+    `closest_bf8i_warp_plain` and the occlusion twins) count it. A warp is
     32 consecutive lanes; in a round every lane of a warp that is not done
-    holds a pending leaf. Per launch: `node_visits` (slab tests, as the
-    per-ray walk's counted variant counts them), `warps` with any leaf
-    round, `rounds` (summed over warps), `groups` (distinct leaves of a
-    warp's round: one page read each), `leaf_visits` ((lane, leaf) pairs,
-    the sum of the lanes in each group), `chunk_loads` (32-triangle chunks
-    staged;
-    an occlusion group stops after its last member is occluded, with the
-    chunk already in flight), `ray_chunk_tests` (warp-wide Woop tests of one
-    ray against one chunk) and `lanes_per_group` (groups of 1, 2-3, 4-7,
-    8-15, 16-31 and 32 lanes)."""
+    holds a pending leaf. Per launch: `node_visits` (slab tests of a binary
+    node or wide-node visits, as the per-ray walk's counted variant counts
+    them), `warps` with any leaf round, `rounds` (summed over warps),
+    `groups` (distinct pages of a warp's round, K3/K4 a leaf's own page,
+    K5/K6 a shared page: one page read each), `leaves` (distinct leaves in
+    those groups; K3/K4: `groups`), `leaf_visits` ((lane, leaf) pairs, the
+    sum of the lanes in each group), `chunk_loads` (32-triangle chunks
+    staged; an occlusion group stops after its last member is occluded,
+    with the chunk already in flight), `ray_chunk_tests` (tests of one ray
+    against one chunk), `warp_tests` (the warp's steps through them: per
+    chunk, one per ray; K5/K6 take, where fewer, one per column that can
+    accept, each ray's own lane testing it) and `lanes_per_group` (groups
+    of 1, 2-3, 4-7, 8-15, 16-31 and 32 lanes)."""
     warps: int
     rounds: int
     groups: int
+    leaves: int
     leaf_visits: int
     chunk_loads: int
     ray_chunk_tests: int
+    warp_tests: int
     lanes_per_group: tuple
     node_visits: int
 
@@ -1053,11 +1106,12 @@ def t_order_key(t: torch.Tensor) -> torch.Tensor:
                        b | 0x80000000)
 
 
-def _chunk_winner(t, u, v, acc, idc):
+def _chunk_winner(t, u, v, acc, idc, *extra):
     """The warp kernels' reduction over the columns of a chunk ((C, 32)
     each; `idc` the ids with ALPHA_TRI_BIT stripped): per row, whether any
-    column accepted, and the winner's (t, id, u, v): the least key of t,
-    then the least id at that key, the first such column."""
+    column accepted, and the winner's (t, id, u, v), then its entries of
+    each of `extra` ((C, 32) each): the least key of t, then the least id
+    at that key, the first such column."""
     key = torch.where(acc, t_order_key(t), _NO_KEY)
     kmin = key.min(dim=1).values
     at = acc & (key == kmin[:, None])
@@ -1065,16 +1119,54 @@ def _chunk_winner(t, u, v, acc, idc):
     col = torch.argmax((at & (idc == imin[:, None])).to(torch.int8),
                        dim=1)[:, None]
     return (kmin != _NO_KEY, t.gather(1, col)[:, 0], imin,
-            u.gather(1, col)[:, 0], v.gather(1, col)[:, 0])
+            u.gather(1, col)[:, 0], v.gather(1, col)[:, 0],
+            *(e.gather(1, col)[:, 0] for e in extra))
 
 
-def _merge_best(best, has, wt, wid, wu, wv):
-    """v4_traverse.cuh's rule, applied by a ray's own lane to a chunk's
-    winner: a smaller t, or an exact tie with a smaller id."""
-    bt, bi, bu, bv = best
+def _merge_best(best, has, wt, wid, wu, wv, *extra):
+    """v4_traverse.cuh's rule (and bf8i_traverse.cuh's), applied by a ray's
+    own lane to a chunk's winner: a smaller t, or an exact tie with a
+    smaller id. `best` holds (t, id, u, v) and one entry per `extra`."""
+    bt, bi = best[0], best[1]
     better = has & ((wt < bt) | ((wt == bt) & (bi >= 0) & (wid < bi)))
-    return (torch.where(better, wt, bt), torch.where(better, wid, bi),
-            torch.where(better, wu, bu), torch.where(better, wv, bv))
+    return tuple(torch.where(better, w, b)
+                 for w, b in zip((wt, wid, wu, wv, *extra), best))
+
+
+def _group_stats(lanes, page, n_pages: int):
+    """The groups of one round: lanes `lanes` pending on pages `page`,
+    grouped by (warp, page). Returns (inverse, counts per group, histogram
+    of lanes per group)."""
+    gkey = (lanes // WARP) * n_pages + page
+    _, inverse, cnt = torch.unique(gkey, return_inverse=True,
+                                   return_counts=True)
+    hist = torch.bincount(sum((cnt >= k).long() for k in (2, 4, 8, 16, 32)),
+                          minlength=6)
+    return inverse, cnt, hist
+
+
+def _occlusion_loads(occ_l, inverse, tested, n_groups: int, nc: int) -> int:
+    """Chunks an occlusion round stages: a group stops staging once its
+    last member is occluded; the chunk after that one is already in
+    flight. `tested`: the chunks each lane was tested against."""
+    last = torch.zeros(n_groups, dtype=torch.int64,
+                       device=tested.device).scatter_reduce(
+        0, inverse, tested, "amax")
+    all_occ = torch.ones(n_groups, dtype=torch.int64,
+                         device=tested.device).scatter_reduce(
+        0, inverse, occ_l.long(), "amin")
+    return int(torch.where(all_occ > 0, torch.clamp(last + 1, max=nc),
+                           nc).sum())
+
+
+def _any_chunk_hit(acc, nc: int):
+    """An occlusion test of C rays against nc chunks ((C, nc*32) accepted
+    columns): (occluded (C,), chunks tested (C,): through the first chunk
+    that occludes, else all)."""
+    hit = acc.reshape(-1, nc, WARP).any(dim=2)
+    occ = hit.any(dim=1)
+    return occ, torch.where(occ, torch.argmax(hit.to(torch.int8), dim=1) + 1,
+                            nc)
 
 
 def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
@@ -1123,15 +1215,11 @@ def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
         if lanes.numel() == 0:
             break
         lid = pending[lanes]
-        gkey = (lanes // WARP) * pbvh.pages.shape[0] + lid
-        uniq, inverse, cnt = torch.unique(gkey, return_inverse=True,
-                                          return_counts=True)
+        inverse, cnt, h = _group_stats(lanes, lid, pbvh.pages.shape[0])
         warp_rounds[torch.unique(lanes // WARP)] += 1
-        groups += uniq.numel()
+        groups += cnt.numel()
         visits += lanes.numel()
-        hist += torch.bincount(sum((cnt >= k).long() for k in (2, 4, 8, 16,
-                                                               32)),
-                               minlength=6)
+        hist += h
         tested = torch.empty(lanes.numel(), dtype=torch.int64, device=dev)
         for s0 in range(0, lanes.numel(), per_slice):
             sl = slice(s0, s0 + per_slice)
@@ -1141,10 +1229,7 @@ def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
             col_id = ids[li].to(torch.int64)
             acc &= col_id >= 0
             if any_hit:
-                hit = acc.reshape(-1, nc, WARP).any(dim=2)     # (C, nc)
-                occ = hit.any(dim=1)
-                tested[sl] = torch.where(
-                    occ, torch.argmax(hit.to(torch.int8), dim=1) + 1, nc)
+                occ, tested[sl] = _any_chunk_hit(acc, nc)
                 occluded[ln[occ]] = True
                 continue
             idc = col_id & ~ALPHA_TRI_BIT
@@ -1158,23 +1243,16 @@ def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
             tested[sl] = nc
         tests += int(tested.sum())
         if any_hit:
-            # a group stops staging once its last member is occluded; the
-            # chunk after that one is already in flight
             occ_l = occluded[lanes]
-            last = torch.zeros_like(uniq).scatter_reduce(
-                0, inverse, tested, "amax")
-            all_occ = torch.ones_like(uniq).scatter_reduce(
-                0, inverse, occ_l.long(), "amin")
-            loads += int(torch.where(all_occ > 0,
-                                     torch.clamp(last + 1, max=nc),
-                                     nc).sum())
+            loads += _occlusion_loads(occ_l, inverse, tested, cnt.numel(), nc)
             node[lanes] = torch.where(occ_l, n_top, top_miss[node[lanes]])
         else:
-            loads += uniq.numel() * nc
+            loads += cnt.numel() * nc
             node[lanes] = top_miss[node[lanes]]
     sched = WarpSchedule(int((warp_rounds > 0).sum()),
-                         int(warp_rounds.sum()), groups, visits, loads,
-                         tests, tuple(int(x) for x in hist.tolist()), nodes)
+                         int(warp_rounds.sum()), groups, groups, visits,
+                         loads, tests, tests,
+                         tuple(int(x) for x in hist.tolist()), nodes)
     if any_hit:
         return occluded, sched
     t, bid, u, v = best
@@ -1196,6 +1274,143 @@ def occluded_v4_warp_plain(pbvh: PacketBVH, origins, dirs, dist,
     """Plain PyTorch version of the occluded_v4 warp kernel's schedule:
     (bool (N,), WarpSchedule)."""
     return _v4_warp_schedule(pbvh, origins, dirs, dist, tmin, any_hit=True)
+
+
+def _bf8i_warp_schedule(bvh: BF8Instanced, origins, dirs, limit,
+                        tmin: float, any_hit: bool, flag: bool):
+    """The warp K5/K6's schedule, every lane at once: each live lane runs
+    its own stack walk (`_Stacks`: closest pushes far-first and retests a
+    popped leaf's box against its best t; occlusion pushes in child order)
+    to its next leaf to test; the round's pending lanes, each with its ray
+    mapped into its leaf's segment space, are grouped by (warp, page) and
+    tested chunk by chunk with the kernels' reduction, the winner branded
+    with the lane's segment on its own lane; then they resume. `flag`:
+    raw_ids (closest) or opaque_only (occlusion). A chunk with fewer
+    columns that can accept than rays to test is tested per ray in the
+    kernel (`warp_tests` counts it so); the bits are the same either way.
+    Returns ((t, id, u, v) or the occlusion bools, WarpSchedule)."""
+    w, bias, wd, ids = _leaf_columns(bvh)         # per shared page
+    dev = origins.device
+    n, nc = origins.shape[0], bvh.block // WARP
+    inv = _safe_inv(dirs)
+    seg_inv = bvh.seg_inv.reshape(bvh.n_segs, 12)
+    leaf_page = bvh.leaf_page.to(torch.int64)
+    leaf_seg = bvh.leaf_seg.to(torch.int64)
+    st = _Stacks(n, dev)
+    none = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best = (limit.clone(), none, torch.zeros_like(limit),
+            torch.zeros_like(limit), none.clone())      # t, id, u, v, raw
+    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
+    warp_rounds = torch.zeros((n + WARP - 1) // WARP, dtype=torch.int64,
+                              device=dev)
+    hist = torch.zeros(6, dtype=torch.int64, device=dev)
+    groups = leaves = visits = loads = tests = steps = nodes = 0
+    per_slice = max(1, (1 << 22) // bvh.block)
+    # per page and chunk, the columns that can accept
+    can = ids >= 0
+    if any_hit and flag:
+        can &= (ids & ALPHA_TRI_BIT) == 0
+    n_cols = can.reshape(-1, nc, WARP).sum(dim=2)             # (P, nc)
+    chunk = torch.arange(nc, device=dev)
+    while True:
+        pending = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        walking = torch.nonzero(st.sp > 0).squeeze(1)
+        while walking.numel():
+            ent = st.pop(walking)
+            leaf = ent >= LEAF_BIT
+            ll, lid = walking[leaf], ent[leaf] - LEAF_BIT
+            if not any_hit:                       # the leaf-box retest
+                ok, _ = _slab(bvh.l_lo[lid], bvh.l_hi[lid], origins[ll],
+                              inv[ll], best[0][ll])
+                ll, lid = ll[ok], lid[ok]
+            pending[ll] = lid
+            nl = walking[~leaf]
+            if nl.numel():
+                nodes += nl.numel()
+                st.push_children(bvh, nl, ent[~leaf], origins, inv,
+                                 (limit if any_hit else best[0])[nl],
+                                 near_first=not any_hit)
+            walking = walking[pending[walking] < 0]
+            walking = walking[st.sp[walking] > 0]
+        lanes = torch.nonzero(pending >= 0).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        lid = pending[lanes]
+        page, seg = leaf_page[lid], leaf_seg[lid]
+        inverse, cnt, h = _group_stats(lanes, page, bvh.pages.shape[0])
+        warp_rounds[torch.unique(lanes // WARP)] += 1
+        groups += cnt.numel()
+        leaves += torch.unique((lanes // WARP) * bvh.n_leaves + lid).numel()
+        visits += lanes.numel()
+        hist += h
+        tested = torch.empty(lanes.numel(), dtype=torch.int64, device=dev)
+        for s0 in range(0, lanes.numel(), per_slice):
+            sl = slice(s0, s0 + per_slice)
+            ln, pg, sg = lanes[sl], page[sl], seg[sl]
+            o2, d2 = _to_object(seg_inv[sg], origins[ln], dirs[ln])
+            t, u, v, acc = _woop_chunk(o2, d2, w[pg], bias[pg], wd[pg], tmin,
+                                       limit[ln])
+            col_id = ids[pg].to(torch.int64)
+            acc &= col_id >= 0
+            if any_hit:
+                if flag:
+                    acc &= (col_id & ALPHA_TRI_BIT) == 0
+                occ, tested[sl] = _any_chunk_hit(acc, nc)
+                occluded[ln[occ]] = True
+                continue
+            brand = sg << SEG_SHIFT
+            idc = col_id & ~ALPHA_TRI_BIT
+            mine = tuple(b[ln] for b in best)
+            for c in range(nc):
+                cs = slice(c * WARP, (c + 1) * WARP)
+                has, wt, wid, wu, wv, wraw = _chunk_winner(
+                    t[:, cs], u[:, cs], v[:, cs], acc[:, cs], idc[:, cs],
+                    col_id[:, cs])
+                mine = _merge_best(mine, has, wt, wid | brand, wu, wv,
+                                   wraw | brand)
+            for b, m in zip(best, mine):
+                b[ln] = m
+            tested[sl] = nc
+        tests += int(tested.sum())
+        # the rays each group still tests at each chunk against its columns
+        # that can accept: the warp steps through the fewer of the two
+        active = torch.zeros((cnt.numel(), nc), dtype=torch.int64,
+                             device=dev).index_add_(
+            0, inverse, (tested[:, None] > chunk).long())
+        g_page = torch.zeros_like(cnt).scatter_(0, inverse, page)
+        steps += int(torch.minimum(active, n_cols[g_page]).sum())
+        if any_hit:
+            occ_l = occluded[lanes]
+            loads += _occlusion_loads(occ_l, inverse, tested, cnt.numel(), nc)
+            st.sp[lanes[occ_l]] = 0               # an occluded lane is done
+        else:
+            loads += cnt.numel() * nc
+    sched = WarpSchedule(int((warp_rounds > 0).sum()),
+                         int(warp_rounds.sum()), groups, leaves, visits,
+                         loads, tests, steps,
+                         tuple(int(x) for x in hist.tolist()), nodes)
+    if any_hit:
+        return occluded, sched
+    t, bid, u, v, raw = best
+    tri = raw if flag else torch.where(bid >= 0, bid, -1)
+    return Hit(t, tri.to(torch.int32), u, v), sched
+
+
+def closest_bf8i_warp_plain(bvh: BF8Instanced, origins, dirs, tmax,
+                            tmin: float = 1e-5, raw_ids: bool = False):
+    """Plain PyTorch version of the closest_bf8i warp kernel's schedule:
+    (Hit, WarpSchedule). Its hits are bit-equal to the per-ray walk's
+    (bf8i_traverse.cuh), ties across leaves and instances included."""
+    return _bf8i_warp_schedule(bvh, origins, dirs, tmax, tmin,
+                               any_hit=False, flag=raw_ids)
+
+
+def occluded_bf8i_warp_plain(bvh: BF8Instanced, origins, dirs, dist,
+                             tmin: float = 1e-5, opaque_only: bool = False):
+    """Plain PyTorch version of the occluded_bf8i warp kernel's schedule:
+    (bool (N,), WarpSchedule)."""
+    return _bf8i_warp_schedule(bvh, origins, dirs, dist, tmin, any_hit=True,
+                               flag=opaque_only)
 
 
 # the archive kernels' plain versions: the page brute does not depend on
@@ -1240,14 +1455,15 @@ def _instanced_decoded(bvh: BF8Instanced):
 
 def _to_object(a, o, d):
     """Rays (C, 3) into the object space of the segment whose inverse
-    transform row is `a` (12,), in the kernel's order of operations."""
+    transform row is `a` (12,), or of each ray's own row (a (C, 12)), in
+    the kernel's order of operations (bf8i::to_object)."""
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    o2 = torch.stack([((a[3 * k] * ox + a[3 * k + 1] * oy)
-                       + a[3 * k + 2] * oz) + a[9 + k] for k in range(3)],
-                     dim=1)
-    d2 = torch.stack([(a[3 * k] * dx + a[3 * k + 1] * dy)
-                      + a[3 * k + 2] * dz for k in range(3)], dim=1)
+    o2 = torch.stack([((a[..., 3 * k] * ox + a[..., 3 * k + 1] * oy)
+                       + a[..., 3 * k + 2] * oz) + a[..., 9 + k]
+                      for k in range(3)], dim=1)
+    d2 = torch.stack([(a[..., 3 * k] * dx + a[..., 3 * k + 1] * dy)
+                      + a[..., 3 * k + 2] * dz for k in range(3)], dim=1)
     return o2, d2
 
 

@@ -11,7 +11,8 @@ K1-K6 and the archive kernels (closest_ordered, closest_v6, closest_v6k2,
 closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the kernels are
 built with -fmad=false and run the plain version's f32 arithmetic in its
 order. K1's pops variant gives K1's hits and the plain walk's pops. The
-warp-cooperative K3/K4 give the per-ray arm's bits on every lane.
+warp-cooperative K3/K4 and K5/K6 give the per-ray arm's bits on every
+lane (K5/K6 also the plain warp schedule's).
 """
 
 import numpy as np
@@ -276,6 +277,11 @@ def test_cuda_wrapper_rejects_mixed_devices(cuda_device):
                kernels.closest_v4_per_ray, kernels.occluded_v4_per_ray):
         with pytest.raises(ValueError):
             fn(pb, o, d, far)
+    b = _instanced_structure("cpu")
+    for fn in (kernels.closest_bf8i, kernels.occluded_bf8i,
+               kernels.closest_bf8i_per_ray, kernels.occluded_bf8i_per_ray):
+        with pytest.raises(ValueError):
+            fn(b, o, d, far)
 
 
 @pytest.mark.gpu
@@ -298,9 +304,10 @@ def test_cuda_film_matches_cpu_film(cuda_device):
     assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3
 
 
-def _instanced_structure(device, alpha_mesh=None, n_segs=12):
+def _instanced_structure(device, alpha_mesh=None, n_segs=12, block=32):
     """`n_segs` instances of two wavy grids on a lattice (no overlaps), each
-    with its own scale and turn; mesh `alpha_mesh` is non-opaque."""
+    with its own scale and turn, at leaves of `block` or more; mesh
+    `alpha_mesh` is non-opaque."""
     import chip_smoke
     rng = np.random.default_rng(51)
     meshes = []
@@ -317,7 +324,8 @@ def _instanced_structure(device, alpha_mesh=None, n_segs=12):
             [[c, 0, sn], [0, 1, 0], [-sn, 0, c]])
         seg_t[s, :3, 3] = (6.0 * (s % 4) - 9, 0.2 * s, 6.0 * (s // 4) - 6)
     seg_mesh = [s % 2 for s in range(n_segs)]
-    b = instanced.build_instanced_bf8(meshes, seg_mesh, seg_t, device=device)
+    b = instanced.build_instanced_bf8(meshes, seg_mesh, seg_t, block,
+                                      device=device)
     assert b is not None and b.pages.shape[0] < b.n_leaves
     return b
 
@@ -357,8 +365,10 @@ def test_cuda_bf8i_kernels_match_plain(cuda_device, alpha_mesh):
         assert 0 < int(got.sum()) < n
     assert kernels.launches["occluded_bf8i"] == before["occluded_bf8i"] + 2
     counts = kernels.work_counts(b)
-    counted = kernels.closest_bf8i(b, o, d, tmax, raw_ids=True,
-                                   counts=counts)
+    counted = kernels.closest_bf8i_per_ray(b, o, d, tmax, raw_ids=True,
+                                           counts=counts)
+    assert kernels.launches["closest_bf8i_per_ray"] == \
+        before["closest_bf8i_per_ray"] + 1
     for x, y in zip(counted, hk):          # the counted variant: same hits
         assert torch.equal(x, y)
     nodes, leaf_boxes, leaf_visits, tris = counts.totals.tolist()
@@ -369,8 +379,129 @@ def test_cuda_bf8i_kernels_match_plain(cuda_device, alpha_mesh):
     assert 0 < int(counts.tri_seen.sum()) <= int(valid.sum())
     assert not bool(counts.tri_seen.bool()[~valid].any())
     counts = kernels.work_counts(b)
-    kernels.occluded_bf8i(b, o, d, dist, counts=counts)
+    kernels.occluded_bf8i_per_ray(b, o, d, dist, counts=counts)
     assert counts.totals[0] > 0 and counts.totals[2] > 0
+    assert kernels.launches["occluded_bf8i_per_ray"] == \
+        before["occluded_bf8i_per_ray"] + 1
+
+
+def _instanced_rays(n, seed, device):
+    """Rays from above the lattice of `_instanced_structure`, aimed at
+    points among the instances."""
+    rng = np.random.default_rng(seed)
+    target = np.stack([rng.uniform(-11, 11, n), rng.uniform(0, 3, n),
+                       rng.uniform(-8, 8, n)], -1)
+    o = target + rng.normal(0, 1, (n, 3)) * 4 + [0, 6, 0]
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o.astype(np.float32), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_cuda_bf8i_warp_kernels_match_per_ray(cuda_device, block, n):
+    """The warp-cooperative K5/K6 against the per-ray arm and the plain
+    warp schedule on every lane: t, u, v bits, ids (with and without
+    `raw_ids`) and occlusion (with and without `opaque_only`), on the small
+    instanced structure with an alpha mesh, with lanes that fill no whole
+    warp; each wrapper counts its own launches."""
+    b = _instanced_structure(cuda_device, alpha_mesh=1, block=block)
+    assert b.block == block
+    o, d = _instanced_rays(4096, 53, cuda_device)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    dist = torch.linspace(0.5, 14.0, n, device=cuda_device)
+    for flag in (False, True):
+        before = dict(kernels.launches)
+        hw = kernels.closest_bf8i(b, o, d, tmax, raw_ids=flag)
+        hr = kernels.closest_bf8i_per_ray(b, o, d, tmax, raw_ids=flag)
+        ow = kernels.occluded_bf8i(b, o, d, dist, opaque_only=flag)
+        orr = kernels.occluded_bf8i_per_ray(b, o, d, dist, opaque_only=flag)
+        torch.cuda.synchronize()
+        for k in ("closest_bf8i", "closest_bf8i_per_ray", "occluded_bf8i",
+                  "occluded_bf8i_per_ray"):
+            assert kernels.launches[k] == before[k] + 1, k
+        hp, _ = kernels.closest_bf8i_warp_plain(b, o, d, tmax, raw_ids=flag)
+        op, _ = kernels.occluded_bf8i_warp_plain(b, o, d, dist,
+                                                 opaque_only=flag)
+        for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+            assert torch.equal(a, x) and torch.equal(a, y)
+        assert torch.equal(ow, orr) and torch.equal(ow, op)
+        if n == 1000:
+            assert int((hr.tri >= 0).sum()) > 100 and 0 < int(orr.sum()) < n
+
+
+def sparse_page_structure(device):
+    """36 instances of an 8-triangle wavy grid on a lattice at block 32: 36
+    leaves over one shared page of 8 triangles padded out to 32 columns, as
+    the alpha cards' trees are; half the triangles alpha-tagged. With
+    coherent rays from above (`sparse_page_rays`) the page groups hold more
+    rays than the page has triangles."""
+    import chip_smoke
+    pos, _, _, tris = chip_smoke._wavy_grid(3)
+    opaque = np.arange(len(tris)) % 2 == 0
+    seg_t = np.tile(np.eye(4), (36, 1, 1))
+    for s in range(36):
+        seg_t[s, :3, 3] = (2.5 * (s % 6), 0.1 * s, 2.5 * (s // 6))
+    b = instanced.build_instanced_bf8([(pos, tris.astype(np.int32), opaque)],
+                                      [0] * 36, seg_t, device=device)
+    assert b.pages.shape[0] == 1 and b.n_leaves == 36 and b.block == 32
+    return b
+
+
+def sparse_page_rays(n, device):
+    """Rays from above the lattice of `sparse_page_structure`, neighbours in
+    neighbouring lanes."""
+    side = int(np.ceil(np.sqrt(n)))
+    gx, gz = np.meshgrid(np.linspace(-1.2, 13.7, side),
+                         np.linspace(-1.2, 13.7, side), indexing="ij")
+    o = np.stack([gx.ravel(), np.full(side * side, 5.0), gz.ravel()],
+                 -1)[:n]
+    d = np.tile(np.asarray([[0.05, -1.0, 0.03]]), (n, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o.astype(np.float32), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+
+
+@pytest.mark.gpu
+def test_cuda_bf8i_warp_kernels_on_sparse_pages(cuda_device):
+    """A page of 8 triangles tested by groups of up to 32 rays: the warp
+    kernels test such chunks column by column on each ray's own lane; bits
+    and occlusion equal the per-ray arm's and the plain schedule's."""
+    b = sparse_page_structure(cuda_device)
+    n = 4096
+    o, d = sparse_page_rays(n, cuda_device)
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    dist = torch.linspace(0.5, 9.0, n, device=cuda_device)
+    for flag in (False, True):
+        hw = kernels.closest_bf8i(b, o, d, tmax, raw_ids=flag)
+        hr = kernels.closest_bf8i_per_ray(b, o, d, tmax, raw_ids=flag)
+        hp, sched = kernels.closest_bf8i_warp_plain(b, o, d, tmax,
+                                                    raw_ids=flag)
+        for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+            assert torch.equal(a, x) and torch.equal(a, y)
+        assert sched.warp_tests < sched.ray_chunk_tests
+        ow = kernels.occluded_bf8i(b, o, d, dist, opaque_only=flag)
+        orr = kernels.occluded_bf8i_per_ray(b, o, d, dist, opaque_only=flag)
+        op, _ = kernels.occluded_bf8i_warp_plain(b, o, d, dist,
+                                                 opaque_only=flag)
+        assert torch.equal(ow, orr) and torch.equal(ow, op)
+        assert 0 < int(orr.sum()) < n
+    assert int((hr.tri >= 0).sum()) > n // 4
+
+
+@pytest.mark.gpu
+def test_cuda_bf8i_warp_kernels_launch_nothing_on_no_rays(cuda_device):
+    b = _instanced_structure(cuda_device)
+    empty = torch.empty((0, 3), device=cuda_device)
+    none = torch.empty((0,), device=cuda_device)
+    before = dict(kernels.launches)
+    h = kernels.closest_bf8i(b, empty, empty, none)
+    occ = kernels.occluded_bf8i(b, empty, empty, none)
+    assert h.t.shape == (0,) and occ.shape == (0,) and occ.dtype == torch.bool
+    assert kernels.launches == before
 
 
 @pytest.mark.gpu
