@@ -8,8 +8,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
 1. device: name, count, versions, `nvidia-smi` name and power limit;
 2. build: every traversal kernel (one nvcc per source for sm_90a, with
    -Xptxas -v) and the native SBVH library (g++), all started together;
-   the warp K3/K4's and K5/K6's resident blocks per SM and shared memory
-   per block;
+   the warp K1/closest_v6's, K3/K4's and K5/K6's resident blocks per SM
+   and shared memory per block;
 3. kernel parity at full size, each kernel against its plain PyTorch version
    on the card: K1 (closest_bf8) and K2 (occluded_bf8, and opaque_only on a
    structure with every other triangle non-opaque) over the Heightfield
@@ -21,7 +21,15 @@ Phases, each fatal on failure (nothing is caught and passed over):
    (closest_v4_per_ray, occluded_v4_per_ray) on every lane, over that tree,
    the Morton tree of the same triangles at block 128 and two static SAH
    trees (the v4 fallback, and one at block >= 512), each also against
-   the plain versions;
+   the plain versions; the warp K1 (closest_bf8) and closest_v6 bit-equal
+   to their per-ray arm (closest_bf8_per_ray, closest_v6_per_ray) and to
+   their plain warp schedule on every lane of every BF8 and BF8V6 set:
+   the Heightfield's tree (and its half-alpha variant and its BF8V6), the
+   Courtyard at detail 1.0 (the flat tree and its opaque and alpha subset
+   trees; the BF8V6 of its SBVH is over pt's 640 KiB table cap, which the
+   run logs), the 64 instances flattened, opaque
+   and with alpha cards (and the cards' subset trees), and the static
+   alpha variant's three trees;
 4. main path, static: `Renderer(device="cuda")` on the Heightfield at 512²,
    5 bounces, 4 spp: one warm render, then 3 timed renders with the launch
    counters set to 0 just before and read just after; film checks, a PNG
@@ -29,6 +37,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
    memory, one more block of 3 steps for the spread within the call, a
    torch.profiler breakdown of one sample, and K1/K2's CUDA-event time on
    the real bounce-0 and bounce-2 wavefronts against plain version and bound;
+   the A/B of K1's two designs on the same wavefronts (per-ray, warp, warp,
+   per-ray), the plain warp schedule's groups there, and ptxas's -v line
+   and resident blocks of the warp K1;
 5. main path, animated: the Animated Heightfield (99,458 triangles on a
    keyframed node) at 512², 5 bounces, 4 spp, 5 frames of `scene.update(1/24)`
    → `update_scene_data` → rebuild → `render()`, the last 4 counted (launch
@@ -60,7 +71,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
    K5 on the alpha-card tree's first alpha round of bounces 0 and 2; the
    same scene with
    `instancing="flatten"` for the gates: primary-hit flips <= 0.5% of the
-   pixels, mean film shift <= 2%;
+   pixels, mean film shift <= 2%; its launches (K1/K2 only: 60/60 in 3
+   steps, 540/60 with the cards) and, opaque, the A/B of K1's two designs
+   on its bounce-0 and bounce-2 wavefronts;
 8. archive: `pt`'s archive kernels through the entry points that select
    them (`pt_torch.accel.archive`), with the launch and call counters set to
    0 before each run and read after. Path (a): `pt_torch.benches.bvh_kernels`
@@ -77,8 +90,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
    the fine SBVH and the Animated Heightfield's Morton tree; their times on
    the bounce-0 and bounce-2 wavefronts, closest_ordered beside K3 on the
    Morton tree's, each bound from the least work of the walks that computed
-   the same function on the same rays; the Heightfield (n=64) with a BF8V6
-   at 64², card against CPU;
+   the same function on the same rays; the A/B of closest_v6's two designs
+   on the same wavefronts, its plain warp schedule's groups and ptxas's
+   line; the Heightfield (n=64) with a BF8V6 at 64², card against CPU;
 9. the Courtyard at 512², 5 bounces: detail 0.85 with `instancing="shared"`
    (985 segments; three instanced trees) and detail 1.0 with "auto" (1135
    segments, above the cap: the flat BF8 path with split trees); the Default
@@ -87,21 +101,24 @@ Phases, each fatal on failure (nothing is caught and passed over):
     1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
     alpha frames, the static alpha variant and a small instanced alpha scene
     at 32²;
-11. budget and drain: `pt`'s last two Pallas entry points through K1's pops
-    variant (each lane's walk iterations; a warp's rounds are its lanes'
-    most). `pt_torch.benches.budget.main` at its defaults (the Heightfield
-    n=224 under its SAH tree, 512², 5 bounces: per-bounce stage times,
+11. budget and drain: `pt`'s last two Pallas entry points through the pops
+    variant of K1's per-ray design (`closest_bf8_per_ray(..., pops=)`:
+    each lane's walk iterations; a warp's rounds are its lanes' most).
+    `pt_torch.benches.budget.main` at its defaults (the Heightfield n=224
+    under its SAH tree, 512², 5 bounces: per-bounce stage times,
     `rounds_of` and the warp lockstep share, leaf-visit waste, the union
     table, the shade parts, a bounce against lane count) and
     `.drain_sim.main` (`done_rounds_of`) for the Heightfield and the
     Courtyard at COURT_TEX_SCALE (whose triangles are checked equal to
     those at COURT_TEX_SCALE_PARITY), launch counters as above. On every
-    bounce's wavefront: the pops launch's hits equal K1's on every lane,
+    bounce's wavefront: the pops launch's hits equal the warp K1's on every
+    lane,
     its pops the plain walk's on 16,384 lanes, their sum a counted launch's
     node visits plus leaf retests, rounds the most of done per block, no
-    stack above its bound. The pops variant timed beside K1 on the bounce-0
-    and bounce-2 wavefronts, with its plain walk and its bound (K1's plus 4
-    bytes a lane). The phase logs its own seconds.
+    stack above its bound. The pops variant timed beside the warp K1 and the
+    per-ray K1 on the bounce-0 and bounce-2 wavefronts, with its plain walk
+    and its bound (K1's plus 4 bytes a lane). The phase logs its own
+    seconds.
 
 Phase 3 also holds K5 (closest_bf8i, with raw_ids) and K6 (occluded_bf8i,
 with opaque_only), the warp kernels, against their plain versions over the
@@ -110,11 +127,12 @@ with opaque_only), the warp kernels, against their plain versions over the
 apart), and bit-equal to their per-ray arm (closest_bf8i_per_ray,
 occluded_bf8i_per_ray) on every lane of the same sets.
 
-Prints the kernels' JSON line (K1-K6, K3-K6 with their per-ray arm's time
-from the A/B, then one row per archive entry point, with the kernel it runs
-and the workload it was timed on (A8/A9: also the per-ray arm's time on the
-same rays), then the rows
-`rounds_of` and `done_rounds_of`, kernel "closest_bf8 (pops)"), then the
+Prints the kernels' JSON line (K1-K6, K1 and K3-K6 with their per-ray
+arm's time from the A/B, then one row per archive entry point, with the
+kernel it runs and the workload it was timed on (A2, A8/A9: also the
+per-ray arm's time on the same rays; A3 its A/B at both bounces), then the
+rows `rounds_of` and `done_rounds_of`, kernel "closest_bf8_per_ray
+(pops)"), then the
 `nvidia-smi` line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
@@ -165,6 +183,11 @@ BYTES_PER_LEAF_INDEX = 2 * 4
 BYTES_PER_SEG_XFORM = 12 * 4
 OPS_PER_XFORM = 33
 
+# phase 2's ptxas -v lines and the warp libraries' occupancy, re-printed
+# beside the A/Bs
+PTXAS = []
+OCCUPANCY = {}
+
 N_PARITY = 16384
 BLOCKS = 2          # blocks of 3 timed render steps (the first is counted)
 ANIM_FRAMES = 4     # counted animated frames, after one warm frame
@@ -187,7 +210,7 @@ REPLACES = {
     "occluded_bf8i": "pt/accel/instanced.py:858 packet_occluded_bf8i",
 }
 SOURCES = {
-    "closest_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
+    "closest_bf8": "pt_torch/accel/csrc/bf8_warp_kernels.cu",
     "occluded_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
     "closest_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
     "occluded_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
@@ -195,9 +218,11 @@ SOURCES = {
     "occluded_bf8i": "pt_torch/accel/csrc/bf8i_warp_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
-# K3-K6's first design, the per-ray arm of the A/B; it also carries their
-# counted variant (the walk is the same)
-PER_RAY = {"closest_v4": "closest_v4_per_ray",
+# K1's, closest_v6's and K3-K6's first design, the per-ray arm of the A/B;
+# it also carries their counted variant (the walk is the same)
+PER_RAY = {"closest_bf8": "closest_bf8_per_ray",
+           "closest_v6": "closest_v6_per_ray",
+           "closest_v4": "closest_v4_per_ray",
            "occluded_v4": "occluded_v4_per_ray",
            "closest_bf8i": "closest_bf8i_per_ray",
            "occluded_bf8i": "occluded_bf8i_per_ray"}
@@ -216,7 +241,7 @@ ARCHIVE = {
     "packet_closest_sub": (2089, "closest_ordered"),
 }
 SOURCES.update(closest_ordered="pt_torch/accel/csrc/ordered_kernels.cu",
-               closest_v6="pt_torch/accel/csrc/v6_kernels.cu",
+               closest_v6="pt_torch/accel/csrc/bf8_warp_kernels.cu",
                closest_v6k2="pt_torch/accel/csrc/v6_kernels.cu",
                closest_v7="pt_torch/accel/csrc/v6_kernels.cu",
                occluded_v6="pt_torch/accel/csrc/v6_kernels.cu")
@@ -497,14 +522,30 @@ def phase_build():
         raise errors[0]
     log(f"[build] nvcc {' '.join(kernels.NVCC_FLAGS)} + g++ SBVH library: "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in ptxas.splitlines():
-        if line.strip():
-            log(f"[build] {line.strip()}")
-    for lib, which in (("v4w", "K3/K4"), ("bf8iw", "K5/K6")):
+    PTXAS.extend(line.strip() for line in ptxas.splitlines() if line.strip())
+    for line in PTXAS:
+        log(f"[build] {line}")
+    for lib, which in (("v4w", "K3/K4"), ("bf8iw", "K5/K6"),
+                       ("bf8w", "K1/closest_v6")):
         occ = kernels.warp_occupancy(lib, "cuda")
         check(min(occ.values()) > 0,
               f"warp {which} occupancy query failed: {occ}")
+        OCCUPANCY[lib] = occ
         log(f"[build] warp {which} (128 threads a block): {occ}")
+
+
+def _log_build_of(tag, lib, walk):
+    """Re-print, beside an A/B, what ptxas said of the warp kernel whose
+    mangled name holds `walk` (Bf8Walk: K1, V6Walk: closest_v6), and the
+    library's resident blocks per SM."""
+    lines, on = [], False
+    for line in PTXAS:
+        if "Compiling entry function" in line:
+            on = walk in line
+        if on and ("Used" in line or "stack frame" in line):
+            lines.append(line.replace("ptxas info    : ", ""))
+    log(f"[{tag}] ptxas -v of the warp kernel ({walk}): "
+        f"{'; '.join(lines)}; {OCCUPANCY[lib]}")
 
 
 def _renderer(scene, width: int, spp: int, bounces: int, device: str,
@@ -609,6 +650,7 @@ def torch_max(x):
 
 def phase_parity():
     import torch
+    from pt_torch.accel import archive
     from pt_torch.accel.bvh8 import build_bf8, build_packet_bvh_sah
     t0 = time.perf_counter()
     r = _renderer(224, 512, 1, 2, "cuda")
@@ -632,10 +674,11 @@ def phase_parity():
            torch.as_tensor(rd, device="cuda"),
            torch.full((N_PARITY,), 1e4, device="cuda")]
     errs = {"closest_bf8": 0.0, "occluded_bf8": 0.0}
-    for what, (o, d, t) in (("bounce0", b0), ("bounce1", b1),
-                            ("random", rnd)):
+    sets = (("bounce0", b0), ("bounce1", b1), ("random", rnd))
+    for what, (o, d, t) in sets:
         errs["closest_bf8"] = max(errs["closest_bf8"],
                                   _compare_closest(bvh, o, d, t, what))
+        _bf8_arms(bvh, (o, d, t), f"Heightfield, {what}")
         dist = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
                                .astype(np.float32), device="cuda")
         errs["occluded_bf8"] = max(errs["occluded_bf8"],
@@ -652,8 +695,14 @@ def phase_parity():
     for flag in (False, True):
         errs["occluded_bf8"] = max(errs["occluded_bf8"], _compare_occluded(
             half, o, d, dist, "random/half-alpha", opaque_only=flag))
+    _bf8_arms(half, rnd, "Heightfield half-alpha tree, random")
+    # the BF8V6 of the same SBVH, on the same rays
+    v6, _ = archive.swap_in_bf8_v6(r)
+    for what, rays in sets:
+        _bf8_arms(v6, rays, f"Heightfield BF8V6, {what}")
     torch.cuda.synchronize()
     log(f"[parity] K1/K2 done in {time.perf_counter() - t0:.1f} s")
+    _parity_bf8_trees(rng)
     errs.update(_parity_v4(rng))
     errs.update(_parity_bf8i(rng))
     return errs
@@ -693,6 +742,98 @@ def _arms_equal(bvh, o, d, t, dist, what, pair=("closest_v4",
         f"({int(orr.sum())} occluded)")
     check(n_c == 0 and n_o == 0, f"warp {label} {what}: {n_c} closest and "
           f"{n_o} occlusion lanes differ from the per-ray arm")
+
+
+def _bf8_arms(tree, rays, what):
+    """The warp K1 (over a BF8BVH) or closest_v6 (over a BF8V6) against its
+    per-ray arm and its plain warp schedule on one ray set: the t, u and v
+    bits and the id of every lane must be equal."""
+    from pt_torch.accel import kernels
+    name = "closest_v6" if hasattr(tree, "c_order") else "closest_bf8"
+    hw = getattr(kernels, name)(tree, *rays)
+    hr = getattr(kernels, PER_RAY[name])(tree, *rays)
+    hp, sched = getattr(kernels, name + "_warp_plain")(tree, *rays)
+    n_r = int((sum((a != b) for a, b in zip(_bits(hw), _bits(hr))) > 0)
+              .sum())
+    n_p = int((sum((a != b) for a, b in zip(_bits(hw), _bits(hp))) > 0)
+              .sum())
+    log(f"[parity] warp {name} against the per-ray arm, {what}: "
+        f"{rays[0].shape[0]} rays, {n_r} lanes differ in (t, tri, u, v) "
+        f"bits ({int((hr.tri >= 0).sum())} hits), {n_p} from the plain "
+        f"schedule (block {tree.block}, "
+        f"{sched.leaf_visits / max(sched.groups, 1):.2f} lanes per group, "
+        f"warp steps {sched.warp_tests} for {sched.ray_chunk_tests} "
+        f"ray-chunk tests)")
+    check(n_r == 0 and n_p == 0, f"warp {name} {what}: {n_r} lanes differ "
+          f"from the per-ray arm, {n_p} from the plain schedule")
+
+
+def _parity_bf8_trees(rng):
+    """The warp K1 and closest_v6 bit-equal to their per-ray arms over the
+    other BF8 and BF8V6 trees the static paths build: the Courtyard at
+    detail 1.0 ("auto": the flat tree and its opaque and alpha subset
+    trees, and the BF8V6 of its SBVH where pt's 640 KiB cap on the unified
+    table admits one), the 64 instances flattened, opaque
+    and with alpha cards (and the cards' subset trees), and the static
+    alpha variant's three trees; on N_COURT-ray sets of real wavefronts
+    (bounce 0 and bounce 1) and of random rays."""
+    import torch
+    from pt_torch.accel import archive
+    from pt_torch.accel.bvh8 import build_packet_bvh_sah
+    from pt_torch.scene.standin import make_courtyard_scene
+    t0 = time.perf_counter()
+    ns = port_namespace()
+    # (what, scene, instancing, closest traces per bounce: 1, or 9 with the
+    # alpha loops of a split scene)
+    cases = (("Courtyard 1.0",
+              lambda: make_courtyard_scene(1.0, COURT_TEX_SCALE_PARITY),
+              "auto", 9),
+             ("64 instances flattened",
+              lambda: build_instanced_scene(ns, N_INST), "flatten", 1),
+             ("64 instances + cards flattened",
+              lambda: build_instanced_scene(ns, N_INST, alpha=True),
+              "flatten", 9),
+             ("static alpha variant",
+              lambda: build_animated_scene(ns, 224, N_CARDS, animate=False),
+              "auto", 9))
+    for what, make, mode, per in cases:
+        r = _renderer(make(), 512, 1, 2, "cuda", mode)
+        r._ensure_accel()
+        trees = [("full", r.accel.bvh)]
+        sp = r.accel.alpha_split
+        if sp is not None:
+            trees += [("opaque", sp.bvh_opaque), ("alpha", sp.bvh_alpha)]
+        check(len(trees) == (3 if per == 9 else 1)
+              and all(type(t).__name__ == "BF8BVH" for _, t in trees),
+              f"{what}: trees {[type(t).__name__ for _, t in trees]}")
+        if what.startswith("Courtyard"):
+            v6 = archive.build_bf8_v6(build_packet_bvh_sah(
+                r.accel.wpos.cpu().numpy(), r.ds.tri_idx.cpu().numpy(),
+                block=32, max_leaves=8192,
+                tri_opaque_np=r.ds.tri_opaque.cpu().numpy(), spatial=True,
+                device=r.device))
+            if v6 is None:          # pt's 640 KiB cap on the unified table
+                log(f"[parity] {what}: no BF8V6 fits (build_bf8_v6 gives "
+                    "None), none checked")
+            else:
+                trees.append(("BF8V6", v6))
+        log(f"[parity] {what}: {r.ds.num_triangles} triangles; "
+            + "; ".join(f"{name} tree {t.n_leaves} leaves of block "
+                        f"{t.block}, depth {t.depth}" for name, t in trees))
+        with _Recorder() as rec:
+            r.render(1)
+        live1 = (rec.closest[per][2] > 1e-4).cpu().numpy()
+        b0 = _sample_rows(rec.closest[0], N_COURT, rng)
+        b1 = _sample_rows(rec.closest[per], N_COURT, rng, live1)
+        for name, tree in trees:
+            for set_name, rays in (("bounce0", b0), ("bounce1", b1),
+                                   ("random", _random_rays(tree, N_COURT,
+                                                           rng))):
+                _bf8_arms(tree, rays, f"{what} {name} tree, {set_name}")
+        del r, rec
+    torch.cuda.synchronize()
+    log(f"[parity] warp K1/closest_v6 over the other static trees done in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _parity_v4(rng):
@@ -971,10 +1112,11 @@ def _least_bound(results, what):
                     for k, r in results.items()) + ")")
 
 
-def _time_kernel(name, bvh, args):
-    """Time kernel `name` and its plain version on one recorded wavefront,
-    at the shape the main path gave it, work out the launch's bound from a
-    counted launch, and hold the two results against each other."""
+def _time_kernel(name, bvh, args, plain=True):
+    """Time kernel `name` and (with `plain`) its plain version on one
+    recorded wavefront, at the shape the main path gave it, work out the
+    launch's bound from a counted launch, and hold the two results against
+    each other."""
     import torch
     from pt_torch.accel import kernels
     k_fn = getattr(kernels, name)
@@ -985,6 +1127,8 @@ def _time_kernel(name, bvh, args):
     bound = _bound(n, 16 if name.startswith("closest") else 1, counts, bvh)
     out = {}
     ms = cuda_ms(lambda: out.update(k=k_fn(bvh, *args)), reps=5)
+    if not plain:
+        return dict(ms=ms, n=n, **bound)
     # the instanced plain versions take tens of seconds at this width: one
     # run, not warmed
     plain_ms = cuda_ms(lambda: out.update(p=p_fn(bvh, *args)), reps=1,
@@ -1059,6 +1203,8 @@ def phase_main():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     counts = {k: kernels.launches[k] for k in ("closest_bf8", "occluded_bf8")}
+    other = {k: v for k, v in kernels.launches.items()
+             if v and k not in counts}
     rays = r.rays_traced - rays0
     peak = torch.cuda.max_memory_allocated() / 2**20
     film = r.film_mean()
@@ -1067,6 +1213,7 @@ def phase_main():
     check(float(np.abs(film).max()) > 0.0, "film is all zero")
     for k, v in counts.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
+    check(not other, f"other kernels ran on the main path: {other}")
     log(f"[main] Heightfield n=224, 512x512, 5 bounces, 4 spp: "
         f"{dt / 3 * 1e3:.1f} ms per render step, {rays / dt / 1e6:.3f} "
         f"useful Mrays/s ({rays} rays in 3 steps), peak memory "
@@ -1093,8 +1240,13 @@ def phase_main():
     _profile(lambda: r.render(1),
              "static, one sample (5 bounces, 262144 lanes)")
 
+    with _Recorder() as rec:
+        r.render(1)
     times = _kernel_times(r, (("closest_bf8", "closest"),
-                              ("occluded_bf8", "occluded")), "main")
+                              ("occluded_bf8", "occluded")), "main", rec)
+    _ab_bounces(r.accel.bvh, rec, times, (("closest_bf8", "closest"),),
+                "main")
+    _log_build_of("main", "bf8w", "Bf8Walk")
     return counts, times, dict(ms_per_step=dt / 3 * 1e3,
                                mrays=rays / dt / 1e6, peak_mib=peak,
                                ms_per_step_blocks=blocks)
@@ -1484,11 +1636,11 @@ def phase_instanced():
             torch.cuda.synchronize()
             dt, counts, every, rays, peak = _counted_steps(r, bf8i)
             _check_film(r, f"{tag} {mode}")
+            # per step 4 spp x 5 bounces; per bounce a closest and a shadow
+            # trace, or on the alpha scene 9 closest (1 opaque + 4 alpha, 4
+            # alpha for the shadow rays) and 1 occlusion
+            per = (9, 1) if alpha else (1, 1)
             if mode == "auto":
-                # per step 4 spp x 5 bounces; per bounce a closest and a
-                # shadow trace, or on the alpha scene 9 closest (1 opaque +
-                # 4 alpha, 4 alpha for the shadow rays) and 1 occlusion
-                per = (9, 1) if alpha else (1, 1)
                 check(counts == {"closest_bf8i": 60 * per[0],
                                  "occluded_bf8i": 60 * per[1]}
                       and sum(every.values()) == sum(counts.values()),
@@ -1498,7 +1650,9 @@ def phase_instanced():
                        f"; opaque tree {_describe_instanced(sp.bvh_opaque)}; "
                        f"alpha tree {_describe_instanced(sp.bvh_alpha)}"))
             else:
-                check(every["closest_bf8i"] == every["occluded_bf8i"] == 0,
+                check(every["closest_bf8"] == 60 * per[0]
+                      and every["occluded_bf8"] == 60 * per[1]
+                      and sum(every.values()) == 60 * sum(per),
                       f"{tag} flatten: launches {every}")
             arms[mode] = dict(r=r, build_s=build_s, ms=dt / 3 * 1e3,
                               mrays=rays / dt / 1e6, peak=peak,
@@ -1541,14 +1695,32 @@ def phase_instanced():
             _ab_bounces(sh["r"].accel.bvh, rec, out["times"], pairs, tag)
             del rec             # its wavefronts would count in the next peak
             out["counts"] = sh["counts"]
+            out["flatten_k1"] = _ab_flatten_k1(fl["r"], f"{tag}-flatten")
         else:
             out["alpha_tree"] = _ab_alpha_tree(sh["r"], tag)
         out[tag] = {k: v for k, v in sh.items() if k != "r"}
+        if not alpha:
+            out[tag]["flatten_k1_ab"] = out["flatten_k1"]
         out[tag]["flatten_ms"] = fl["ms"]
         out[tag]["flatten_build_s"] = fl["build_s"]
         del arms, sh, fl, r
     return out["counts"], out["times"], {k: out[k] for k in (
         "inst", "inst-alpha", "alpha_tree")}
+
+
+def _ab_flatten_k1(r, tag):
+    """The warp K1 on the flattened 64 instances' bounce-0 and bounce-2
+    wavefronts: the A/B of its two designs, each against the bound of a
+    counted launch on the same rays (no plain run: the brute force over
+    387,202 triangles would take minutes)."""
+    with _Recorder() as rec:
+        r.render(1)
+    times = {("closest_bf8", b): _time_kernel("closest_bf8", r.accel.bvh,
+                                              rec.closest[b], plain=False)
+             for b in (0, 2)}
+    _ab_bounces(r.accel.bvh, rec, times, (("closest_bf8", "closest"),), tag)
+    return {b: {k: v for k, v in times[("closest_bf8", b)].items()
+                if k != "schedule"} for b in (0, 2)}
 
 
 def _ab_alpha_tree(r, tag):
@@ -1901,6 +2073,9 @@ def phase_archive():
                      f"static shadow rays of bounce {b}")
         times[("closest_v7", b)]["plain_ms"] = \
             times[("closest_v6", b)]["plain_ms"]      # the same function
+    # the warp closest_v6 against its per-ray design on the same wavefronts
+    _ab_bounces(v6, rec, times, (("closest_v6", "closest"),), "archive")
+    _log_build_of("archive", "bf8w", "V6Walk")
     del r, rec
 
     errs["closest_ordered"] = max(errs["closest_ordered"],
@@ -1932,7 +2107,8 @@ def phase_archive():
                           "bound_ops"):
                     tm[k] = by_kernel[kernel][k]
             if kernel in PER_RAY:
-                # K4's first design on the same rays, in the same call
+                # the kernel's first design (K1's for A2, K4's for A8/A9) on
+                # the same rays, in the same call
                 ray_fn = getattr(kernels, PER_RAY[kernel])
                 tm["per_ray_ms"] = min(
                     cuda_ms(lambda: ray_fn(tree, *args), reps=5)
@@ -1941,7 +2117,11 @@ def phase_archive():
                     f"{tm['ms']:.3f} ms, per-ray {tm['per_ray_ms']:.3f} ms")
             by_kernel.setdefault(kernel, tm)
         else:
-            tm = dict(times[(kernel, 0)])
+            tm = {k: v for k, v in times[(kernel, 0)].items()
+                  if k != "schedule"}
+            if "per_ray_ms" in times[(kernel, 2)]:
+                tm.update(per_ray_ms_bounce2=times[(kernel, 2)]["per_ray_ms"],
+                          ab_ms_bounce2=times[(kernel, 2)]["ab_ms"])
             what = "static bounce 0, BF8V6"
         tm["workload"] = what
         tm["err"] = max(tm.get("err", 0.0), errs.get(kernel, 0.0))
@@ -2120,7 +2300,8 @@ def phase_cross_device():
 
 def _pops_checks(tag, bvh8, rows, rng):
     """Phase 11's checks on every bounce's wavefront of a bench run: the
-    pops launch's hits equal the uncounted K1 launch's on every lane, its
+    pops launch's (K1's per-ray design) hits equal the warp K1's bit for
+    bit on every lane, its
     pops equal the bench's own launch's and, on a 16,384-lane sample, the
     plain walk's (whose hits equal the kernel's there); the pops sum to the
     node visits plus leaf retests of a counted launch; rounds[b] is the most
@@ -2138,10 +2319,10 @@ def _pops_checks(tag, bvh8, rows, rng):
         limit = torch.full((n,), float(tmax), device=o.device)
         hk = kernels.closest_bf8(bvh8, o, d, limit)
         pops = torch.empty(n, dtype=torch.int32, device=o.device)
-        hp = kernels.closest_bf8(bvh8, o, d, limit, pops=pops)
+        hp = kernels.closest_bf8_per_ray(bvh8, o, d, limit, pops=pops)
         counts = kernels.work_counts(bvh8)
-        kernels.closest_bf8(bvh8, o, d, limit, counts=counts)
-        same = all(torch.equal(a, b) for a, b in zip(hk, hp))
+        kernels.closest_bf8_per_ray(bvh8, o, d, limit, counts=counts)
+        same = all(torch.equal(a, b) for a, b in zip(_bits(hk), _bits(hp)))
         t_err = float((hk.t - hp.t).abs().max())
         totals = counts.totals.tolist()
         idx = torch.as_tensor(np.sort(rng.choice(n, min(N_PARITY, n),
@@ -2153,7 +2334,7 @@ def _pops_checks(tag, bvh8, rows, rng):
         walk_same = all(torch.equal(a, b[idx]) for a, b in zip(hw, hk))
         p_err = float((pw - pops[idx]).abs().max())
         log(f"[{tag}] bounce {row['bounce']}: {n} lanes, pops launch hits "
-            f"{'equal' if same else 'DIFFER from'} K1's (max|dt| "
+            f"{'equal' if same else 'DIFFER from'} the warp K1's (max|dt| "
             f"{t_err:.3e}); pops sum {int(pops.sum())} against node visits "
             f"+ leaf retests {totals[0] + totals[1]}; pops equal the plain "
             f"walk's on {idx.numel()} lanes: {p_err == 0} (walk hits equal "
@@ -2179,11 +2360,12 @@ def _pops_checks(tag, bvh8, rows, rng):
 
 
 def _time_pops(bvh8, row, what):
-    """The pops variant beside uncounted K1 on one wavefront (CUDA events,
-    the least of 3 blocks of 5 launches each), its plain version's time
-    (one run; its pops must equal the kernel's on every lane), and its
-    bound: K1's bound on these rays from a counted launch, plus the 4 bytes
-    per lane the variant writes."""
+    """The pops variant of K1's per-ray design beside the warp K1 and the
+    uncounted per-ray K1 on one wavefront (CUDA events, the least of 3
+    blocks of 5 launches each), its plain version's time (one run; its pops
+    must equal the kernel's on every lane), and its bound: K1's bound on
+    these rays from a counted launch, plus the 4 bytes per lane the variant
+    writes."""
     import torch
     from pt_torch.accel import kernels
     o, d, tmax = row["wavefront"]
@@ -2192,13 +2374,15 @@ def _time_pops(bvh8, row, what):
     limit = torch.full((n,), float(tmax), device=o.device)
     pops = torch.empty(n, dtype=torch.int32, device=o.device)
     counts = kernels.work_counts(bvh8)
-    kernels.closest_bf8(bvh8, o, d, limit, counts=counts)
+    kernels.closest_bf8_per_ray(bvh8, o, d, limit, counts=counts)
     k1 = _bound(n, 16, counts, bvh8)
     res = dict(n=n, k1_bound_ms=k1["bound_ms"],
                **_bound_of(k1["bound_bytes"] + 4 * n, k1["bound_ops"]))
-    res["ms"] = min(cuda_ms(lambda: kernels.closest_bf8(
+    res["ms"] = min(cuda_ms(lambda: kernels.closest_bf8_per_ray(
         bvh8, o, d, limit, pops=pops), reps=5) for _ in range(3))
     res["k1_ms"] = min(cuda_ms(lambda: kernels.closest_bf8(
+        bvh8, o, d, limit), reps=5) for _ in range(3))
+    res["per_ray_ms"] = min(cuda_ms(lambda: kernels.closest_bf8_per_ray(
         bvh8, o, d, limit), reps=5) for _ in range(3))
     out = {}
     res["plain_ms"] = cuda_ms(lambda: out.update(
@@ -2206,8 +2390,9 @@ def _time_pops(bvh8, row, what):
         warm=False)
     check(torch.equal(out["p"][1], pops),
           f"{what}: the plain walk's pops differ from the kernel's")
-    log(f"[budget] closest_bf8 (pops) on {what}: {n} lanes, {res['ms']:.3f} "
-        f"ms against uncounted K1 {res['k1_ms']:.3f} ms (plain walk "
+    log(f"[budget] closest_bf8_per_ray (pops) on {what}: {n} lanes, "
+        f"{res['ms']:.3f} ms against the warp K1 {res['k1_ms']:.3f} ms and "
+        f"the uncounted per-ray K1 {res['per_ray_ms']:.3f} ms (plain walk "
         f"{res['plain_ms']:.1f} ms, pops equal on every lane), bound "
         f"{res['bound_ms']:.5f} ms by {res['bound_by']} ({res['bound_bytes']}"
         f" bytes: K1's {k1['bound_bytes']} + 4 per lane; K1's bound "
@@ -2284,6 +2469,7 @@ def phase_budget():
                            err=errs[entry], workload=f"{what} bounce 0",
                            ms_bounce2=tm[2]["ms"],
                            k1_ms_bounce2=tm[2]["k1_ms"],
+                           per_ray_ms_bounce2=tm[2]["per_ray_ms"],
                            plain_ms_bounce2=tm[2]["plain_ms"],
                            bound_ms_bounce2=tm[2]["bound_ms"])
     log(f"[budget] phase 11 in {time.perf_counter() - t0:.1f} s (budget.main "
@@ -2346,21 +2532,25 @@ def main() -> None:
                      "bound_by": tm["bound_by"], "library_ms": None,
                      "kernel": kernel, "workload": tm["workload"],
                      "lanes": tm["n"]})
-        if "per_ray_ms" in tm:
-            rows[-1]["per_ray_ms"] = tm["per_ray_ms"]
+        rows[-1].update({k: tm[k] for k in ("per_ray_ms", "ab_ms",
+                                            "per_ray_ms_bounce2",
+                                            "ab_ms_bounce2") if k in tm})
     for entry, line in (("rounds_of", "benches/budget.py:56"),
                         ("done_rounds_of", "benches/drain_sim.py:40")):
         tm = b_rows[entry]
         rows.append({"name": entry, "route": "cuda",
-                     "source": SOURCES["closest_bf8"],
+                     "source": "pt_torch/accel/csrc/bf8_kernels.cu",
                      "replaces": f"{line} {entry}",
                      "launches": tm["launches"], "max_abs_err": tm["err"],
                      "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                      "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-                     "library_ms": None, "kernel": "closest_bf8 (pops)",
+                     "library_ms": None,
+                     "kernel": "closest_bf8_per_ray (pops)",
                      "workload": tm["workload"], "lanes": tm["n"],
                      "k1_ms": tm["k1_ms"], "ms_bounce2": tm["ms_bounce2"],
                      "k1_ms_bounce2": tm["k1_ms_bounce2"],
+                     "per_ray_ms": tm["per_ray_ms"],
+                     "per_ray_ms_bounce2": tm["per_ray_ms_bounce2"],
                      "plain_ms_bounce2": tm["plain_ms_bounce2"],
                      "bound_ms_bounce2": tm["bound_ms_bounce2"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; static main path "

@@ -138,8 +138,13 @@ def build_bf8_v6(pbvh: PacketBVH) -> Optional[BF8V6]:
     Returns None where `build_bf8` does, or where the unified table would be
     over pt's SMEM budget of 640 KiB (kept for parity)."""
     b8 = build_bf8(pbvh)
-    if b8 is None:
-        return None
+    return None if b8 is None else bf8_v6_of(b8)
+
+
+def bf8_v6_of(b8: BF8BVH) -> Optional[BF8V6]:
+    """The v6 structure of a BF8 tree, sharing its pages and child entries;
+    None where the unified table would be over pt's SMEM budget of 640
+    KiB."""
     c_lo = b8.c_lo.cpu().numpy()
     c_hi = b8.c_hi.cpu().numpy()
     l_lo = b8.l_lo.cpu().numpy()

@@ -30,7 +30,9 @@
 //
 // Bound: the traversal is bound by dependent global loads of node and page
 // rows (each pop waits on the loads of the node it popped), not by FLOPs.
-// This first design does nothing about that yet.
+// The per-ray kernels (bf8_kernels.cu) test each leaf on one lane;
+// bf8_warp_kernels.cu runs the same walk per lane and tests each pending
+// leaf with the whole warp.
 #pragma once
 
 #include "rt_common.cuh"
@@ -90,6 +92,36 @@ BF8_HD void count_tri(Counts* c, const Tree& tree, int32_t lid, int j) {
     }
 }
 
+// Push the children of wide node `ent` whose boxes the ray hits before
+// `t_limit`, far-first (an insertion sort on max(tnear, 0), equal keys in
+// child order), so that the nearest pops first. bf8i's walks and the warp
+// kernels' walks (bf8_warp_kernels.cu, bf8i_warp_kernels.cu) push through
+// it; closest() below writes the same loop out.
+BF8_HD void push_near_first(const Tree& tree, int32_t ent, const Ray& r,
+                            float t_limit, int32_t* stack, int* sp) {
+    float keys[8];
+    int32_t ents[8];
+    int cnt = 0;
+    for (int c = 0; c < 8; ++c) {
+        int k = ent * 8 + c;
+        int32_t e = tree.c_ent[k];
+        if (e == -1) continue;
+        float tn;
+        if (!slab(tree.c_lo + 3 * k, tree.c_hi + 3 * k, r, t_limit, &tn))
+            continue;
+        float key = fmaxf(tn, 0.0f);
+        int p = cnt++;
+        while (p > 0 && keys[p - 1] > key) {
+            keys[p] = keys[p - 1];
+            ents[p] = ents[p - 1];
+            --p;
+        }
+        keys[p] = key;
+        ents[p] = e;
+    }
+    for (int q = cnt - 1; q >= 0; --q) stack[(*sp)++] = ents[q];
+}
+
 // Closest hit of one ray. Children that pass the slab test are pushed
 // far-first (insertion sort on max(tnear, 0)), so the nearest pops first.
 // With kCount, `counts` (then never null) accumulates the work of this
@@ -140,6 +172,9 @@ BF8_HD void closest(const Tree& tree, const Ray& r, float tmin, float tmax,
                 }
             }
         } else {
+            // push_near_first's loop, written out: through the helper this
+            // kernel compiled to other machine code and ran 5-13% slower
+            // (pt_torch/benches/k1_per_ray.py on an H100)
             count_node<kCount>(counts, ent);
             float keys[8];
             int32_t ents[8];

@@ -46,6 +46,7 @@ namespace bf8i {
 
 using bf8::kLeafBit;
 using bf8::kStackDepth;
+using bf8::push_near_first;
 using rt::Ray;
 using rt::accept;
 using rt::float_bits;
@@ -89,34 +90,6 @@ BF8_HD Ray to_object(const float* seg_inv, int32_t seg, const Ray& r) {
     q.dz = (a[6] * r.dx + a[7] * r.dy) + a[8] * r.dz;
     q.ix = q.iy = q.iz = 0.0f;
     return q;
-}
-
-// Push the children of wide node `ent` whose boxes the ray hits before
-// `t_limit`, far-first (an insertion sort on max(tnear, 0), equal keys in
-// child order), so that the nearest pops first.
-BF8_HD void push_near_first(const bf8::Tree& top, int32_t ent, const Ray& r,
-                            float t_limit, int32_t* stack, int* sp) {
-    float keys[8];
-    int32_t ents[8];
-    int cnt = 0;
-    for (int c = 0; c < 8; ++c) {
-        int k = ent * 8 + c;
-        int32_t e = top.c_ent[k];
-        if (e == -1) continue;
-        float tn;
-        if (!slab(top.c_lo + 3 * k, top.c_hi + 3 * k, r, t_limit, &tn))
-            continue;
-        float key = fmaxf(tn, 0.0f);
-        int p = cnt++;
-        while (p > 0 && keys[p - 1] > key) {
-            keys[p] = keys[p - 1];
-            ents[p] = ents[p - 1];
-            --p;
-        }
-        keys[p] = key;
-        ents[p] = e;
-    }
-    for (int q = cnt - 1; q >= 0; --q) stack[(*sp)++] = ents[q];
 }
 
 // Push the children of wide node `ent` whose boxes the ray hits before

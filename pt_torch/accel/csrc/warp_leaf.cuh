@@ -1,6 +1,7 @@
 // Pieces shared by the warp-cooperative traversal kernels
 // (v4_warp_kernels.cu: K3/K4 over a PacketBVH; bf8i_warp_kernels.cu: K5/K6
-// over an instanced BF8 tree). Each lane walks its own ray; when every live
+// over an instanced BF8 tree; bf8_warp_kernels.cu: K1 over a BF8 tree and
+// closest_v6 over a BF8V6). Each lane walks its own ray; when every live
 // lane of the warp holds a pending page or is done, the warp groups its
 // lanes by page and tests each page together. What they share:
 //   * the staging: a page is staged into shared memory in chunks of 32
@@ -14,6 +15,8 @@
 //     rt::woop's arithmetic in its order);
 //   * the key: closest reduces an order-preserving key of t (`t_key`, -0.0
 //     folded into +0.0) over the lanes, then the id at that key;
+//   * the group loop (`test_groups`) of the BF8 warp kernels (K1,
+//     closest_v6, K5/K6); K3/K4 keep their own, which their A/B measured;
 //   * the pages' conditions (`stageable`): block % 32 == 0 (every
 //     builder's page-group granularity), page_cols % 4 == 0 and a 16-byte
 //     aligned base.
@@ -115,6 +118,73 @@ __device__ __forceinline__ unsigned t_key(float t) {
     unsigned b = __float_as_uint(t);
     if ((b << 1) == 0u) b = 0u;
     return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Test every pending page of the warp, group by group. `page` is this
+// lane's pending page index, -1 for none; at least one lane of the warp
+// has one. `bufs` is the warp's kStages x kChunkFloats of shared memory.
+// For every staged chunk, `test(tr, chunk, act)` runs on all lanes with
+// triangle `lane` of the chunk in `tr`, the staged chunk (kRows x 32 f32;
+// `load_tri(chunk, c)` reads column c) and the lanes of the group still to
+// be tested in `act`; it may clear lanes from `act` (an occluded ray), and
+// a group with none left stops staging (a chunk already in flight is then
+// consumed untested). A test that reads `chunk` itself ends with a
+// __syncwarp(): the stage after next overwrites it.
+template <class Test>
+__device__ __forceinline__ void test_groups(float* bufs, const float* pages,
+                                            size_t page_floats, int cols,
+                                            int block, int32_t page,
+                                            Test&& test) {
+    const int lane = threadIdx.x & (kLanes - 1);
+    const unsigned below = (1u << lane) - 1u;
+    const int n_chunks = block / kLanes;
+    const unsigned group = __match_any_sync(kFull, page);
+    unsigned leaders = __ballot_sync(kFull,
+                                     page >= 0 && (group & below) == 0u);
+    int L = __ffs(leaders) - 1;
+    leaders &= leaders - 1u;
+    int g_page = __shfl_sync(kFull, page, L);
+    unsigned g_act = __shfl_sync(kFull, group, L);   // rays to test
+    int g_c = 0;
+    int buf = 0;
+    stage_chunk(bufs, pages + (size_t)g_page * page_floats, cols, block, 0,
+                lane);
+    cp_async_commit();
+    while (true) {
+        // the unit after this one: the page's next chunk while rays of the
+        // group are left, else the next group's first chunk
+        int n_page = g_page, n_c = g_c + 1;
+        unsigned n_act = g_act;
+        if (n_c >= n_chunks || g_act == 0u) {
+            n_c = 0;
+            if (leaders != 0u) {
+                L = __ffs(leaders) - 1;
+                leaders &= leaders - 1u;
+                n_page = __shfl_sync(kFull, page, L);
+                n_act = __shfl_sync(kFull, group, L);
+            } else {
+                n_page = -1;
+            }
+        }
+        if (n_page >= 0)
+            stage_chunk(bufs + (buf ^ 1) * kChunkFloats,
+                        pages + (size_t)n_page * page_floats, cols, block,
+                        n_c, lane);
+        cp_async_commit();
+        cp_async_wait_one();
+        __syncwarp();
+        if (g_act != 0u) {
+            const float* chunk = bufs + buf * kChunkFloats;
+            const Tri tr = load_tri(chunk, lane);
+            __syncwarp();    // read before the next stage overwrites
+            test(tr, chunk, g_act);
+        }
+        if (n_page < 0) break;
+        if (n_c == 0) g_act = n_act;   // a new group
+        g_page = n_page;
+        g_c = n_c;
+        buf ^= 1;
+    }
 }
 
 // the staging layout's conditions on the pages (see the note above)

@@ -12,24 +12,27 @@ packet_closest_sub and packet_closest_v3 (one near-child-first walk, three
 TPU schedules of it), `closest_v6` packet_closest_v6, `closest_v6k2`
 packet_closest_v6k2, `closest_v7` packet_closest_v7 and `occluded_v6`
 packet_occluded_v6 (pt_torch/accel/archive.py binds each of pt's entry
-points). The kernels are CUDA C++ for sm_90a (csrc/bf8_kernels.cu over
-csrc/bf8_traverse.cuh, csrc/v4_warp_kernels.cu and csrc/v4_kernels.cu
-over csrc/v4_traverse.cuh, csrc/bf8i_warp_kernels.cu and
-csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh (the two warp sources
-sharing their leaf test in csrc/warp_leaf.cuh), csrc/ordered_kernels.cu over
-csrc/ordered_traverse.cuh, csrc/v6_kernels.cu over csrc/v6_traverse.cuh,
-the last two sharing their leaf tests in csrc/page_leaf.cuh, all over
-csrc/rt_common.cuh), built with nvcc at first use into the port's
-git-ignored build directory, one library per source, and bound through
-ctypes. They are bound by dependent global loads of node and page rows, not
-by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6, the archive
-walks) or the preorder skip links (K3/K4). K3/K4 and K5/K6 are redesigned
-for the card: each ray keeps its walk (K5/K6: in its own instance space),
-and the warp tests each pending leaf (K5/K6: each pending shared page)
-together, the page staged into shared memory once per group of lanes
-(csrc/v4_warp_kernels.cu, csrc/bf8i_warp_kernels.cu). Their first design,
-one thread per ray testing each leaf alone, stays as the baseline arm of
-the A/B and as their counted variant, reached only by name:
+points). The kernels are CUDA C++ for sm_90a (csrc/bf8_warp_kernels.cu and
+csrc/bf8_kernels.cu over csrc/bf8_traverse.cuh, csrc/v4_warp_kernels.cu and
+csrc/v4_kernels.cu over csrc/v4_traverse.cuh, csrc/bf8i_warp_kernels.cu
+and csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh (the warp sources
+sharing their leaf test in csrc/warp_leaf.cuh), csrc/ordered_kernels.cu
+over csrc/ordered_traverse.cuh, csrc/v6_kernels.cu (and, for closest_v6,
+csrc/bf8_warp_kernels.cu) over csrc/v6_traverse.cuh, the last two sharing
+their leaf tests in csrc/page_leaf.cuh, all over csrc/rt_common.cuh),
+built with nvcc at first use into the port's git-ignored build directory,
+one library per source, and bound through ctypes. They are bound by
+dependent global loads of node and page rows, not by FLOPs: one thread per
+ray walks its own stack (K1/K2, K5/K6, the archive walks) or the preorder
+skip links (K3/K4). K1, closest_v6, K3/K4 and K5/K6 are redesigned for the
+card: each ray keeps its walk (K5/K6: in its own instance space), and the
+warp tests each pending leaf (K5/K6: each pending shared page) together,
+the page staged into shared memory once per group of lanes
+(csrc/bf8_warp_kernels.cu, csrc/v4_warp_kernels.cu,
+csrc/bf8i_warp_kernels.cu). Their first design, one thread per ray testing
+each leaf alone, stays as the baseline arm of the A/B and as their counted
+variant, reached only by name: `closest_bf8_per_ray` (also K1's pops
+variant, csrc/bf8_kernels.cu), `closest_v6_per_ray` (csrc/v6_kernels.cu),
 `closest_v4_per_ray`, `occluded_v4_per_ray` (csrc/v4_kernels.cu),
 `closest_bf8i_per_ray`, `occluded_bf8i_per_ray` (csrc/bf8i_kernels.cu).
 
@@ -42,26 +45,28 @@ all rays tested against all of them in chunks
 (for K5/K6 segment by segment, the rays mapped into the segment's object
 space first), with the kernel's Woop arithmetic and tie rule. The trees are
 conservative, so it computes the same function as the traversal. The warp
-kernels' schedules have their own plain versions (`closest_v4_warp_plain`,
-`occluded_v4_warp_plain`, `closest_bf8i_warp_plain`,
-`occluded_bf8i_warp_plain`): the per-ray walk of every lane at once, paused
-at each leaf, grouped by (warp, leaf) or (warp, page) and reduced with the
-kernels' key; their hits are the per-ray walk's bit for bit, and they count
-the groups.
+kernels' schedules have their own plain versions (`closest_bf8_warp_plain`,
+`closest_v6_warp_plain`, `closest_v4_warp_plain`, `occluded_v4_warp_plain`,
+`closest_bf8i_warp_plain`, `occluded_bf8i_warp_plain`): the per-ray walk of
+every lane at once, paused at each leaf, grouped by (warp, leaf) or (warp,
+page) and reduced with the kernels' key; their hits are the per-ray walk's
+bit for bit, and they count the groups.
 
-K1 has a pops variant (`closest_bf8(..., pops=...)`): each lane writes the
-iterations of its walk loop, one per pop of a wide node or a leaf. It is the
-port's counterpart of the diagnostic rows that benches/budget.py:rounds_of
-and benches/drain_sim.py:done_rounds_of read from pt's K1 (lockstep rounds
-per program, per sub-packet), reduced per warp by pt_torch/benches/. Its
-plain version is `closest_bf8_walk_plain`, a vectorised stack walk over all
-lanes that repeats the kernel step by step.
+K1's per-ray design has a pops variant (`closest_bf8_per_ray(...,
+pops=...)`): each lane writes the iterations of its walk loop, one per pop
+of a wide node or a leaf, and the hits are K1's. It is the port's
+counterpart of the diagnostic rows that benches/budget.py:rounds_of and
+benches/drain_sim.py:done_rounds_of read from pt's K1 (lockstep rounds per
+program, per sub-packet), reduced per warp by pt_torch/benches/: the
+lockstep of the per-ray design. Its plain version is
+`closest_bf8_walk_plain`, a vectorised stack walk over all lanes that
+repeats the kernel step by step.
 
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises. Each
 launch adds one to `launches[name]` (a pops launch to
-`launches["closest_bf8_pops"]`, a per-ray K3-K6 launch to
-`launches["closest_v4_per_ray"]`, `["closest_bf8i_per_ray"]` and so on).
+`launches["closest_bf8_pops"]`, a per-ray launch to
+`launches["closest_bf8_per_ray"]`, `["closest_v4_per_ray"]` and so on).
 """
 
 from __future__ import annotations
@@ -88,6 +93,10 @@ _COMMON = CSRC / "rt_common.cuh"
 _CUDA_LIBS = {
     "bf8": (BUILD_DIR / "libpt_bf8_sm90a.so",
             (CSRC / "bf8_kernels.cu", CSRC / "bf8_traverse.cuh", _COMMON)),
+    "bf8w": (BUILD_DIR / "libpt_bf8w_sm90a.so",
+             (CSRC / "bf8_warp_kernels.cu", CSRC / "warp_leaf.cuh",
+              CSRC / "v6_traverse.cuh", CSRC / "bf8_traverse.cuh",
+              CSRC / "page_leaf.cuh", _COMMON)),
     "v4": (BUILD_DIR / "libpt_v4_sm90a.so",
            (CSRC / "v4_kernels.cu", CSRC / "v4_traverse.cuh", _COMMON)),
     "v4w": (BUILD_DIR / "libpt_v4w_sm90a.so",
@@ -111,12 +120,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # launch counts per kernel: each wrapper adds one where it launches
-launches = {"closest_bf8": 0, "closest_bf8_pops": 0, "occluded_bf8": 0,
-            "closest_v4": 0, "occluded_v4": 0, "closest_v4_per_ray": 0,
+launches = {"closest_bf8": 0, "closest_bf8_per_ray": 0,
+            "closest_bf8_pops": 0, "occluded_bf8": 0, "closest_v4": 0,
+            "occluded_v4": 0, "closest_v4_per_ray": 0,
             "occluded_v4_per_ray": 0, "closest_bf8i": 0,
             "occluded_bf8i": 0, "closest_bf8i_per_ray": 0,
             "occluded_bf8i_per_ray": 0, "closest_ordered": 0, "closest_v6": 0,
-            "closest_v6k2": 0, "closest_v7": 0, "occluded_v6": 0}
+            "closest_v6_per_ray": 0, "closest_v6k2": 0, "closest_v7": 0,
+            "occluded_v6": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
 # v6_traverse.cuh); the wrappers raise on a tree that could overflow them
 ORDERED_STACK = 64
@@ -215,6 +226,17 @@ def _lib(name: str) -> ctypes.CDLL:
                 occluded = getattr(lib, _occluded_symbol(name))
                 occluded.restype = i
                 occluded.argtypes = tree + rays + [i, i, p, p, p, p, p, p]
+            elif name == "bf8w":        # K1 and closest_v6: closest only
+                lib.pt_bf8w_closest.restype = i
+                lib.pt_bf8w_closest.argtypes = ([p] * 6 + [i, i] + rays
+                                                + [i] + [p] * 5)
+                lib.pt_bf8w_closest_v6.restype = i
+                lib.pt_bf8w_closest_v6.argtypes = ([p] * 5 + [i] * 3 + rays
+                                                   + [i] + [p] * 5)
+                lib.pt_bf8w_blocks_per_sm.restype = i
+                lib.pt_bf8w_blocks_per_sm.argtypes = [i]
+                lib.pt_bf8w_smem_per_block.restype = i
+                lib.pt_bf8w_smem_per_block.argtypes = []
             elif name in _WARP_LIBS:    # no counted variant
                 # v4w: five pointers, three ints; bf8iw: nine pointers, two
                 # ints, and an int flag (raw_ids, opaque_only)
@@ -248,10 +270,11 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 # the per-ray K3-K6 (v4_kernels.cu, bf8i_kernels.cu) are exported under
-# this suffix
+# this suffix (K1's and closest_v6's per-ray designs keep their names)
 _PER_RAY = {"v4": "_per_ray", "bf8i": "_per_ray"}
-# the warp-cooperative K3/K4 and K5/K6: no counted variant
-_WARP_LIBS = ("v4w", "bf8iw")
+# the warp-cooperative K3/K4, K5/K6, and K1 with closest_v6: no counted
+# variant
+_WARP_LIBS = ("v4w", "bf8iw", "bf8w")
 
 
 def _closest_symbol(lib_name: str) -> str:
@@ -472,12 +495,13 @@ def _raise_on(lib, code: int, name: str) -> None:
 
 def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
                     tmax, tmin: float, n: int,
-                    counts=None, flags=(), tail=()) -> Hit:
+                    counts=None, flags=(), tail=(), symbol=None) -> Hit:
     """Allocate the outputs and launch closest kernel `name` on the rays'
     stream; adds one to its launch count. `flags`: the kernel's int
     arguments between tmin and n; `counts`: the counted variant's (not for
     a warp library, which has none); `tail`: its pointers between the
-    counts' and the stream."""
+    counts' and the stream; `symbol`: the launcher, where it is not the
+    library's closest one."""
     t = torch.empty(n, dtype=torch.float32, device=origins.device)
     tri = torch.empty(n, dtype=torch.int32, device=origins.device)
     u = torch.empty_like(t)
@@ -487,7 +511,7 @@ def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
     lib = _lib(lib_name)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
     counted = () if lib_name in _WARP_LIBS else _counts_ptrs(counts, bvh)
-    code = getattr(lib, _closest_symbol(lib_name))(
+    code = getattr(lib, symbol or _closest_symbol(lib_name))(
         *tree_args, origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(),
         float(tmin), *flags, n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
         v.data_ptr(), *counted, *tail, stream)
@@ -515,16 +539,37 @@ def _launch_occluded(name: str, lib_name: str, tree_args, bvh, origins,
 
 
 def closest_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
-                tmax: torch.Tensor, tmin: float = 1e-5,
-                counts: Optional[WorkCounts] = None,
-                pops: Optional[torch.Tensor] = None) -> Hit:
+                tmax: torch.Tensor, tmin: float = 1e-5) -> Hit:
     """Closest hit of N rays (origins/dirs (N,3) f32, tmax (N,) f32) over a
-    BF8BVH. Returns Hit(t, tri, u, v); a miss gives t = tmax, tri = -1.
-    `counts`, from `work_counts(bvh8)` on the card, selects the counted
-    kernel variant, which adds the launch's work there. `pops`, a (N,)
-    int32 tensor on the rays' device, selects the pops variant: each lane
-    writes the iterations of its walk loop there, and the hits stay those
-    of the plain launch (on the CPU `closest_bf8_walk_plain` fills it)."""
+    BF8BVH. Returns Hit(t, tri, u, v); a miss gives t = tmax, tri = -1. On
+    the card it launches the warp kernel (bf8_warp_kernels.cu): each ray
+    walks as the per-ray kernel does, and the warp tests each pending leaf
+    together. Its counted and pops variants are the per-ray ones
+    (`closest_bf8_per_ray(..., counts=, pops=)`), since the walk is the
+    same."""
+    n = _check(bvh8, origins, dirs, tmax, "tmax")
+    if origins.device.type == "cpu":
+        return closest_bf8_plain(bvh8, origins, dirs, tmax, tmin)
+    _check_warp_pages(bvh8)
+    return _launch_closest("closest_bf8", "bf8w", _tree_args(bvh8), bvh8,
+                           origins, dirs, tmax, tmin, n)
+
+
+def closest_bf8_per_ray(bvh8: BF8BVH, origins: torch.Tensor,
+                        dirs: torch.Tensor, tmax: torch.Tensor,
+                        tmin: float = 1e-5,
+                        counts: Optional[WorkCounts] = None,
+                        pops: Optional[torch.Tensor] = None) -> Hit:
+    """K1's first design, one thread per ray testing each leaf alone
+    (bf8_kernels.cu): the baseline arm of the A/B against closest_bf8, its
+    counted variant and its pops variant. `counts`, from
+    `work_counts(bvh8)` on the card, selects the counted variant, which
+    adds the launch's work there. `pops`, a (N,) int32 tensor on the rays'
+    device, selects the pops variant (launch count
+    `launches["closest_bf8_pops"]`): each lane writes the iterations of its
+    walk loop there, and the hits stay closest_bf8's (on the CPU
+    `closest_bf8_walk_plain` fills it). Nothing on the render path calls
+    it."""
     n = _check(bvh8, origins, dirs, tmax, "tmax")
     if pops is not None:
         _check_pops(pops, n, origins.device)
@@ -534,7 +579,7 @@ def closest_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
         hit, walked = closest_bf8_walk_plain(bvh8, origins, dirs, tmax, tmin)
         pops.copy_(walked)
         return hit
-    return _launch_closest("closest_bf8" if pops is None
+    return _launch_closest("closest_bf8_per_ray" if pops is None
                            else "closest_bf8_pops", "bf8", _tree_args(bvh8),
                            bvh8, origins, dirs, tmax, tmin, n, counts,
                            tail=(None if pops is None else pops.data_ptr(),))
@@ -559,7 +604,8 @@ def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
 def _check_warp_pages(bvh) -> None:
     """The warp kernels stage a page in chunks of 32 columns by 16-byte
     copies: block % 32 == 0 (every builder's page-group granularity),
-    page width % 4 == 0 and a 16-byte aligned base."""
+    page width % 4 == 0 and a 16-byte aligned base. A tree that fails
+    raises: no warp wrapper falls back to the per-ray kernel."""
     if (bvh.block % 32 or bvh.pages.shape[-1] % 4
             or bvh.pages.data_ptr() % 16):
         raise ValueError(f"{type(bvh).__name__}: block {bvh.block} and page "
@@ -597,20 +643,28 @@ def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
                             origins, dirs, dist, tmin, n)
 
 
+# the kernels of each warp library, in its blocks_per_sm argument's order
+_WARP_KERNELS = {"v4w": ("closest", "occluded"),
+                 "bf8iw": ("closest", "occluded"),
+                 "bf8w": ("closest_bf8", "closest_v6")}
+
+
 def warp_occupancy(lib_name: str, device) -> Dict[str, int]:
-    """A warp library's ("v4w": K3/K4, "bf8iw": K5/K6) resident blocks per
-    SM (closest, occluded) and static shared memory per block, as the built
-    library reports them."""
+    """A warp library's ("v4w": K3/K4, "bf8iw": K5/K6, "bf8w": K1 and
+    closest_v6) resident blocks per SM of each kernel
+    (`<kernel>_blocks_per_sm`) and static shared memory per block, as the
+    built library reports them."""
     if lib_name not in _WARP_LIBS:
         raise ValueError(f"{lib_name!r} is not a warp library: {_WARP_LIBS}")
     if torch.device(device).type != "cuda":
         raise ValueError("the warp kernels' occupancy needs the card")
     lib = _lib(lib_name)
     per_sm = getattr(lib, f"pt_{lib_name}_blocks_per_sm")
-    return {"closest_blocks_per_sm": int(per_sm(0)),
-            "occluded_blocks_per_sm": int(per_sm(1)),
-            "smem_bytes_per_block":
-                int(getattr(lib, f"pt_{lib_name}_smem_per_block")())}
+    out = {f"{k}_blocks_per_sm": int(per_sm(j))
+           for j, k in enumerate(_WARP_KERNELS[lib_name])}
+    out["smem_bytes_per_block"] = int(
+        getattr(lib, f"pt_{lib_name}_smem_per_block")())
+    return out
 
 
 def closest_v4_per_ray(pbvh: PacketBVH, origins: torch.Tensor,
@@ -738,16 +792,35 @@ def _check_v6(bvh6, origins, dirs, limit, what: str, stack: int) -> int:
 
 
 def closest_v6(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
-               tmax: torch.Tensor, tmin: float = 1e-5,
-               counts: Optional[WorkCounts] = None) -> Hit:
+               tmax: torch.Tensor, tmin: float = 1e-5) -> Hit:
     """Closest hit of N rays over a BF8V6, children pushed in their static
     per-octant order, one pop per iteration (stack 7*D8 + 1). Arguments and
-    result as closest_bf8."""
+    result as closest_bf8. On the card it launches the warp kernel
+    (bf8_warp_kernels.cu, `pt_bf8w_closest_v6`): each ray walks as the
+    per-ray kernel does, and the warp tests each pending leaf together. Its
+    counted variant is the per-ray one (`closest_v6_per_ray(...,
+    counts=)`)."""
     n = _check_v6(bvh6, origins, dirs, tmax, "tmax", bvh6.stack_bound)
     if origins.device.type == "cpu":
         return closest_v6_plain(bvh6, origins, dirs, tmax, tmin)
-    return _launch_closest("closest_v6", "v6", _tree_args_v6(bvh6), bvh6,
-                           origins, dirs, tmax, tmin, n, counts,
+    _check_warp_pages(bvh6)
+    return _launch_closest("closest_v6", "bf8w", _tree_args_v6(bvh6), bvh6,
+                           origins, dirs, tmax, tmin, n,
+                           symbol="pt_bf8w_closest_v6")
+
+
+def closest_v6_per_ray(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+                       tmax: torch.Tensor, tmin: float = 1e-5,
+                       counts: Optional[WorkCounts] = None) -> Hit:
+    """closest_v6's first design, one thread per ray testing each leaf
+    alone (v6_kernels.cu): the baseline arm of the A/B against closest_v6,
+    and its counted variant (`counts` as for closest_bf8_per_ray). Nothing
+    on the render path calls it."""
+    n = _check_v6(bvh6, origins, dirs, tmax, "tmax", bvh6.stack_bound)
+    if origins.device.type == "cpu":
+        return closest_v6_plain(bvh6, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v6_per_ray", "v6", _tree_args_v6(bvh6),
+                           bvh6, origins, dirs, tmax, tmin, n, counts,
                            flags=(0, 1))
 
 
@@ -911,10 +984,32 @@ def _leaf_columns(bvh8):
     return cache
 
 
+class _WalkTree(NamedTuple):
+    """The arrays a BF8 stack walk reads, of a BF8BVH (or BF8Instanced) or
+    of a BF8V6: child bounds and entries, leaf bounds (a BF8V6's leaf rows
+    of its unified table) and, for a BF8V6, the packed push orders."""
+    c_lo: torch.Tensor
+    c_hi: torch.Tensor
+    c_ent: torch.Tensor
+    l_lo: torch.Tensor
+    l_hi: torch.Tensor
+    c_order: Optional[torch.Tensor]
+
+
+def _walk_tree(bvh) -> _WalkTree:
+    if getattr(bvh, "c_order", None) is None:
+        return _WalkTree(bvh.c_lo, bvh.c_hi, bvh.c_ent, bvh.l_lo, bvh.l_hi,
+                         None)
+    rows = bvh.n8 * 8
+    return _WalkTree(bvh.u_lo[:rows], bvh.u_hi[:rows], bvh.c_ent,
+                     bvh.u_lo[rows:], bvh.u_hi[rows:], bvh.c_order)
+
+
 class _Stacks:
     """The per-lane stacks of the BF8 walks (bf8_traverse.cuh,
-    bf8i_traverse.cuh), every lane at once: a BF8_STACK-deep int32 stack per
-    lane, holding the root first; `high` is each lane's highest height."""
+    bf8i_traverse.cuh, v6_traverse.cuh), every lane at once: a
+    BF8_STACK-deep int32 stack per lane, holding the root first; `high` is
+    each lane's highest height."""
 
     def __init__(self, n: int, device):
         self.stack = torch.zeros((n, BF8_STACK), dtype=torch.int32,
@@ -928,13 +1023,15 @@ class _Stacks:
         return self.stack[lanes, self.sp[lanes]].to(torch.int64)
 
     def push_children(self, tree, lanes, ent, origins, inv, limit,
-                      near_first: bool):
+                      order: str, dirs=None):
         """Push the children of wide node ent[i] whose boxes lane lanes[i]'s
-        ray hits before limit[i]: far-first, so that the nearest ends on top
-        (bf8i::push_near_first; a stable sort on max(tnear, 0) keeps equal
-        keys in child order, as the kernel's insertion sort does), or in
-        child order, the last on top (push_hit). Raises where a stack would
-        pass BF8_STACK entries."""
+        ray hits before limit[i], by `order`: "near", far-first, so that the
+        nearest ends on top (bf8::push_near_first; a stable sort on
+        max(tnear, 0) keeps equal keys in child order, as the kernel's
+        insertion sort does); "child", in child order, the last on top
+        (bf8i::push_hit); "octant", in the node's static order for the ray's
+        octant (v6::push_children: `tree.c_order`, the octant from `dirs`).
+        Raises where a stack would pass BF8_STACK entries."""
         slot = torch.arange(8, device=lanes.device)
         k = ent[:, None] * 8 + slot                               # (A, 8)
         e = tree.c_ent[k]
@@ -946,10 +1043,17 @@ class _Stacks:
         top = sp + cnt
         if int(top.max()) > BF8_STACK:
             raise ValueError(f"a lane's stack passes {BF8_STACK} entries")
-        if near_first:
+        if order == "near":
             key = torch.where(ok, torch.clamp(tn, min=0.0), float("inf"))
             src = torch.clamp(cnt[:, None] - 1 - slot, min=0)
         else:
+            if order == "octant":                 # v6::octant, then c_order
+                d = dirs[lanes]
+                oct_ = ((d[:, 0] < 0).long() * 4 + (d[:, 1] < 0).long() * 2
+                        + (d[:, 2] < 0).long())
+                code = tree.c_order[ent * 8 + oct_].to(torch.int64)
+                perm = (code[:, None] >> (3 * slot)) & 7
+                e, ok = e.gather(1, perm), ok.gather(1, perm)
             key = torch.where(ok, 0.0, 1.0)
             src = slot.expand(lanes.numel(), -1)
         seq = e.gather(1, torch.sort(key, dim=1, stable=True).indices)
@@ -1021,7 +1125,7 @@ def closest_bf8_walk_plain(bvh8: BF8BVH, origins, dirs, tmax,
         nl = lanes[~leaf]                       # wide-node pops: push children
         if nl.numel():
             st.push_children(bvh8, nl, ent[~leaf], origins, inv, best_t[nl],
-                             near_first=True)
+                             "near")
     if peak is not None:
         peak.copy_(st.high)
     hit = best_id >= 0
@@ -1068,23 +1172,29 @@ _NO_KEY = 0xFFFFFFFF
 
 
 class WarpSchedule(NamedTuple):
-    """What the warp kernels (v4_warp_kernels.cu, bf8i_warp_kernels.cu) do
-    on a launch's rays, as their plain schedules (`closest_v4_warp_plain`,
-    `closest_bf8i_warp_plain` and the occlusion twins) count it. A warp is
-    32 consecutive lanes; in a round every lane of a warp that is not done
-    holds a pending leaf. Per launch: `node_visits` (slab tests of a binary
-    node or wide-node visits, as the per-ray walk's counted variant counts
-    them), `warps` with any leaf round, `rounds` (summed over warps),
-    `groups` (distinct pages of a warp's round, K3/K4 a leaf's own page,
-    K5/K6 a shared page: one page read each), `leaves` (distinct leaves in
-    those groups; K3/K4: `groups`), `leaf_visits` ((lane, leaf) pairs, the
-    sum of the lanes in each group), `chunk_loads` (32-triangle chunks
-    staged; an occlusion group stops after its last member is occluded,
-    with the chunk already in flight), `ray_chunk_tests` (tests of one ray
-    against one chunk), `warp_tests` (the warp's steps through them: per
-    chunk, one per ray; K5/K6 take, where fewer, one per column that can
-    accept, each ray's own lane testing it) and `lanes_per_group` (groups
-    of 1, 2-3, 4-7, 8-15, 16-31 and 32 lanes)."""
+    """What the warp kernels (v4_warp_kernels.cu, bf8i_warp_kernels.cu,
+    bf8_warp_kernels.cu) do on a launch's rays, as their plain schedules
+    (`closest_v4_warp_plain`, `closest_bf8i_warp_plain`,
+    `closest_bf8_warp_plain`, `closest_v6_warp_plain` and the occlusion
+    twins) count it. A warp is 32 consecutive lanes; in a round every lane
+    of a warp that is not done holds a pending leaf. Per launch:
+    `node_visits` (slab tests of a binary node or wide-node visits, as the
+    per-ray walk's counted variant counts them), `warps` with any leaf
+    round, `rounds` (summed over warps), `groups` (distinct pages of a
+    warp's round, K1/K3/K4/closest_v6 a leaf's own page, K5/K6 a shared
+    page: one page read each), `leaves` (distinct leaves in those groups;
+    but for K5/K6, `groups`), `leaf_visits` ((lane, leaf) pairs, the sum of
+    the lanes in each group), `chunk_loads` (32-triangle chunks staged; an
+    occlusion group stops after its last member is occluded, with the
+    chunk already in flight), `ray_chunk_tests` (tests of one ray against
+    one chunk), `warp_tests` (the warp's steps through them: per chunk, one
+    per ray; the BF8 kernels take, where fewer, one per column that can
+    accept, each ray's own lane testing it), `lanes_per_group` (groups of
+    1, 2-3, 4-7, 8-15, 16-31 and 32 lanes), and, as the per-ray walk's
+    counted variant counts them, `leaf_boxes` (popped leaves whose box a
+    closest BF8 walk retested; the other walks retest none) and
+    `tri_tests` (the triangle columns the walk tests: every valid one of a
+    visited leaf, an occlusion walk's up to the first that occludes)."""
     warps: int
     rounds: int
     groups: int
@@ -1095,6 +1205,21 @@ class WarpSchedule(NamedTuple):
     warp_tests: int
     lanes_per_group: tuple
     node_visits: int
+    leaf_boxes: int
+    tri_tests: int
+
+
+def _tri_tests(counted, acc, any_hit: bool) -> int:
+    """The per-ray walks' triangle tests on (lane, leaf) rows: the columns
+    they count (`counted`, (C, B) bool), an occlusion walk's up to the first
+    accepted one (`acc`, (C, B))."""
+    if not any_hit:
+        return int(counted.sum())
+    blk = counted.shape[1]
+    col = torch.arange(blk, device=counted.device)
+    first = torch.where(acc.any(dim=1),
+                        torch.argmax(acc.to(torch.int8), dim=1), blk)
+    return int((counted & (col <= first[:, None])).sum())
 
 
 def t_order_key(t: torch.Tensor) -> torch.Tensor:
@@ -1193,7 +1318,7 @@ def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
     warp_rounds = torch.zeros((n + WARP - 1) // WARP, dtype=torch.int64,
                               device=dev)
     hist = torch.zeros(6, dtype=torch.int64, device=dev)
-    groups = visits = loads = tests = nodes = 0
+    groups = visits = loads = tests = nodes = tris = 0
     per_slice = max(1, (1 << 22) // blk)
     while True:
         pending = torch.full((n,), -1, dtype=torch.int64, device=dev)
@@ -1228,6 +1353,7 @@ def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
                                        bias[li], wd[li], tmin, limit[ln])
             col_id = ids[li].to(torch.int64)
             acc &= col_id >= 0
+            tris += _tri_tests(col_id >= 0, acc, any_hit)
             if any_hit:
                 occ, tested[sl] = _any_chunk_hit(acc, nc)
                 occluded[ln[occ]] = True
@@ -1252,7 +1378,8 @@ def _v4_warp_schedule(pbvh: PacketBVH, origins, dirs, limit, tmin: float,
     sched = WarpSchedule(int((warp_rounds > 0).sum()),
                          int(warp_rounds.sum()), groups, groups, visits,
                          loads, tests, tests,
-                         tuple(int(x) for x in hist.tolist()), nodes)
+                         tuple(int(x) for x in hist.tolist()), nodes, 0,
+                         tris)
     if any_hit:
         return occluded, sched
     t, bid, u, v = best
@@ -1305,6 +1432,7 @@ def _bf8i_warp_schedule(bvh: BF8Instanced, origins, dirs, limit,
                               device=dev)
     hist = torch.zeros(6, dtype=torch.int64, device=dev)
     groups = leaves = visits = loads = tests = steps = nodes = 0
+    boxes = tris = 0
     per_slice = max(1, (1 << 22) // bvh.block)
     # per page and chunk, the columns that can accept
     can = ids >= 0
@@ -1320,6 +1448,7 @@ def _bf8i_warp_schedule(bvh: BF8Instanced, origins, dirs, limit,
             leaf = ent >= LEAF_BIT
             ll, lid = walking[leaf], ent[leaf] - LEAF_BIT
             if not any_hit:                       # the leaf-box retest
+                boxes += ll.numel()
                 ok, _ = _slab(bvh.l_lo[lid], bvh.l_hi[lid], origins[ll],
                               inv[ll], best[0][ll])
                 ll, lid = ll[ok], lid[ok]
@@ -1329,7 +1458,7 @@ def _bf8i_warp_schedule(bvh: BF8Instanced, origins, dirs, limit,
                 nodes += nl.numel()
                 st.push_children(bvh, nl, ent[~leaf], origins, inv,
                                  (limit if any_hit else best[0])[nl],
-                                 near_first=not any_hit)
+                                 "child" if any_hit else "near")
             walking = walking[pending[walking] < 0]
             walking = walking[st.sp[walking] > 0]
         lanes = torch.nonzero(pending >= 0).squeeze(1)
@@ -1351,10 +1480,9 @@ def _bf8i_warp_schedule(bvh: BF8Instanced, origins, dirs, limit,
             t, u, v, acc = _woop_chunk(o2, d2, w[pg], bias[pg], wd[pg], tmin,
                                        limit[ln])
             col_id = ids[pg].to(torch.int64)
-            acc &= col_id >= 0
+            acc &= can[pg]
+            tris += _tri_tests(can[pg], acc, any_hit)
             if any_hit:
-                if flag:
-                    acc &= (col_id & ALPHA_TRI_BIT) == 0
                 occ, tested[sl] = _any_chunk_hit(acc, nc)
                 occluded[ln[occ]] = True
                 continue
@@ -1388,7 +1516,8 @@ def _bf8i_warp_schedule(bvh: BF8Instanced, origins, dirs, limit,
     sched = WarpSchedule(int((warp_rounds > 0).sum()),
                          int(warp_rounds.sum()), groups, leaves, visits,
                          loads, tests, steps,
-                         tuple(int(x) for x in hist.tolist()), nodes)
+                         tuple(int(x) for x in hist.tolist()), nodes, boxes,
+                         tris)
     if any_hit:
         return occluded, sched
     t, bid, u, v, raw = best
@@ -1411,6 +1540,104 @@ def occluded_bf8i_warp_plain(bvh: BF8Instanced, origins, dirs, dist,
     (bool (N,), WarpSchedule)."""
     return _bf8i_warp_schedule(bvh, origins, dirs, dist, tmin, any_hit=True,
                                flag=opaque_only)
+
+
+def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float):
+    """The warp K1's (a BF8BVH) or closest_v6's (a BF8V6) schedule, every
+    lane at once: each live lane runs its own stack walk (`_Stacks`: K1
+    pushes far-first, v6 in the node's static order for the ray's octant;
+    both retest a popped leaf's box against the lane's best t) to its next
+    leaf to test; the round's pending lanes are grouped by (warp, leaf) and
+    tested chunk by chunk with the kernels' reduction; then they resume. A
+    chunk with fewer valid columns than rays to test is tested per ray in
+    the kernel (`warp_tests` counts it so); the bits are the same either
+    way. Returns ((t, id, u, v), WarpSchedule)."""
+    tree = _walk_tree(bvh)
+    order = "near" if tree.c_order is None else "octant"
+    w, bias, wd, ids = _leaf_columns(bvh)
+    dev = origins.device
+    n, nc = origins.shape[0], bvh.block // WARP
+    inv = _safe_inv(dirs)
+    st = _Stacks(n, dev)
+    best = (limit.clone(), torch.full((n,), -1, dtype=torch.int64,
+                                      device=dev),
+            torch.zeros_like(limit), torch.zeros_like(limit))
+    warp_rounds = torch.zeros((n + WARP - 1) // WARP, dtype=torch.int64,
+                              device=dev)
+    hist = torch.zeros(6, dtype=torch.int64, device=dev)
+    groups = visits = steps = nodes = boxes = tris = 0
+    per_slice = max(1, (1 << 22) // bvh.block)
+    valid = ids >= 0
+    n_cols = valid.reshape(-1, nc, WARP).sum(dim=2)           # (L, nc)
+    while True:
+        pending = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        walking = torch.nonzero(st.sp > 0).squeeze(1)
+        while walking.numel():
+            ent = st.pop(walking)
+            leaf = ent >= LEAF_BIT
+            ll, lid = walking[leaf], ent[leaf] - LEAF_BIT
+            boxes += ll.numel()                   # the leaf-box retest
+            ok, _ = _slab(tree.l_lo[lid], tree.l_hi[lid], origins[ll],
+                          inv[ll], best[0][ll])
+            pending[ll[ok]] = lid[ok]
+            nl = walking[~leaf]
+            if nl.numel():
+                nodes += nl.numel()
+                st.push_children(tree, nl, ent[~leaf], origins, inv,
+                                 best[0][nl], order, dirs)
+            walking = walking[pending[walking] < 0]
+            walking = walking[st.sp[walking] > 0]
+        lanes = torch.nonzero(pending >= 0).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        lid = pending[lanes]
+        inverse, cnt, h = _group_stats(lanes, lid, bvh.pages.shape[0])
+        warp_rounds[torch.unique(lanes // WARP)] += 1
+        groups += cnt.numel()
+        visits += lanes.numel()
+        hist += h
+        tris += int(n_cols[lid].sum())
+        for s0 in range(0, lanes.numel(), per_slice):
+            sl = slice(s0, s0 + per_slice)
+            ln, li = lanes[sl], lid[sl]
+            t, u, v, acc = _woop_chunk(origins[ln], dirs[ln], w[li],
+                                       bias[li], wd[li], tmin, limit[ln])
+            acc &= valid[li]
+            idc = ids[li].to(torch.int64) & ~ALPHA_TRI_BIT
+            mine = tuple(b[ln] for b in best)
+            for c in range(nc):
+                cs = slice(c * WARP, (c + 1) * WARP)
+                mine = _merge_best(mine, *_chunk_winner(
+                    t[:, cs], u[:, cs], v[:, cs], acc[:, cs], idc[:, cs]))
+            for b, m in zip(best, mine):
+                b[ln] = m
+        # every member is tested at every chunk: the warp steps through the
+        # fewer of its rays and the chunk's valid columns
+        g_leaf = torch.zeros_like(cnt).scatter_(0, inverse, lid)
+        steps += int(torch.minimum(cnt[:, None], n_cols[g_leaf]).sum())
+    sched = WarpSchedule(int((warp_rounds > 0).sum()),
+                         int(warp_rounds.sum()), groups, groups, visits,
+                         groups * nc, visits * nc, steps,
+                         tuple(int(x) for x in hist.tolist()), nodes, boxes,
+                         tris)
+    t, bid, u, v = best
+    return Hit(t, torch.where(bid >= 0, bid, -1).to(torch.int32), u,
+               v), sched
+
+
+def closest_bf8_warp_plain(bvh8: BF8BVH, origins, dirs, tmax,
+                           tmin: float = 1e-5):
+    """Plain PyTorch version of the closest_bf8 warp kernel's schedule:
+    (Hit, WarpSchedule). Its hits are bit-equal to the per-ray walk's
+    (bf8_traverse.cuh), ties across leaves included."""
+    return _bf8_warp_schedule(bvh8, origins, dirs, tmax, tmin)
+
+
+def closest_v6_warp_plain(bvh6, origins, dirs, tmax, tmin: float = 1e-5):
+    """Plain PyTorch version of the closest_v6 warp kernel's schedule over a
+    BF8V6: (Hit, WarpSchedule). Its hits are bit-equal to the per-ray walk's
+    (v6_traverse.cuh's `closest`), ties across leaves included."""
+    return _bf8_warp_schedule(bvh6, origins, dirs, tmax, tmin)
 
 
 # the archive kernels' plain versions: the page brute does not depend on

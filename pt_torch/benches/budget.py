@@ -8,7 +8,8 @@ it prints, in five sections:
 1. per bounce: the live lanes, the host ms (each call ended by a
    synchronize) of the closest trace, `_shade_hit`, the occlusion trace of
    the NEE rays and the coherence keys plus their argsort over the binary
-   tree, and K1's lockstep rounds (`rounds_of`: the most pops of any lane
+   tree, and the lockstep rounds of K1's per-ray design (`rounds_of`,
+   `kernels.closest_bf8_per_ray`'s pops variant: the most pops of any lane
    of a block, per block) with the warp lockstep share (the lanes' mean
    pops over their warp's max; see `pt_torch.benches.drain_sim` for what a
    round is on this card);
@@ -89,8 +90,9 @@ def timed(fn, *args, reps=5, warmup=2, label="", card=True, emit=print):
 
 
 def rounds_of(bvh8, origins, dirs, tmax=TMAX, pops=None):
-    """K1's lockstep rounds per block (numpy int64 (B,)): the most pops of
-    any lane in the block, from one launch of its pops variant. `pops`, an
+    """The lockstep rounds per block of K1's per-ray design (numpy int64
+    (B,)): the most pops of any lane in the block, from one launch of its
+    pops variant. `pops`, an
     (N,) int32 tensor on the rays' device, also receives each lane's."""
     return done_rounds_of(bvh8, origins, dirs, tmax, pops)[0]
 

@@ -1,5 +1,6 @@
-"""The frame budget and the drain model of the PyTorch port: K1's pops
-variant, its plain version, and `pt_torch.benches.budget` /
+"""The frame budget and the drain model of the PyTorch port: the pops
+variant of K1's per-ray design (`closest_bf8_per_ray(..., pops=)`), its
+plain version, and `pt_torch.benches.budget` /
 `pt_torch.benches.drain_sim` against `pt`'s `benches/budget.py` and
 `benches/drain_sim.py`.
 
@@ -156,12 +157,12 @@ def test_walk_plain_matches_plain_and_host_build(host_pops, wavefront, case):
 
 
 def test_cpu_pops_launch_routes_to_the_walk(wavefront):
-    """closest_bf8(..., pops=) on CPU tensors fills pops from the plain walk
-    and launches nothing."""
+    """closest_bf8_per_ray(..., pops=) on CPU tensors fills pops from the
+    plain walk and launches nothing."""
     b8, o, d, tmax = _rays_of("wavefront", wavefront)
     before = dict(kernels.launches)
     pops = torch.full((o.shape[0],), -7, dtype=torch.int32)
-    hit = kernels.closest_bf8(b8, o, d, tmax, pops=pops)
+    hit = kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=pops)
     want, want_pops = kernels.closest_bf8_walk_plain(b8, o, d, tmax)
     assert torch.equal(pops, want_pops)
     for a, b in zip(hit, want):
@@ -174,20 +175,22 @@ def test_pops_argument_checks():
     o, d = _random_rays(64, 5)
     tmax = torch.full((64,), 1e4)
     good = torch.zeros(64, dtype=torch.int32)
-    kernels.closest_bf8(b8, o, d, tmax, pops=good)
+    kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good)
+    with pytest.raises(TypeError):         # K1's warp design has no pops
+        kernels.closest_bf8(b8, o, d, tmax, pops=good)
     with pytest.raises(TypeError):
-        kernels.closest_bf8(b8, o, d, tmax, pops=good.long())
+        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good.long())
     with pytest.raises(TypeError):
-        kernels.closest_bf8(b8, o, d, tmax, pops=good.numpy())
+        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good.numpy())
     with pytest.raises(ValueError):
-        kernels.closest_bf8(b8, o, d, tmax, pops=good[:63])
+        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good[:63])
     with pytest.raises(ValueError):
-        kernels.closest_bf8(b8, o, d, tmax,
-                            pops=torch.zeros(128, dtype=torch.int32)[::2])
+        kernels.closest_bf8_per_ray(
+            b8, o, d, tmax, pops=torch.zeros(128, dtype=torch.int32)[::2])
     with pytest.raises(ValueError):
-        kernels.closest_bf8(b8, o, d, tmax,
-                            pops=torch.zeros(64, dtype=torch.int32,
-                                             device="meta"))
+        kernels.closest_bf8_per_ray(
+            b8, o, d, tmax,
+            pops=torch.zeros(64, dtype=torch.int32, device="meta"))
 
 
 # ------------------------------------------------------ rounds and warps

@@ -10,9 +10,11 @@ neither JAX nor `pt`, so it also runs on a machine that has only PyTorch:
 K1-K6 and the archive kernels (closest_ordered, closest_v6, closest_v6k2,
 closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the kernels are
 built with -fmad=false and run the plain version's f32 arithmetic in its
-order. K1's pops variant gives K1's hits and the plain walk's pops. The
-warp-cooperative K3/K4 and K5/K6 give the per-ray arm's bits on every
-lane (K5/K6 also the plain warp schedule's).
+order. The pops variant of K1's per-ray design gives the warp K1's hits
+and the plain walk's pops. The warp-cooperative K1, closest_v6, K3/K4 and
+K5/K6 give the per-ray arm's bits on every lane (K1, closest_v6 and K5/K6
+also the plain warp schedule's), and K1 and closest_v6 raise on a tree
+whose pages cannot be staged.
 """
 
 import numpy as np
@@ -77,7 +79,7 @@ def test_cuda_kernels_match_plain(cuda_device, soup):
         assert torch.equal(got, kernels.occluded_bf8_plain(
             b8, o, d, dist, opaque_only=flag))
     counts = kernels.work_counts(b8)
-    counted = kernels.closest_bf8(b8, o, d, tmax, counts=counts)
+    counted = kernels.closest_bf8_per_ray(b8, o, d, tmax, counts=counts)
     for a, b in zip(counted, hk):          # the counted variant: same hits
         assert torch.equal(a, b)
     nodes, _, tris = counts.totals.tolist()
@@ -563,13 +565,15 @@ def test_cuda_archive_kernels_match_plain(cuda_device, soup):
         assert int((hp.tri >= 0).sum()) > 100
         for a, b in zip(hk, hp):
             assert torch.equal(a, b), fn.__name__
+        # closest_v6's counted variant is its per-ray design's
+        counted = getattr(kernels, fn.__name__ + "_per_ray", fn)
         counts = kernels.work_counts(bvh)
-        for a, b in zip(fn(bvh, o, d, tmax, counts=counts), hk):
+        for a, b in zip(counted(bvh, o, d, tmax, counts=counts), hk):
             assert torch.equal(a, b)
         assert 0 < int(counts.totals[-1]) < 8192 * tri.shape[0]
         od, dd, td = _degenerate_masked(bvh, o, d, 1e4, dead)
         counts = kernels.work_counts(bvh)
-        h = fn(bvh, od.contiguous(), dd.contiguous(), td, counts=counts)
+        h = counted(bvh, od.contiguous(), dd.contiguous(), td, counts=counts)
         assert int(counts.totals[0]) == 8192 and int(counts.totals[-1]) == 0
         assert bool((h.tri == -1).all())
     dist = torch.full((8192,), 6.0, device=cuda_device)
@@ -608,10 +612,11 @@ def test_cuda_bf8_v6_film_matches_cpu_film(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("soup", ["random", "heightfield"])
 def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
-    """K1's pops variant: hits bit-equal to the uncounted launch's, pops
-    equal to `closest_bf8_walk_plain`'s on every lane and summing to a
-    counted launch's node visits plus leaf retests; the drain layout uses
-    the library's threads per block, which the kernel source states."""
+    """The pops variant of K1's per-ray design: hits bit-equal to K1's (the
+    warp kernel's), pops equal to `closest_bf8_walk_plain`'s on every lane
+    and summing to a counted launch's node visits plus leaf retests; the
+    drain layout uses the library's threads per block, which the kernel
+    source states."""
     from pt_torch.benches import drain_sim
     verts, tri = (_random_tris(2000, 71) if soup == "random"
                   else _heightfield(64))
@@ -624,7 +629,7 @@ def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
     before = dict(kernels.launches)
     hk = kernels.closest_bf8(b8, o, d, tmax)
     pops = torch.empty(n, dtype=torch.int32, device=cuda_device)
-    hp = kernels.closest_bf8(b8, o, d, tmax, pops=pops)
+    hp = kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=pops)
     torch.cuda.synchronize()
     assert kernels.launches["closest_bf8"] == before["closest_bf8"] + 1
     assert kernels.launches["closest_bf8_pops"] == \
@@ -636,7 +641,7 @@ def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
     for a, b in zip(hw, hk):
         assert torch.equal(a, b)
     counts = kernels.work_counts(b8)
-    kernels.closest_bf8(b8, o, d, tmax, counts=counts)
+    kernels.closest_bf8_per_ray(b8, o, d, tmax, counts=counts)
     nodes, leaf_boxes, _ = counts.totals.tolist()
     assert int(pops.sum()) == nodes + leaf_boxes
     threads = kernels.bf8_threads_per_block(cuda_device)
@@ -645,4 +650,176 @@ def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
     assert done.shape == (-(-n // threads), threads // 32)
     assert (rounds == done.max(axis=1)).all()
     with pytest.raises(ValueError):
-        kernels.closest_bf8(b8, o, d, tmax, pops=pops.cpu())
+        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=pops.cpu())
+
+
+def bf8_walk_trees(device, block, seed=81):
+    """{"bf8": an SBVH's BF8 tree over a seeded soup with every third
+    triangle alpha-tagged, at leaves of `block`, "v6": its BF8V6}."""
+    verts, tri = _random_tris(700 * block // 32, seed)
+    opaque = (np.arange(tri.shape[0]) % 3) != 0
+    b8 = bvh8.build_bf8(bvh8.build_packet_bvh_sah(
+        verts, tri, block=block, max_leaves=8192, tri_opaque_np=opaque,
+        spatial=True, device=device))
+    assert b8 is not None and b8.block == block
+    return {"bf8": b8, "v6": archive.bf8_v6_of(b8)}
+
+
+# the warp kernel behind each walk of bf8_warp_kernels.cu
+BF8_WALKS = {"bf8": "closest_bf8", "v6": "closest_v6"}
+
+
+def leaf_tree(device, leaves, pad=0.0):
+    """A BF8 tree of one wide node over up to 8 leaves of 32 columns, and its
+    BF8V6. `leaves`: per leaf its triangles' corners (k, 3, 3), ids (k,) and
+    alpha tags (k,), padded out to 32 columns; each leaf's box (child and
+    leaf bounds alike) is its triangles' widened by `pad`."""
+    blk = 32
+    n = len(leaves)
+    v0 = np.zeros((n * blk, 3), np.float32)
+    e1, e2 = np.zeros_like(v0), np.zeros_like(v0)
+    ids = np.full(n * blk, -1, np.int32)
+    alpha = np.zeros(n * blk, bool)
+    lo, hi = [], []
+    for s, (corners, tri_ids, tri_alpha) in enumerate(leaves):
+        rows = slice(s * blk, s * blk + len(tri_ids))
+        v0[rows] = corners[:, 0]
+        e1[rows] = corners[:, 1] - corners[:, 0]
+        e2[rows] = corners[:, 2] - corners[:, 0]
+        ids[rows] = tri_ids
+        alpha[rows] = tri_alpha
+        lo.append(corners.reshape(-1, 3).min(axis=0) - pad)
+        hi.append(corners.reshape(-1, 3).max(axis=0) + pad)
+    lo, hi = np.stack(lo).astype(np.float32), np.stack(hi).astype(np.float32)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    b8 = bvh8.BF8BVH(
+        c_lo=t(np.concatenate([lo, np.full((8 - n, 3), 1e30, np.float32)])),
+        c_hi=t(np.concatenate([hi, np.full((8 - n, 3), 1e30, np.float32)])),
+        c_ent=t(np.concatenate([bvh8.LEAF_BIT + np.arange(n, dtype=np.int32),
+                                np.full(8 - n, -1, np.int32)])),
+        l_lo=t(lo), l_hi=t(hi),
+        pages=t(bvh8._woop_pages(v0, e1, e2, ids, n, blk, tri_alpha=alpha)),
+        n8=1, n_leaves=n, block=blk, root_lo=t(lo.min(axis=0)),
+        root_hi=t(hi.max(axis=0)), depth=1)
+    return b8, archive.bf8_v6_of(b8)
+
+
+def sparse_leaf_trees(device):
+    """`leaf_tree` over 8 leaves, each an 8-triangle wavy grid (every other
+    triangle alpha-tagged) padded out to 32 columns, as the alpha subset
+    trees' leaves are. With coherent rays from above (`sparse_leaf_rays`)
+    the leaf groups hold more rays than the leaf has triangles."""
+    import chip_smoke
+    pos, _, _, tris = chip_smoke._wavy_grid(3)
+    k = len(tris)
+    return leaf_tree(device, [
+        ((pos + [2.5 * (s % 4), 0.1 * s, 2.5 * (s // 4)])[tris],
+         np.arange(k) + k * s, np.arange(k) % 2 == 1) for s in range(8)])
+
+
+def sparse_leaf_rays(n, device):
+    """Rays from above the leaves of `sparse_leaf_trees`, neighbours in
+    neighbouring lanes."""
+    side = int(np.ceil(np.sqrt(n)))
+    gx, gz = np.meshgrid(np.linspace(-1.2, 8.7, side),
+                         np.linspace(-1.2, 3.7, side), indexing="ij")
+    o = np.stack([gx.ravel(), np.full(side * side, 5.0), gz.ravel()],
+                 -1)[:n]
+    d = np.tile(np.asarray([[0.05, -1.0, 0.03]]), (n, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o.astype(np.float32), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("walk", list(BF8_WALKS))
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_cuda_bf8_warp_kernels_match_per_ray(cuda_device, walk, block, n):
+    """The warp K1 and closest_v6 against their per-ray arm and the plain
+    warp schedule on every lane (t, u, v bits and ids), at leaves of
+    `block`, with lanes that fill no whole warp; each wrapper counts its own
+    launches."""
+    tree = bf8_walk_trees(cuda_device, block)[walk]
+    name = BF8_WALKS[walk]
+    o, d = _rays(4096, 82, cuda_device)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    before = dict(kernels.launches)
+    hw = getattr(kernels, name)(tree, o, d, tmax)
+    hr = getattr(kernels, name + "_per_ray")(tree, o, d, tmax)
+    torch.cuda.synchronize()
+    for k in (name, name + "_per_ray"):
+        assert kernels.launches[k] == before[k] + 1, k
+    hp, _ = getattr(kernels, name + "_warp_plain")(tree, o, d, tmax)
+    for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+        assert torch.equal(a, x) and torch.equal(a, y)
+    if n == 1000:
+        assert int((hr.tri >= 0).sum()) > 20
+
+
+@pytest.mark.gpu
+def test_cuda_bf8_warp_kernels_on_sparse_leaves(cuda_device):
+    """Leaves of 8 triangles tested by groups of up to 32 rays: the warp
+    kernels test such chunks column by column on each ray's own lane; bits
+    equal the per-ray arm's and the plain schedule's."""
+    n = 4096
+    o, d = sparse_leaf_rays(n, cuda_device)
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    for tree, name in zip(sparse_leaf_trees(cuda_device),
+                          BF8_WALKS.values()):
+        hw = getattr(kernels, name)(tree, o, d, tmax)
+        hr = getattr(kernels, name + "_per_ray")(tree, o, d, tmax)
+        hp, sched = getattr(kernels, name + "_warp_plain")(tree, o, d, tmax)
+        for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+            assert torch.equal(a, x) and torch.equal(a, y)
+        assert sched.warp_tests < sched.ray_chunk_tests // 2
+        assert int((hr.tri >= 0).sum()) > n // 4
+
+
+@pytest.mark.gpu
+def test_cuda_bf8_warp_kernels_raise_on_unstageable_trees(cuda_device):
+    """closest_bf8 and closest_v6 raise on pages the warp kernels cannot
+    stage (a base off 16 bytes, a block off 32) and launch nothing: no
+    fallback to the per-ray kernel."""
+    import dataclasses
+    trees = bf8_walk_trees(cuda_device, 32)
+    o, d = _rays(64, 83, cuda_device)
+    tmax = torch.full((64,), 1e4, device=cuda_device)
+    for walk, name in BF8_WALKS.items():
+        tree = trees[walk]
+        pages = tree.pages
+        off = torch.empty(pages.numel() + 1, device=cuda_device)[1:]
+        off = off.view(pages.shape).copy_(pages)
+        assert off.data_ptr() % 16 != 0
+        before = dict(kernels.launches)
+        for bad in (dataclasses.replace(tree, pages=off),
+                    dataclasses.replace(tree, block=48)):
+            with pytest.raises(ValueError, match="multiples of 32"):
+                getattr(kernels, name)(bad, o, d, tmax)
+        assert kernels.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_bench_pops_hits_equal_warp_k1(cuda_device):
+    """B1/B2 (the benches' pops launches of K1's per-ray design) on every
+    bounce's wavefront of a small budget frame: hits bit-equal to the warp
+    K1's on every lane, pops equal to the bench's own launch's."""
+    from pt_torch.benches import budget
+    kernels.reset_launch_counts()
+    res = budget.main(device=cuda_device, width=32, bounces=3, n=16,
+                      n_sample=1024, emit=lambda line: None)
+    assert kernels.launches["closest_bf8_pops"] == len(res["bounces"])
+    b8 = res["tree"]
+    for row in res["bounces"]:
+        o, d, tmax = row["wavefront"]
+        o, d = o.contiguous(), d.contiguous()
+        limit = torch.full((o.shape[0],), float(tmax), device=cuda_device)
+        pops = torch.empty(o.shape[0], dtype=torch.int32, device=cuda_device)
+        hp = kernels.closest_bf8_per_ray(b8, o, d, limit, pops=pops)
+        hk = kernels.closest_bf8(b8, o, d, limit)
+        for a, b in zip(_bits(hp), _bits(hk)):
+            assert torch.equal(a, b)
+        assert torch.equal(pops, row["pops"])

@@ -2,9 +2,11 @@
 
 An AST scan finds no import of them under pt_torch/ (the archive module and
 the ported A/B harnesses under pt_torch/benches/ included) or in
-chip_smoke.py; in a subprocess where they are made unimportable, pt_torch
-imports and renders an 8² Heightfield, the Default scene, a small Courtyard
-and an instanced alpha scene on the CPU, runs the archive path (both
+chip_smoke.py; each CUDA kernel library builds from the port's own csrc/
+(every header it includes is one of its listed sources); in a subprocess
+where they are made unimportable, pt_torch imports and renders an 8²
+Heightfield, the Default scene, a small Courtyard and an instanced alpha
+scene on the CPU, runs the archive path (both
 harnesses, a frame through a BF8V6) and the frame budget and drain model
 (`pt_torch.benches.budget`, `.drain_sim`); and with no device named, the
 entry points take the card and raise when there is none.
@@ -42,6 +44,42 @@ def test_no_jax_or_pt_imports(path):
             continue
         bad = FORBIDDEN.intersection(roots)
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def _kernel_libraries():
+    from pt_torch.accel import kernels
+    return sorted(kernels._CUDA_LIBS)
+
+
+@pytest.mark.parametrize("name", _kernel_libraries())
+def test_kernel_sources_stand_alone(name):
+    """Each kernel library (`kernels._CUDA_LIBS`; `bf8w`, the warp K1 and
+    closest_v6, among them) compiles from the port's own csrc/ and the CUDA
+    runtime's headers only: every quoted include, followed to the end,
+    names a file of csrc/ that the library lists as a source (so a change
+    to it rebuilds the library), and nothing reaches JAX, `pt` or `csrc/`
+    at the repository's root."""
+    import re
+    from pt_torch.accel import kernels
+    _, sources = kernels._CUDA_LIBS[name]
+    system = {"cuda_runtime.h", "stdint.h", "math.h", "string.h"}
+    seen, todo = set(), [sources[0]]
+    while todo:
+        src = todo.pop()
+        if src in seen:
+            continue
+        seen.add(src)
+        assert src.parent == kernels.CSRC, src
+        text = src.read_text()
+        assert not re.search(r"\b(jax|jaxlib|pallas)\b", "\n".join(
+            line for line in text.splitlines() if line.startswith("#")))
+        for quoted, angled in re.findall(
+                r'^#include\s+(?:"([^"]+)"|<([^>]+)>)', text, re.M):
+            if angled:
+                assert angled in system, f"{src.name} includes <{angled}>"
+            else:
+                todo.append(kernels.CSRC / quoted)
+    assert seen == set(sources), sorted(p.name for p in seen ^ set(sources))
 
 
 def test_port_renders_without_jax_or_pt():
