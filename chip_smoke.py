@@ -8,8 +8,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
 1. device: name, count, versions, `nvidia-smi` name and power limit;
 2. build: every traversal kernel (one nvcc per source for sm_90a, with
    -Xptxas -v) and the native SBVH library (g++), all started together;
-   the warp K1/closest_v6's, K3/K4's and K5/K6's resident blocks per SM
-   and shared memory per block;
+   the warp K1/closest_v6's, K2/occluded_v6's, K3/K4's and K5/K6's
+   resident blocks per SM and shared memory per block;
 3. kernel parity at full size, each kernel against its plain PyTorch version
    on the card: K1 (closest_bf8) and K2 (occluded_bf8, and opaque_only on a
    structure with every other triangle non-opaque) over the Heightfield
@@ -23,13 +23,17 @@ Phases, each fatal on failure (nothing is caught and passed over):
    trees (the v4 fallback, and one at block >= 512), each also against
    the plain versions; the warp K1 (closest_bf8) and closest_v6 bit-equal
    to their per-ray arm (closest_bf8_per_ray, closest_v6_per_ray) and to
-   their plain warp schedule on every lane of every BF8 and BF8V6 set:
-   the Heightfield's tree (and its half-alpha variant and its BF8V6), the
-   Courtyard at detail 1.0 (the flat tree and its opaque and alpha subset
-   trees; the BF8V6 of its SBVH is over pt's 640 KiB table cap, which the
-   run logs), the 64 instances flattened, opaque
-   and with alpha cards (and the cards' subset trees), and the static
-   alpha variant's three trees;
+   their plain warp schedule on every lane of every BF8 and BF8V6 set, and
+   likewise the warp K2 (occluded_bf8, opaque_only off and on) and
+   occluded_v6 (occluded_bf8_per_ray, occluded_v6_per_ray) on the same
+   rays up to seeded distances and on the recorded shadow wavefronts of
+   the first and last bounce as the integrator sends them (killed lanes
+   included): the Heightfield's tree (and its half-alpha variant and its
+   BF8V6), the Courtyard at detail 1.0 (the flat tree and its opaque and
+   alpha subset trees; the BF8V6 of its SBVH is over pt's 640 KiB table
+   cap, which the run logs), the 64 instances flattened, opaque and with
+   alpha cards (and the cards' subset trees), and the static alpha
+   variant's three trees;
 4. main path, static: `Renderer(device="cuda")` on the Heightfield at 512²,
    5 bounces, 4 spp: one warm render, then 3 timed renders with the launch
    counters set to 0 just before and read just after; film checks, a PNG
@@ -37,9 +41,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
    memory, one more block of 3 steps for the spread within the call, a
    torch.profiler breakdown of one sample, and K1/K2's CUDA-event time on
    the real bounce-0 and bounce-2 wavefronts against plain version and bound;
-   the A/B of K1's two designs on the same wavefronts (per-ray, warp, warp,
-   per-ray), the plain warp schedule's groups there, and ptxas's -v line
-   and resident blocks of the warp K1;
+   the A/B of K1's and K2's two designs on the same wavefronts (per-ray,
+   warp, warp, per-ray), the plain warp schedule's groups, lanes per group
+   and chunks staged there, and ptxas's -v line and resident blocks of the
+   warp K1 and K2;
 5. main path, animated: the Animated Heightfield (99,458 triangles on a
    keyframed node) at 512², 5 bounces, 4 spp, 5 frames of `scene.update(1/24)`
    → `update_scene_data` → rebuild → `render()`, the last 4 counted (launch
@@ -90,9 +95,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
    the fine SBVH and the Animated Heightfield's Morton tree; their times on
    the bounce-0 and bounce-2 wavefronts, closest_ordered beside K3 on the
    Morton tree's, each bound from the least work of the walks that computed
-   the same function on the same rays; the A/B of closest_v6's two designs
-   on the same wavefronts, its plain warp schedule's groups and ptxas's
-   line; the Heightfield (n=64) with a BF8V6 at 64², card against CPU;
+   the same function on the same rays; the A/B of closest_v6's and
+   occluded_v6's two designs on the same wavefronts, their plain warp
+   schedules' groups and ptxas's lines; the Heightfield (n=64) with a BF8V6
+   at 64², card against CPU;
 9. the Courtyard at 512², 5 bounces: detail 0.85 with `instancing="shared"`
    (985 segments; three instanced trees) and detail 1.0 with "auto" (1135
    segments, above the cap: the flat BF8 path with split trees); the Default
@@ -127,10 +133,10 @@ with opaque_only), the warp kernels, against their plain versions over the
 apart), and bit-equal to their per-ray arm (closest_bf8i_per_ray,
 occluded_bf8i_per_ray) on every lane of the same sets.
 
-Prints the kernels' JSON line (K1-K6, K1 and K3-K6 with their per-ray
-arm's time from the A/B, then one row per archive entry point, with the
-kernel it runs and the workload it was timed on (A2, A8/A9: also the
-per-ray arm's time on the same rays; A3 its A/B at both bounces), then the
+Prints the kernels' JSON line (K1-K6, each with its per-ray arm's time
+from the A/B, then one row per archive entry point, with the kernel it
+runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
+time on the same rays; A3 and A6 their A/B at both bounces), then the
 rows `rounds_of` and `done_rounds_of`, kernel "closest_bf8_per_ray
 (pops)"), then the
 `nvidia-smi` line, then as the last
@@ -211,17 +217,19 @@ REPLACES = {
 }
 SOURCES = {
     "closest_bf8": "pt_torch/accel/csrc/bf8_warp_kernels.cu",
-    "occluded_bf8": "pt_torch/accel/csrc/bf8_kernels.cu",
+    "occluded_bf8": "pt_torch/accel/csrc/bf8_occluded_warp_kernels.cu",
     "closest_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
     "occluded_v4": "pt_torch/accel/csrc/v4_warp_kernels.cu",
     "closest_bf8i": "pt_torch/accel/csrc/bf8i_warp_kernels.cu",
     "occluded_bf8i": "pt_torch/accel/csrc/bf8i_warp_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
-# K1's, closest_v6's and K3-K6's first design, the per-ray arm of the A/B;
-# it also carries their counted variant (the walk is the same)
+# K1's, K2's, the v6 walks' and K3-K6's first design, the per-ray arm of
+# the A/B; it also carries their counted variant (the walk is the same)
 PER_RAY = {"closest_bf8": "closest_bf8_per_ray",
+           "occluded_bf8": "occluded_bf8_per_ray",
            "closest_v6": "closest_v6_per_ray",
+           "occluded_v6": "occluded_v6_per_ray",
            "closest_v4": "closest_v4_per_ray",
            "occluded_v4": "occluded_v4_per_ray",
            "closest_bf8i": "closest_bf8i_per_ray",
@@ -244,7 +252,8 @@ SOURCES.update(closest_ordered="pt_torch/accel/csrc/ordered_kernels.cu",
                closest_v6="pt_torch/accel/csrc/bf8_warp_kernels.cu",
                closest_v6k2="pt_torch/accel/csrc/v6_kernels.cu",
                closest_v7="pt_torch/accel/csrc/v6_kernels.cu",
-               occluded_v6="pt_torch/accel/csrc/v6_kernels.cu")
+               occluded_v6="pt_torch/accel/csrc/"
+                           "bf8_occluded_warp_kernels.cu")
 
 
 def counted(kernels, name: str):
@@ -526,7 +535,8 @@ def phase_build():
     for line in PTXAS:
         log(f"[build] {line}")
     for lib, which in (("v4w", "K3/K4"), ("bf8iw", "K5/K6"),
-                       ("bf8w", "K1/closest_v6")):
+                       ("bf8w", "K1/closest_v6"),
+                       ("bf8wo", "K2/occluded_v6")):
         occ = kernels.warp_occupancy(lib, "cuda")
         check(min(occ.values()) > 0,
               f"warp {which} occupancy query failed: {occ}")
@@ -536,8 +546,9 @@ def phase_build():
 
 def _log_build_of(tag, lib, walk):
     """Re-print, beside an A/B, what ptxas said of the warp kernel whose
-    mangled name holds `walk` (Bf8Walk: K1, V6Walk: closest_v6), and the
-    library's resident blocks per SM."""
+    mangled name holds `walk` (Bf8Walk: K1, V6Walk: closest_v6, Bf8AnyHit:
+    K2, V6AnyHit: occluded_v6), and the library's resident blocks per
+    SM."""
     lines, on = [], False
     for line in PTXAS:
         if "Compiling entry function" in line:
@@ -678,7 +689,7 @@ def phase_parity():
     for what, (o, d, t) in sets:
         errs["closest_bf8"] = max(errs["closest_bf8"],
                                   _compare_closest(bvh, o, d, t, what))
-        _bf8_arms(bvh, (o, d, t), f"Heightfield, {what}")
+        _bf8_arms(bvh, (o, d, t), f"Heightfield, {what}", rng)
         dist = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
                                .astype(np.float32), device="cuda")
         errs["occluded_bf8"] = max(errs["occluded_bf8"],
@@ -695,13 +706,20 @@ def phase_parity():
     for flag in (False, True):
         errs["occluded_bf8"] = max(errs["occluded_bf8"], _compare_occluded(
             half, o, d, dist, "random/half-alpha", opaque_only=flag))
-    _bf8_arms(half, rnd, "Heightfield half-alpha tree, random")
+    _bf8_arms(half, rnd, "Heightfield half-alpha tree, random", rng)
     # the BF8V6 of the same SBVH, on the same rays
     v6, _ = archive.swap_in_bf8_v6(r)
     for what, rays in sets:
-        _bf8_arms(v6, rays, f"Heightfield BF8V6, {what}")
+        _bf8_arms(v6, rays, f"Heightfield BF8V6, {what}", rng)
+    # the shadow wavefronts, over the three trees
+    for what, rays in _shadow_sets(rec, N_PARITY, rng):
+        for tree, name in ((bvh, "Heightfield"),
+                           (half, "Heightfield half-alpha tree"),
+                           (v6, "Heightfield BF8V6")):
+            _bf8_occ_arms(tree, rays, f"{name}, {what}")
     torch.cuda.synchronize()
-    log(f"[parity] K1/K2 done in {time.perf_counter() - t0:.1f} s")
+    log(f"[parity] K1/K2 and the v6 walks done in "
+        f"{time.perf_counter() - t0:.1f} s")
     _parity_bf8_trees(rng)
     errs.update(_parity_v4(rng))
     errs.update(_parity_bf8i(rng))
@@ -744,10 +762,12 @@ def _arms_equal(bvh, o, d, t, dist, what, pair=("closest_v4",
           f"{n_o} occlusion lanes differ from the per-ray arm")
 
 
-def _bf8_arms(tree, rays, what):
+def _bf8_arms(tree, rays, what, rng):
     """The warp K1 (over a BF8BVH) or closest_v6 (over a BF8V6) against its
     per-ray arm and its plain warp schedule on one ray set: the t, u and v
-    bits and the id of every lane must be equal."""
+    bits and the id of every lane must be equal; then the occlusion twins
+    (`_bf8_occ_arms`) on the same rays up to seeded distances."""
+    import torch
     from pt_torch.accel import kernels
     name = "closest_v6" if hasattr(tree, "c_order") else "closest_bf8"
     hw = getattr(kernels, name)(tree, *rays)
@@ -766,6 +786,44 @@ def _bf8_arms(tree, rays, what):
         f"ray-chunk tests)")
     check(n_r == 0 and n_p == 0, f"warp {name} {what}: {n_r} lanes differ "
           f"from the per-ray arm, {n_p} from the plain schedule")
+    o = rays[0]
+    dist = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
+                           .astype(np.float32), device=o.device)
+    _bf8_occ_arms(tree, (o, rays[1], dist), what)
+
+
+def _bf8_occ_arms(tree, rays, what):
+    """The warp K2 (over a BF8BVH, opaque_only off and on) or occluded_v6
+    (over a BF8V6) against its per-ray arm and its plain warp schedule on
+    one ray set (origins, directions, distances): the bool of every lane
+    must be equal."""
+    from pt_torch.accel import kernels
+    v6 = hasattr(tree, "c_order")
+    name = "occluded_v6" if v6 else "occluded_bf8"
+    for kw in ({},) if v6 else ({}, {"opaque_only": True}):
+        ow = getattr(kernels, name)(tree, *rays, **kw)
+        orr = getattr(kernels, PER_RAY[name])(tree, *rays, **kw)
+        op, sched = getattr(kernels, name + "_warp_plain")(tree, *rays, **kw)
+        n_r, n_p = int((ow != orr).sum()), int((ow != op).sum())
+        log(f"[parity] warp {name} against the per-ray arm, {what}"
+            f"{' opaque_only' if kw else ''}: {rays[0].shape[0]} rays, "
+            f"{n_r} lanes differ ({int(orr.sum())} occluded), {n_p} from "
+            f"the plain schedule (block {tree.block}, "
+            f"{sched.leaf_visits / max(sched.groups, 1):.2f} lanes per "
+            f"group, {sched.chunk_loads} chunks staged for "
+            f"{sched.groups * (tree.block // 32)} in the groups' leaves)")
+        check(n_r == 0 and n_p == 0, f"warp {name} {what} {kw}: {n_r} lanes "
+              f"differ from the per-ray arm, {n_p} from the plain schedule")
+
+
+def _shadow_sets(rec, k, rng):
+    """k-ray samples of the first and last recorded shadow wavefronts, as
+    the integrator sends them (killed lanes included)."""
+    last = len(rec.occluded) - 1
+    check(last > 0, f"{len(rec.occluded)} shadow traces recorded")
+    return [(f"shadow rays of bounce {b}", _sample_rows(rec.occluded[b], k,
+                                                        rng))
+            for b in (0, last)]
 
 
 def _parity_bf8_trees(rng):
@@ -825,15 +883,19 @@ def _parity_bf8_trees(rng):
         live1 = (rec.closest[per][2] > 1e-4).cpu().numpy()
         b0 = _sample_rows(rec.closest[0], N_COURT, rng)
         b1 = _sample_rows(rec.closest[per], N_COURT, rng, live1)
+        shadow = _shadow_sets(rec, N_COURT, rng)
         for name, tree in trees:
             for set_name, rays in (("bounce0", b0), ("bounce1", b1),
                                    ("random", _random_rays(tree, N_COURT,
                                                            rng))):
-                _bf8_arms(tree, rays, f"{what} {name} tree, {set_name}")
+                _bf8_arms(tree, rays, f"{what} {name} tree, {set_name}",
+                          rng)
+            for set_name, rays in shadow:
+                _bf8_occ_arms(tree, rays, f"{what} {name} tree, {set_name}")
         del r, rec
     torch.cuda.synchronize()
-    log(f"[parity] warp K1/closest_v6 over the other static trees done in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[parity] warp K1/K2 and v6 walks over the other static trees "
+        f"done in {time.perf_counter() - t0:.1f} s")
 
 
 def _parity_v4(rng):
@@ -1244,9 +1306,11 @@ def phase_main():
         r.render(1)
     times = _kernel_times(r, (("closest_bf8", "closest"),
                               ("occluded_bf8", "occluded")), "main", rec)
-    _ab_bounces(r.accel.bvh, rec, times, (("closest_bf8", "closest"),),
+    _ab_bounces(r.accel.bvh, rec, times, (("closest_bf8", "closest"),
+                                          ("occluded_bf8", "occluded")),
                 "main")
     _log_build_of("main", "bf8w", "Bf8Walk")
+    _log_build_of("main", "bf8wo", "Bf8AnyHit")
     return counts, times, dict(ms_per_step=dt / 3 * 1e3,
                                mrays=rays / dt / 1e6, peak_mib=peak,
                                ms_per_step_blocks=blocks)
@@ -1435,7 +1499,8 @@ def _ab_warp(bvh, cases, tag):
             f"warp round, {sched.leaves / max(sched.groups, 1):.2f} "
             f"leaves and {sched.leaf_visits / max(sched.groups, 1):.2f} "
             f"lanes per group, {sched.rounds / max(sched.warps, 1):.1f} "
-            f"rounds per warp; {sched._asdict()}")
+            f"rounds per warp, {sched.chunk_loads / max(sched.groups, 1):.2f}"
+            f" chunks staged per group; {sched._asdict()}")
 
 
 def _ab_bounces(bvh, rec, times, pairs, tag):
@@ -2074,8 +2139,10 @@ def phase_archive():
         times[("closest_v7", b)]["plain_ms"] = \
             times[("closest_v6", b)]["plain_ms"]      # the same function
     # the warp closest_v6 against its per-ray design on the same wavefronts
-    _ab_bounces(v6, rec, times, (("closest_v6", "closest"),), "archive")
+    _ab_bounces(v6, rec, times, (("closest_v6", "closest"),
+                                 ("occluded_v6", "occluded")), "archive")
     _log_build_of("archive", "bf8w", "V6Walk")
+    _log_build_of("archive", "bf8wo", "V6AnyHit")
     del r, rec
 
     errs["closest_ordered"] = max(errs["closest_ordered"],

@@ -12,27 +12,30 @@ packet_closest_sub and packet_closest_v3 (one near-child-first walk, three
 TPU schedules of it), `closest_v6` packet_closest_v6, `closest_v6k2`
 packet_closest_v6k2, `closest_v7` packet_closest_v7 and `occluded_v6`
 packet_occluded_v6 (pt_torch/accel/archive.py binds each of pt's entry
-points). The kernels are CUDA C++ for sm_90a (csrc/bf8_warp_kernels.cu and
-csrc/bf8_kernels.cu over csrc/bf8_traverse.cuh, csrc/v4_warp_kernels.cu and
-csrc/v4_kernels.cu over csrc/v4_traverse.cuh, csrc/bf8i_warp_kernels.cu
-and csrc/bf8i_kernels.cu over csrc/bf8i_traverse.cuh (the warp sources
-sharing their leaf test in csrc/warp_leaf.cuh), csrc/ordered_kernels.cu
-over csrc/ordered_traverse.cuh, csrc/v6_kernels.cu (and, for closest_v6,
-csrc/bf8_warp_kernels.cu) over csrc/v6_traverse.cuh, the last two sharing
-their leaf tests in csrc/page_leaf.cuh, all over csrc/rt_common.cuh),
-built with nvcc at first use into the port's git-ignored build directory,
-one library per source, and bound through ctypes. They are bound by
-dependent global loads of node and page rows, not by FLOPs: one thread per
-ray walks its own stack (K1/K2, K5/K6, the archive walks) or the preorder
-skip links (K3/K4). K1, closest_v6, K3/K4 and K5/K6 are redesigned for the
-card: each ray keeps its walk (K5/K6: in its own instance space), and the
-warp tests each pending leaf (K5/K6: each pending shared page) together,
-the page staged into shared memory once per group of lanes
-(csrc/bf8_warp_kernels.cu, csrc/v4_warp_kernels.cu,
+points). The kernels are CUDA C++ for sm_90a (csrc/bf8_warp_kernels.cu,
+csrc/bf8_occluded_warp_kernels.cu and csrc/bf8_kernels.cu over
+csrc/bf8_traverse.cuh, csrc/v4_warp_kernels.cu and csrc/v4_kernels.cu over
+csrc/v4_traverse.cuh, csrc/bf8i_warp_kernels.cu and csrc/bf8i_kernels.cu
+over csrc/bf8i_traverse.cuh (the warp sources sharing their leaf test in
+csrc/warp_leaf.cuh), csrc/ordered_kernels.cu over
+csrc/ordered_traverse.cuh, csrc/v6_kernels.cu (and, for closest_v6 and
+occluded_v6, the two BF8 warp sources) over csrc/v6_traverse.cuh, the last
+two sharing their leaf tests in csrc/page_leaf.cuh, all over
+csrc/rt_common.cuh), built with nvcc at first use into the port's
+git-ignored build directory, one library per source, and bound through
+ctypes. They are bound by dependent global loads of node and page rows,
+not by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6, the
+archive walks) or the preorder skip links (K3/K4). K1/K2, closest_v6,
+occluded_v6, K3/K4 and K5/K6 are redesigned for the card: each ray keeps
+its walk (K5/K6: in its own instance space), and the warp tests each
+pending leaf (K5/K6: each pending shared page) together, the page staged
+into shared memory once per group of lanes (csrc/bf8_warp_kernels.cu,
+csrc/bf8_occluded_warp_kernels.cu, csrc/v4_warp_kernels.cu,
 csrc/bf8i_warp_kernels.cu). Their first design, one thread per ray testing
 each leaf alone, stays as the baseline arm of the A/B and as their counted
 variant, reached only by name: `closest_bf8_per_ray` (also K1's pops
-variant, csrc/bf8_kernels.cu), `closest_v6_per_ray` (csrc/v6_kernels.cu),
+variant), `occluded_bf8_per_ray` (csrc/bf8_kernels.cu),
+`closest_v6_per_ray`, `occluded_v6_per_ray` (csrc/v6_kernels.cu),
 `closest_v4_per_ray`, `occluded_v4_per_ray` (csrc/v4_kernels.cu),
 `closest_bf8i_per_ray`, `occluded_bf8i_per_ray` (csrc/bf8i_kernels.cu).
 
@@ -46,7 +49,8 @@ all rays tested against all of them in chunks
 space first), with the kernel's Woop arithmetic and tie rule. The trees are
 conservative, so it computes the same function as the traversal. The warp
 kernels' schedules have their own plain versions (`closest_bf8_warp_plain`,
-`closest_v6_warp_plain`, `closest_v4_warp_plain`, `occluded_v4_warp_plain`,
+`occluded_bf8_warp_plain`, `closest_v6_warp_plain`,
+`occluded_v6_warp_plain`, `closest_v4_warp_plain`, `occluded_v4_warp_plain`,
 `closest_bf8i_warp_plain`, `occluded_bf8i_warp_plain`): the per-ray walk of
 every lane at once, paused at each leaf, grouped by (warp, leaf) or (warp,
 page) and reduced with the kernels' key; their hits are the per-ray walk's
@@ -97,6 +101,10 @@ _CUDA_LIBS = {
              (CSRC / "bf8_warp_kernels.cu", CSRC / "warp_leaf.cuh",
               CSRC / "v6_traverse.cuh", CSRC / "bf8_traverse.cuh",
               CSRC / "page_leaf.cuh", _COMMON)),
+    "bf8wo": (BUILD_DIR / "libpt_bf8wo_sm90a.so",
+              (CSRC / "bf8_occluded_warp_kernels.cu", CSRC / "warp_leaf.cuh",
+               CSRC / "bf8i_traverse.cuh", CSRC / "v6_traverse.cuh",
+               CSRC / "bf8_traverse.cuh", CSRC / "page_leaf.cuh", _COMMON)),
     "v4": (BUILD_DIR / "libpt_v4_sm90a.so",
            (CSRC / "v4_kernels.cu", CSRC / "v4_traverse.cuh", _COMMON)),
     "v4w": (BUILD_DIR / "libpt_v4w_sm90a.so",
@@ -121,13 +129,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"closest_bf8": 0, "closest_bf8_per_ray": 0,
-            "closest_bf8_pops": 0, "occluded_bf8": 0, "closest_v4": 0,
+            "closest_bf8_pops": 0, "occluded_bf8": 0,
+            "occluded_bf8_per_ray": 0, "closest_v4": 0,
             "occluded_v4": 0, "closest_v4_per_ray": 0,
             "occluded_v4_per_ray": 0, "closest_bf8i": 0,
             "occluded_bf8i": 0, "closest_bf8i_per_ray": 0,
             "occluded_bf8i_per_ray": 0, "closest_ordered": 0, "closest_v6": 0,
             "closest_v6_per_ray": 0, "closest_v6k2": 0, "closest_v7": 0,
-            "occluded_v6": 0}
+            "occluded_v6": 0, "occluded_v6_per_ray": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
 # v6_traverse.cuh); the wrappers raise on a tree that could overflow them
 ORDERED_STACK = 64
@@ -237,6 +246,17 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_bf8w_blocks_per_sm.argtypes = [i]
                 lib.pt_bf8w_smem_per_block.restype = i
                 lib.pt_bf8w_smem_per_block.argtypes = []
+            elif name == "bf8wo":       # K2 and occluded_v6: occlusion only
+                lib.pt_bf8wo_occluded.restype = i
+                lib.pt_bf8wo_occluded.argtypes = ([p] * 6 + [i, i] + rays
+                                                  + [i, i, p, p])
+                lib.pt_bf8wo_occluded_v6.restype = i
+                lib.pt_bf8wo_occluded_v6.argtypes = ([p] * 5 + [i] * 3
+                                                     + rays + [i, p, p])
+                lib.pt_bf8wo_blocks_per_sm.restype = i
+                lib.pt_bf8wo_blocks_per_sm.argtypes = [i]
+                lib.pt_bf8wo_smem_per_block.restype = i
+                lib.pt_bf8wo_smem_per_block.argtypes = []
             elif name in _WARP_LIBS:    # no counted variant
                 # v4w: five pointers, three ints; bf8iw: nine pointers, two
                 # ints, and an int flag (raw_ids, opaque_only)
@@ -272,9 +292,9 @@ def _lib(name: str) -> ctypes.CDLL:
 # the per-ray K3-K6 (v4_kernels.cu, bf8i_kernels.cu) are exported under
 # this suffix (K1's and closest_v6's per-ray designs keep their names)
 _PER_RAY = {"v4": "_per_ray", "bf8i": "_per_ray"}
-# the warp-cooperative K3/K4, K5/K6, and K1 with closest_v6: no counted
-# variant
-_WARP_LIBS = ("v4w", "bf8iw", "bf8w")
+# the warp-cooperative K3/K4, K5/K6, K1 with closest_v6, and K2 with
+# occluded_v6: no counted variant
+_WARP_LIBS = ("v4w", "bf8iw", "bf8w", "bf8wo")
 
 
 def _closest_symbol(lib_name: str) -> str:
@@ -522,7 +542,7 @@ def _launch_closest(name: str, lib_name: str, tree_args, bvh, origins, dirs,
 
 def _launch_occluded(name: str, lib_name: str, tree_args, bvh, origins,
                      dirs, dist, tmin: float, n: int, counts=None,
-                     flags=()) -> torch.Tensor:
+                     flags=(), symbol=None) -> torch.Tensor:
     """As `_launch_closest`, for an occlusion kernel: a bool (N,)."""
     out = torch.empty(n, dtype=torch.uint8, device=origins.device)
     if n == 0:
@@ -530,7 +550,7 @@ def _launch_occluded(name: str, lib_name: str, tree_args, bvh, origins,
     lib = _lib(lib_name)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
     counted = () if lib_name in _WARP_LIBS else _counts_ptrs(counts, bvh)
-    code = getattr(lib, _occluded_symbol(lib_name))(
+    code = getattr(lib, symbol or _occluded_symbol(lib_name))(
         *tree_args, origins.data_ptr(), dirs.data_ptr(), dist.data_ptr(),
         float(tmin), *flags, n, out.data_ptr(), *counted, stream)
     _raise_on(lib, code, name)
@@ -587,17 +607,39 @@ def closest_bf8_per_ray(bvh8: BF8BVH, origins: torch.Tensor,
 
 def occluded_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
                  dist: torch.Tensor, tmin: float = 1e-5,
-                 opaque_only: bool = False,
-                 counts: Optional[WorkCounts] = None) -> torch.Tensor:
+                 opaque_only: bool = False) -> torch.Tensor:
     """Any hit with tmin < t < dist for N rays over a BF8BVH; bool (N,).
-    With `opaque_only`, triangles tagged ALPHA_TRI_BIT are ignored.
-    `counts` as for closest_bf8."""
+    With `opaque_only`, triangles tagged ALPHA_TRI_BIT are ignored. On the
+    card it launches the warp kernel (bf8_occluded_warp_kernels.cu): each
+    ray walks as the per-ray kernel does, the warp tests each pending leaf
+    together, and an occluded ray leaves its group. Its counted variant is
+    the per-ray one (`occluded_bf8_per_ray(..., counts=)`), since the walk
+    is the same."""
     n = _check(bvh8, origins, dirs, dist, "dist")
     if origins.device.type == "cpu":
         return occluded_bf8_plain(bvh8, origins, dirs, dist, tmin,
                                   opaque_only)
-    return _launch_occluded("occluded_bf8", "bf8", _tree_args(bvh8), bvh8,
-                            origins, dirs, dist, tmin, n, counts,
+    _check_warp_pages(bvh8)
+    return _launch_occluded("occluded_bf8", "bf8wo", _tree_args(bvh8), bvh8,
+                            origins, dirs, dist, tmin, n,
+                            flags=(int(bool(opaque_only)),))
+
+
+def occluded_bf8_per_ray(bvh8: BF8BVH, origins: torch.Tensor,
+                         dirs: torch.Tensor, dist: torch.Tensor,
+                         tmin: float = 1e-5, opaque_only: bool = False,
+                         counts: Optional[WorkCounts] = None
+                         ) -> torch.Tensor:
+    """K2's first design, one thread per ray testing each leaf alone
+    (bf8_kernels.cu): the baseline arm of the A/B against occluded_bf8, and
+    its counted variant (`counts` as for closest_bf8_per_ray). Nothing on
+    the render path calls it."""
+    n = _check(bvh8, origins, dirs, dist, "dist")
+    if origins.device.type == "cpu":
+        return occluded_bf8_plain(bvh8, origins, dirs, dist, tmin,
+                                  opaque_only)
+    return _launch_occluded("occluded_bf8_per_ray", "bf8", _tree_args(bvh8),
+                            bvh8, origins, dirs, dist, tmin, n, counts,
                             flags=(int(bool(opaque_only)),))
 
 
@@ -646,14 +688,15 @@ def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
 # the kernels of each warp library, in its blocks_per_sm argument's order
 _WARP_KERNELS = {"v4w": ("closest", "occluded"),
                  "bf8iw": ("closest", "occluded"),
-                 "bf8w": ("closest_bf8", "closest_v6")}
+                 "bf8w": ("closest_bf8", "closest_v6"),
+                 "bf8wo": ("occluded_bf8", "occluded_v6")}
 
 
 def warp_occupancy(lib_name: str, device) -> Dict[str, int]:
     """A warp library's ("v4w": K3/K4, "bf8iw": K5/K6, "bf8w": K1 and
-    closest_v6) resident blocks per SM of each kernel
-    (`<kernel>_blocks_per_sm`) and static shared memory per block, as the
-    built library reports them."""
+    closest_v6, "bf8wo": K2 and occluded_v6) resident blocks per SM of each
+    kernel (`<kernel>_blocks_per_sm`) and static shared memory per block,
+    as the built library reports them."""
     if lib_name not in _WARP_LIBS:
         raise ValueError(f"{lib_name!r} is not a warp library: {_WARP_LIBS}")
     if torch.device(device).type != "cuda":
@@ -856,15 +899,32 @@ def closest_v7(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
 
 
 def occluded_v6(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
-                dist: torch.Tensor, tmin: float = 1e-5,
-                counts: Optional[WorkCounts] = None) -> torch.Tensor:
+                dist: torch.Tensor, tmin: float = 1e-5) -> torch.Tensor:
     """Any hit with tmin < t < dist for N rays over a BF8V6; bool (N,).
-    Every triangle occludes (pt's v6 has no `opaque_only`)."""
+    Every triangle occludes (pt's v6 has no `opaque_only`). On the card it
+    launches the warp kernel (bf8_occluded_warp_kernels.cu,
+    `pt_bf8wo_occluded_v6`), as occluded_bf8. Its counted variant is the
+    per-ray one (`occluded_v6_per_ray(..., counts=)`)."""
     n = _check_v6(bvh6, origins, dirs, dist, "dist", bvh6.stack_bound)
     if origins.device.type == "cpu":
         return occluded_v6_plain(bvh6, origins, dirs, dist, tmin)
-    return _launch_occluded("occluded_v6", "v6", _tree_args_v6(bvh6), bvh6,
-                            origins, dirs, dist, tmin, n, counts)
+    _check_warp_pages(bvh6)
+    return _launch_occluded("occluded_v6", "bf8wo", _tree_args_v6(bvh6),
+                            bvh6, origins, dirs, dist, tmin, n,
+                            symbol="pt_bf8wo_occluded_v6")
+
+
+def occluded_v6_per_ray(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+                        dist: torch.Tensor, tmin: float = 1e-5,
+                        counts: Optional[WorkCounts] = None) -> torch.Tensor:
+    """occluded_v6's first design, one thread per ray testing each leaf
+    alone (v6_kernels.cu): the baseline arm of the A/B against occluded_v6,
+    and its counted variant. Nothing on the render path calls it."""
+    n = _check_v6(bvh6, origins, dirs, dist, "dist", bvh6.stack_bound)
+    if origins.device.type == "cpu":
+        return occluded_v6_plain(bvh6, origins, dirs, dist, tmin)
+    return _launch_occluded("occluded_v6_per_ray", "v6", _tree_args_v6(bvh6),
+                            bvh6, origins, dirs, dist, tmin, n, counts)
 
 
 # ---------------------------------------------------------------- plain
@@ -1173,15 +1233,16 @@ _NO_KEY = 0xFFFFFFFF
 
 class WarpSchedule(NamedTuple):
     """What the warp kernels (v4_warp_kernels.cu, bf8i_warp_kernels.cu,
-    bf8_warp_kernels.cu) do on a launch's rays, as their plain schedules
-    (`closest_v4_warp_plain`, `closest_bf8i_warp_plain`,
-    `closest_bf8_warp_plain`, `closest_v6_warp_plain` and the occlusion
-    twins) count it. A warp is 32 consecutive lanes; in a round every lane
-    of a warp that is not done holds a pending leaf. Per launch:
+    bf8_warp_kernels.cu, bf8_occluded_warp_kernels.cu) do on a launch's
+    rays, as their plain schedules (`closest_v4_warp_plain`,
+    `closest_bf8i_warp_plain`, `closest_bf8_warp_plain`,
+    `closest_v6_warp_plain` and the occlusion twins) count it. A warp is
+    32 consecutive lanes; in a round every lane of a warp that is not done
+    holds a pending leaf. Per launch:
     `node_visits` (slab tests of a binary node or wide-node visits, as the
     per-ray walk's counted variant counts them), `warps` with any leaf
     round, `rounds` (summed over warps), `groups` (distinct pages of a
-    warp's round, K1/K3/K4/closest_v6 a leaf's own page, K5/K6 a shared
+    warp's round, K1-K4 and the v6 walks a leaf's own page, K5/K6 a shared
     page: one page read each), `leaves` (distinct leaves in those groups;
     but for K5/K6, `groups`), `leaf_visits` ((lane, leaf) pairs, the sum of
     the lanes in each group), `chunk_loads` (32-triangle chunks staged; an
@@ -1192,9 +1253,10 @@ class WarpSchedule(NamedTuple):
     accept, each ray's own lane testing it), `lanes_per_group` (groups of
     1, 2-3, 4-7, 8-15, 16-31 and 32 lanes), and, as the per-ray walk's
     counted variant counts them, `leaf_boxes` (popped leaves whose box a
-    closest BF8 walk retested; the other walks retest none) and
-    `tri_tests` (the triangle columns the walk tests: every valid one of a
-    visited leaf, an occlusion walk's up to the first that occludes)."""
+    closest BF8 walk or occluded_v6 retested; the other walks retest none)
+    and `tri_tests` (the triangle columns the walk tests: every valid one
+    of a visited leaf, an occlusion walk's up to the first that
+    occludes)."""
     warps: int
     rounds: int
     groups: int
@@ -1542,18 +1604,28 @@ def occluded_bf8i_warp_plain(bvh: BF8Instanced, origins, dirs, dist,
                                flag=opaque_only)
 
 
-def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float):
-    """The warp K1's (a BF8BVH) or closest_v6's (a BF8V6) schedule, every
-    lane at once: each live lane runs its own stack walk (`_Stacks`: K1
-    pushes far-first, v6 in the node's static order for the ray's octant;
-    both retest a popped leaf's box against the lane's best t) to its next
-    leaf to test; the round's pending lanes are grouped by (warp, leaf) and
-    tested chunk by chunk with the kernels' reduction; then they resume. A
-    chunk with fewer valid columns than rays to test is tested per ray in
-    the kernel (`warp_tests` counts it so); the bits are the same either
-    way. Returns ((t, id, u, v), WarpSchedule)."""
+def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float,
+                       any_hit: bool = False, opaque_only: bool = False):
+    """The warp K1's or K2's (a BF8BVH) or closest_v6's or occluded_v6's (a
+    BF8V6) schedule, every lane at once: each live lane runs its own stack
+    walk (`_Stacks`) to its next leaf to test; the round's pending lanes are
+    grouped by (warp, leaf) and tested chunk by chunk, closest with the
+    kernels' reduction, occlusion by whether any column accepts; then they
+    resume. The walks: K1 pushes far-first, closest_v6 in the node's static
+    order for the ray's octant, both retesting a popped leaf's box against
+    the lane's best t; the occlusion walks push in child order, K2 with no
+    leaf-box retest, occluded_v6 retesting against `limit`. An occluded
+    lane is done (its stack emptied); with `opaque_only` (K2) columns
+    tagged ALPHA_TRI_BIT cannot accept. A chunk with fewer columns that can
+    accept than rays to test is tested per ray in the kernel (`warp_tests`
+    counts it so); the bits are the same either way. Returns ((t, id, u, v)
+    or the occlusion bools, WarpSchedule)."""
     tree = _walk_tree(bvh)
-    order = "near" if tree.c_order is None else "octant"
+    if any_hit:
+        order = "child"
+    else:
+        order = "near" if tree.c_order is None else "octant"
+    retest = not any_hit or tree.c_order is not None
     w, bias, wd, ids = _leaf_columns(bvh)
     dev = origins.device
     n, nc = origins.shape[0], bvh.block // WARP
@@ -1562,13 +1634,18 @@ def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float):
     best = (limit.clone(), torch.full((n,), -1, dtype=torch.int64,
                                       device=dev),
             torch.zeros_like(limit), torch.zeros_like(limit))
+    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
     warp_rounds = torch.zeros((n + WARP - 1) // WARP, dtype=torch.int64,
                               device=dev)
     hist = torch.zeros(6, dtype=torch.int64, device=dev)
-    groups = visits = steps = nodes = boxes = tris = 0
+    groups = visits = loads = tests = steps = nodes = boxes = tris = 0
     per_slice = max(1, (1 << 22) // bvh.block)
-    valid = ids >= 0
-    n_cols = valid.reshape(-1, nc, WARP).sum(dim=2)           # (L, nc)
+    # per leaf and chunk, the columns that can accept
+    can = ids >= 0
+    if any_hit and opaque_only:
+        can &= (ids & ALPHA_TRI_BIT) == 0
+    n_cols = can.reshape(-1, nc, WARP).sum(dim=2)             # (L, nc)
+    chunk = torch.arange(nc, device=dev)
     while True:
         pending = torch.full((n,), -1, dtype=torch.int64, device=dev)
         walking = torch.nonzero(st.sp > 0).squeeze(1)
@@ -1576,10 +1653,12 @@ def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float):
             ent = st.pop(walking)
             leaf = ent >= LEAF_BIT
             ll, lid = walking[leaf], ent[leaf] - LEAF_BIT
-            boxes += ll.numel()                   # the leaf-box retest
-            ok, _ = _slab(tree.l_lo[lid], tree.l_hi[lid], origins[ll],
-                          inv[ll], best[0][ll])
-            pending[ll[ok]] = lid[ok]
+            if retest:                            # the leaf-box retest
+                boxes += ll.numel()
+                ok, _ = _slab(tree.l_lo[lid], tree.l_hi[lid], origins[ll],
+                              inv[ll], best[0][ll])
+                ll, lid = ll[ok], lid[ok]
+            pending[ll] = lid
             nl = walking[~leaf]
             if nl.numel():
                 nodes += nl.numel()
@@ -1596,13 +1675,19 @@ def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float):
         groups += cnt.numel()
         visits += lanes.numel()
         hist += h
-        tris += int(n_cols[lid].sum())
+        tested = torch.full((lanes.numel(),), nc, dtype=torch.int64,
+                            device=dev)
         for s0 in range(0, lanes.numel(), per_slice):
             sl = slice(s0, s0 + per_slice)
             ln, li = lanes[sl], lid[sl]
             t, u, v, acc = _woop_chunk(origins[ln], dirs[ln], w[li],
                                        bias[li], wd[li], tmin, limit[ln])
-            acc &= valid[li]
+            acc &= can[li]
+            tris += _tri_tests(can[li], acc, any_hit)
+            if any_hit:
+                occ, tested[sl] = _any_chunk_hit(acc, nc)
+                occluded[ln[occ]] = True
+                continue
             idc = ids[li].to(torch.int64) & ~ALPHA_TRI_BIT
             mine = tuple(b[ln] for b in best)
             for c in range(nc):
@@ -1611,15 +1696,27 @@ def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float):
                     t[:, cs], u[:, cs], v[:, cs], acc[:, cs], idc[:, cs]))
             for b, m in zip(best, mine):
                 b[ln] = m
-        # every member is tested at every chunk: the warp steps through the
-        # fewer of its rays and the chunk's valid columns
+        tests += int(tested.sum())
+        # the rays each group still tests at each chunk against its columns
+        # that can accept: the warp steps through the fewer of the two
+        active = torch.zeros((cnt.numel(), nc), dtype=torch.int64,
+                             device=dev).index_add_(
+            0, inverse, (tested[:, None] > chunk).long())
         g_leaf = torch.zeros_like(cnt).scatter_(0, inverse, lid)
-        steps += int(torch.minimum(cnt[:, None], n_cols[g_leaf]).sum())
+        steps += int(torch.minimum(active, n_cols[g_leaf]).sum())
+        if any_hit:
+            occ_l = occluded[lanes]
+            loads += _occlusion_loads(occ_l, inverse, tested, cnt.numel(), nc)
+            st.sp[lanes[occ_l]] = 0               # an occluded lane is done
+        else:
+            loads += cnt.numel() * nc
     sched = WarpSchedule(int((warp_rounds > 0).sum()),
                          int(warp_rounds.sum()), groups, groups, visits,
-                         groups * nc, visits * nc, steps,
+                         loads, tests, steps,
                          tuple(int(x) for x in hist.tolist()), nodes, boxes,
                          tris)
+    if any_hit:
+        return occluded, sched
     t, bid, u, v = best
     return Hit(t, torch.where(bid >= 0, bid, -1).to(torch.int32), u,
                v), sched
@@ -1638,6 +1735,22 @@ def closest_v6_warp_plain(bvh6, origins, dirs, tmax, tmin: float = 1e-5):
     BF8V6: (Hit, WarpSchedule). Its hits are bit-equal to the per-ray walk's
     (v6_traverse.cuh's `closest`), ties across leaves included."""
     return _bf8_warp_schedule(bvh6, origins, dirs, tmax, tmin)
+
+
+def occluded_bf8_warp_plain(bvh8: BF8BVH, origins, dirs, dist,
+                            tmin: float = 1e-5, opaque_only: bool = False):
+    """Plain PyTorch version of the occluded_bf8 warp kernel's schedule:
+    (bool (N,), WarpSchedule), the bools the per-ray walk's
+    (bf8_traverse.cuh's `occluded`)."""
+    return _bf8_warp_schedule(bvh8, origins, dirs, dist, tmin, any_hit=True,
+                              opaque_only=opaque_only)
+
+
+def occluded_v6_warp_plain(bvh6, origins, dirs, dist, tmin: float = 1e-5):
+    """Plain PyTorch version of the occluded_v6 warp kernel's schedule over a
+    BF8V6: (bool (N,), WarpSchedule), the bools the per-ray walk's
+    (v6_traverse.cuh's `occluded`)."""
+    return _bf8_warp_schedule(bvh6, origins, dirs, dist, tmin, any_hit=True)
 
 
 # the archive kernels' plain versions: the page brute does not depend on

@@ -11,10 +11,10 @@ K1-K6 and the archive kernels (closest_ordered, closest_v6, closest_v6k2,
 closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the kernels are
 built with -fmad=false and run the plain version's f32 arithmetic in its
 order. The pops variant of K1's per-ray design gives the warp K1's hits
-and the plain walk's pops. The warp-cooperative K1, closest_v6, K3/K4 and
-K5/K6 give the per-ray arm's bits on every lane (K1, closest_v6 and K5/K6
-also the plain warp schedule's), and K1 and closest_v6 raise on a tree
-whose pages cannot be staged.
+and the plain walk's pops. The warp-cooperative K1/K2, closest_v6,
+occluded_v6, K3/K4 and K5/K6 give the per-ray arm's bits on every lane
+(K1/K2, the v6 walks and K5/K6 also the plain warp schedule's), and K1/K2
+and the v6 walks raise on a tree whose pages cannot be staged.
 """
 
 import numpy as np
@@ -669,12 +669,11 @@ def bf8_walk_trees(device, block, seed=81):
 BF8_WALKS = {"bf8": "closest_bf8", "v6": "closest_v6"}
 
 
-def leaf_tree(device, leaves, pad=0.0):
-    """A BF8 tree of one wide node over up to 8 leaves of 32 columns, and its
-    BF8V6. `leaves`: per leaf its triangles' corners (k, 3, 3), ids (k,) and
-    alpha tags (k,), padded out to 32 columns; each leaf's box (child and
-    leaf bounds alike) is its triangles' widened by `pad`."""
-    blk = 32
+def leaf_tree(device, leaves, pad=0.0, blk=32):
+    """A BF8 tree of one wide node over up to 8 leaves of `blk` columns, and
+    its BF8V6. `leaves`: per leaf its triangles' corners (k, 3, 3), ids (k,)
+    and alpha tags (k,), padded out to `blk` columns; each leaf's box (child
+    and leaf bounds alike) is its triangles' widened by `pad`."""
     n = len(leaves)
     v0 = np.zeros((n * blk, 3), np.float32)
     e1, e2 = np.zeros_like(v0), np.zeros_like(v0)
@@ -717,6 +716,36 @@ def sparse_leaf_trees(device):
     return leaf_tree(device, [
         ((pos + [2.5 * (s % 4), 0.1 * s, 2.5 * (s // 4)])[tris],
          np.arange(k) + k * s, np.arange(k) % 2 == 1) for s in range(8)])
+
+
+def first_chunk_trees(device):
+    """`leaf_tree` over 8 leaves of 128 columns (four chunks), each a wavy
+    grid on top (columns 0-7) over 15 copies of it lowered one below the
+    other: a ray from above through a leaf's interior (`first_chunk_rays`)
+    is occluded by the top grid, in the leaf's first chunk."""
+    import chip_smoke
+    pos, _, _, tris = chip_smoke._wavy_grid(3)
+    k = len(tris)
+    stack = np.concatenate([pos[tris] - [0, 0.6 + 0.05 * j, 0] if j else
+                            pos[tris] for j in range(16)])
+    none = np.zeros(16 * k, bool)
+    return leaf_tree(device, [
+        (stack + [2.5 * (s % 4), 0.1 * s, 2.5 * (s // 4)],
+         np.arange(16 * k) + 16 * k * s, none) for s in range(8)], blk=128)
+
+
+def first_chunk_rays(n, device):
+    """Rays from above through the interiors of `first_chunk_trees`'
+    leaves, neighbours in neighbouring lanes."""
+    rng = np.random.default_rng(84)
+    leaf = np.sort(rng.integers(0, 8, n))
+    o = np.stack([rng.uniform(-0.8, 0.8, n) + 2.5 * (leaf % 4),
+                  np.full(n, 5.0),
+                  rng.uniform(-0.8, 0.8, n) + 2.5 * (leaf // 4)], -1)
+    d = np.tile(np.asarray([[0.01, -1.0, 0.02]]), (n, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o.astype(np.float32), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
 
 
 def sparse_leaf_rays(n, device):
@@ -823,3 +852,111 @@ def test_cuda_bench_pops_hits_equal_warp_k1(cuda_device):
         for a, b in zip(_bits(hp), _bits(hk)):
             assert torch.equal(a, b)
         assert torch.equal(pops, row["pops"])
+
+
+# the warp kernel behind each walk of bf8_occluded_warp_kernels.cu
+BF8_OCC_WALKS = {"bf8": "occluded_bf8", "v6": "occluded_v6"}
+
+
+def _occ_flags(walk):
+    """The keyword sets to run a walk's occlusion with: K2 with opaque_only
+    off and on; pt's v6 has no flag."""
+    return ({}, {"opaque_only": True}) if walk == "bf8" else ({},)
+
+
+def _occ_arms(name, tree, o, d, dist, **kw):
+    """The warp kernel, its per-ray arm and its plain warp schedule on one
+    ray set: (warp, per-ray, plain, schedule); each wrapper counts its own
+    launch."""
+    before = dict(kernels.launches)
+    ow = getattr(kernels, name)(tree, o, d, dist, **kw)
+    orr = getattr(kernels, name + "_per_ray")(tree, o, d, dist, **kw)
+    torch.cuda.synchronize()
+    for k in (name, name + "_per_ray"):
+        assert kernels.launches[k] == before[k] + 1, k
+    op, sched = getattr(kernels, name + "_warp_plain")(tree, o, d, dist, **kw)
+    return ow, orr, op, sched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("walk", list(BF8_OCC_WALKS))
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_cuda_bf8_occluded_warp_kernels_match_per_ray(cuda_device, walk,
+                                                      block, n):
+    """The warp K2 (opaque_only off and on) and occluded_v6 against their
+    per-ray arm and the plain warp schedule on every lane, at leaves of
+    `block`, with lanes that fill no whole warp."""
+    tree = bf8_walk_trees(cuda_device, block)[walk]
+    name = BF8_OCC_WALKS[walk]
+    o, d = _rays(4096, 85, cuda_device)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    dist = torch.as_tensor(np.random.default_rng(86).uniform(1, 25, n)
+                           .astype(np.float32), device=cuda_device)
+    for kw in _occ_flags(walk):
+        ow, orr, op, _ = _occ_arms(name, tree, o, d, dist, **kw)
+        assert ow.dtype == torch.bool
+        assert torch.equal(ow, orr) and torch.equal(ow, op)
+        if n == 1000:
+            assert 0 < int(orr.sum()) < n
+
+
+@pytest.mark.gpu
+def test_cuda_bf8_occluded_warp_kernels_on_sparse_and_first_chunk_leaves(
+        cuda_device):
+    """Leaves of 8 triangles tested by groups of up to 32 rays (the column
+    mode), and leaves of 128 columns whose first chunk occludes every
+    member (the group stops staging): the bools equal the per-ray arm's
+    and the plain schedule's."""
+    n = 4096
+    dist = torch.full((n,), 1e4, device=cuda_device)
+    for trees, rays in ((sparse_leaf_trees, sparse_leaf_rays),
+                        (first_chunk_trees, first_chunk_rays)):
+        o, d = rays(n, cuda_device)
+        for tree, (walk, name) in zip(trees(cuda_device),
+                                      BF8_OCC_WALKS.items()):
+            for kw in _occ_flags(walk):
+                ow, orr, op, sched = _occ_arms(name, tree, o, d, dist, **kw)
+                assert torch.equal(ow, orr) and torch.equal(ow, op)
+                assert int(orr.sum()) > n // 4
+                if trees is sparse_leaf_trees:
+                    assert sched.warp_tests < sched.ray_chunk_tests // 2
+                else:
+                    assert sched.chunk_loads == 2 * sched.groups
+
+
+@pytest.mark.gpu
+def test_cuda_bf8_occluded_warp_kernels_launch_nothing_on_no_rays(
+        cuda_device):
+    trees = bf8_walk_trees(cuda_device, 32)
+    empty = torch.empty((0, 3), device=cuda_device)
+    none = torch.empty((0,), device=cuda_device)
+    before = dict(kernels.launches)
+    for walk, name in BF8_OCC_WALKS.items():
+        occ = getattr(kernels, name)(trees[walk], empty, empty, none)
+        assert occ.shape == (0,) and occ.dtype == torch.bool
+    assert kernels.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_bf8_occluded_warp_kernels_raise_on_unstageable_trees(
+        cuda_device):
+    """occluded_bf8 and occluded_v6 raise on pages the warp kernels cannot
+    stage (a base off 16 bytes, a block off 32) and launch nothing: no
+    fallback to the per-ray kernel."""
+    import dataclasses
+    trees = bf8_walk_trees(cuda_device, 32)
+    o, d = _rays(64, 87, cuda_device)
+    dist = torch.full((64,), 20.0, device=cuda_device)
+    for walk, name in BF8_OCC_WALKS.items():
+        tree = trees[walk]
+        pages = tree.pages
+        off = torch.empty(pages.numel() + 1, device=cuda_device)[1:]
+        off = off.view(pages.shape).copy_(pages)
+        assert off.data_ptr() % 16 != 0
+        before = dict(kernels.launches)
+        for bad in (dataclasses.replace(tree, pages=off),
+                    dataclasses.replace(tree, block=48)):
+            with pytest.raises(ValueError, match="multiples of 32"):
+                getattr(kernels, name)(bad, o, d, dist)
+        assert kernels.launches == before
