@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`pt_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sass-against OTHER_CHECKOUT]
 
 Phases, each fatal on failure (nothing is caught and passed over):
 
 1. device: name, count, versions, `nvidia-smi` name and power limit;
 2. build: every traversal kernel (one nvcc per source for sm_90a, with
    -Xptxas -v) and the native SBVH library (g++), all started together;
-   the warp K1/closest_v6's, K2/occluded_v6's, K3/K4's and K5/K6's
-   resident blocks per SM and shared memory per block;
+   the warp K1/closest_v6's, K2/occluded_v6's, K3/K4's, K5/K6's and
+   closest_ordered's resident blocks per SM and shared memory per block;
+   with --sass-against, every library's SASS against that checkout's,
+   kernel by kernel (logged);
 3. kernel parity at full size, each kernel against its plain PyTorch version
    on the card: K1 (closest_bf8) and K2 (occluded_bf8, and opaque_only on a
    structure with every other triangle non-opaque) over the Heightfield
@@ -21,7 +23,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
    (closest_v4_per_ray, occluded_v4_per_ray) on every lane, over that tree,
    the Morton tree of the same triangles at block 128 and two static SAH
    trees (the v4 fallback, and one at block >= 512), each also against
-   the plain versions; the warp K1 (closest_bf8) and closest_v6 bit-equal
+   the plain versions, and on the same sets and trees the warp
+   closest_ordered bit-equal to its per-ray arm (closest_ordered_per_ray)
+   and its plain warp schedule; the warp K1 (closest_bf8) and closest_v6 bit-equal
    to their per-ray arm (closest_bf8_per_ray, closest_v6_per_ray) and to
    their plain warp schedule on every lane of every BF8 and BF8V6 set, and
    likewise the warp K2 (occluded_bf8, opaque_only off and on) and
@@ -96,8 +100,11 @@ Phases, each fatal on failure (nothing is caught and passed over):
    the bounce-0 and bounce-2 wavefronts, closest_ordered beside K3 on the
    Morton tree's, each bound from the least work of the walks that computed
    the same function on the same rays; the A/B of closest_v6's and
-   occluded_v6's two designs on the same wavefronts, their plain warp
-   schedules' groups and ptxas's lines; the Heightfield (n=64) with a BF8V6
+   occluded_v6's two designs on the same wavefronts, and of
+   closest_ordered's over the fine SBVH and the Morton tree (beside the
+   warp K3), their plain warp schedules' groups and ptxas's lines; the warp
+   closest_ordered bit-equal to its per-ray arm and plain schedule over the
+   harness's SAH tree and the fine SBVH; the Heightfield (n=64) with a BF8V6
    at 64², card against CPU;
 9. the Courtyard at 512², 5 bounces: detail 0.85 with `instancing="shared"`
    (985 segments; three instanced trees) and detail 1.0 with "auto" (1135
@@ -107,9 +114,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
     1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
     alpha frames, the static alpha variant and a small instanced alpha scene
     at 32²;
-11. budget and drain: `pt`'s last two Pallas entry points through the pops
-    variant of K1's per-ray design (`closest_bf8_per_ray(..., pops=)`:
-    each lane's walk iterations; a warp's rounds are its lanes' most).
+11. budget and drain: `pt`'s last two Pallas entry points through K1's
+    pops launch (`closest_bf8(..., pops=)`, the warp kernel's pops
+    instance: each lane's walk iterations; a warp's rounds are its lanes'
+    most, as a one-thread-per-ray schedule would step).
     `pt_torch.benches.budget.main` at its defaults (the Heightfield n=224
     under its SAH tree, 512², 5 bounces: per-bounce stage times,
     `rounds_of` and the warp lockstep share, leaf-visit waste, the union
@@ -117,14 +125,16 @@ Phases, each fatal on failure (nothing is caught and passed over):
     `.drain_sim.main` (`done_rounds_of`) for the Heightfield and the
     Courtyard at COURT_TEX_SCALE (whose triangles are checked equal to
     those at COURT_TEX_SCALE_PARITY), launch counters as above. On every
-    bounce's wavefront: the pops launch's hits equal the warp K1's on every
-    lane,
-    its pops the plain walk's on 16,384 lanes, their sum a counted launch's
-    node visits plus leaf retests, rounds the most of done per block, no
-    stack above its bound. The pops variant timed beside the warp K1 and the
-    per-ray K1 on the bounce-0 and bounce-2 wavefronts, with its plain walk
-    and its bound (K1's plus 4 bytes a lane). The phase logs its own
-    seconds.
+    bounce's wavefront: the pops launch's and its per-ray arm's
+    (`closest_bf8_per_ray(..., pops=)`) hits equal the warp K1's on every
+    lane, their pops each other's and the plain walk's on 16,384 lanes,
+    their sum a counted launch's node visits plus leaf retests, the bench's
+    rounds, done and lockstep those of the per-ray arm's pops, rounds the
+    most of done per block, no stack above its bound. The A/B of the pops
+    launch against its per-ray arm (per-ray, warp, warp, per-ray) beside
+    the warp and the per-ray K1 on the bounce-0 and bounce-2 wavefronts,
+    with its plain walk and its bound (K1's plus 4 bytes a lane). The phase
+    logs its own seconds.
 
 Phase 3 also holds K5 (closest_bf8i, with raw_ids) and K6 (occluded_bf8i,
 with opaque_only), the warp kernels, against their plain versions over the
@@ -136,9 +146,11 @@ occluded_bf8i_per_ray) on every lane of the same sets.
 Prints the kernels' JSON line (K1-K6, each with its per-ray arm's time
 from the A/B, then one row per archive entry point, with the kernel it
 runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
-time on the same rays; A3 and A6 their A/B at both bounces), then the
-rows `rounds_of` and `done_rounds_of`, kernel "closest_bf8_per_ray
-(pops)"), then the
+time on the same rays; A3 and A6 their A/B at both bounces; A1, A7 and
+A10 their per-ray arm's time and the A/B over the fine SBVH and the
+Morton tree), then the
+rows `rounds_of` and `done_rounds_of`, kernel "closest_bf8 (pops)", with
+their per-ray arm's time), then the
 `nvidia-smi` line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 without a CUDA device or outside a checkout of the repository.
@@ -224,8 +236,9 @@ SOURCES = {
     "occluded_bf8i": "pt_torch/accel/csrc/bf8i_warp_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
-# K1's, K2's, the v6 walks' and K3-K6's first design, the per-ray arm of
-# the A/B; it also carries their counted variant (the walk is the same)
+# K1's, K2's, the v6 walks', K3-K6's and the ordered walk's first design,
+# the per-ray arm of the A/B; it also carries their counted variant (the
+# walk is the same)
 PER_RAY = {"closest_bf8": "closest_bf8_per_ray",
            "occluded_bf8": "occluded_bf8_per_ray",
            "closest_v6": "closest_v6_per_ray",
@@ -233,7 +246,8 @@ PER_RAY = {"closest_bf8": "closest_bf8_per_ray",
            "closest_v4": "closest_v4_per_ray",
            "occluded_v4": "occluded_v4_per_ray",
            "closest_bf8i": "closest_bf8i_per_ray",
-           "occluded_bf8i": "occluded_bf8i_per_ray"}
+           "occluded_bf8i": "occluded_bf8i_per_ray",
+           "closest_ordered": "closest_ordered_per_ray"}
 # the archive's entry points (pt/accel/pallas_bvh_archive.py), in pt's order
 # A1-A10, each with the port's kernel that it runs
 ARCHIVE = {
@@ -248,7 +262,7 @@ ARCHIVE = {
     "packet_occluded_sub": (2063, "occluded_v4"),
     "packet_closest_sub": (2089, "closest_ordered"),
 }
-SOURCES.update(closest_ordered="pt_torch/accel/csrc/ordered_kernels.cu",
+SOURCES.update(closest_ordered="pt_torch/accel/csrc/ordered_warp_kernels.cu",
                closest_v6="pt_torch/accel/csrc/bf8_warp_kernels.cu",
                closest_v6k2="pt_torch/accel/csrc/v6_kernels.cu",
                closest_v7="pt_torch/accel/csrc/v6_kernels.cu",
@@ -536,12 +550,27 @@ def phase_build():
         log(f"[build] {line}")
     for lib, which in (("v4w", "K3/K4"), ("bf8iw", "K5/K6"),
                        ("bf8w", "K1/closest_v6"),
-                       ("bf8wo", "K2/occluded_v6")):
+                       ("bf8wo", "K2/occluded_v6"),
+                       ("ordw", "closest_ordered")):
         occ = kernels.warp_occupancy(lib, "cuda")
         check(min(occ.values()) > 0,
               f"warp {which} occupancy query failed: {occ}")
         OCCUPANCY[lib] = occ
         log(f"[build] warp {which} (128 threads a block): {occ}")
+
+
+def phase_sass(other):
+    """With `other` (the root of another checkout of the repository, such
+    as the parent commit unpacked beside this one), every kernel library's
+    SASS against the other's build, kernel by kernel
+    (`pt_torch.benches.sass_diff`); logged, not checked."""
+    if other is None:
+        log("[sass] no other checkout named (--sass-against): not compared")
+        return
+    from pt_torch.benches import sass_diff
+    t0 = time.perf_counter()
+    sass_diff.main(other, emit=lambda line: log(f"[sass] {line}"))
+    log(f"[sass] against {other}: {time.perf_counter() - t0:.1f} s")
 
 
 def _log_build_of(tag, lib, walk):
@@ -762,14 +791,12 @@ def _arms_equal(bvh, o, d, t, dist, what, pair=("closest_v4",
           f"{n_o} occlusion lanes differ from the per-ray arm")
 
 
-def _bf8_arms(tree, rays, what, rng):
-    """The warp K1 (over a BF8BVH) or closest_v6 (over a BF8V6) against its
+def _closest_arms(name, tree, rays, what):
+    """The warp closest kernel `name` (closest_bf8 over a BF8BVH,
+    closest_v6 over a BF8V6, closest_ordered over a PacketBVH) against its
     per-ray arm and its plain warp schedule on one ray set: the t, u and v
-    bits and the id of every lane must be equal; then the occlusion twins
-    (`_bf8_occ_arms`) on the same rays up to seeded distances."""
-    import torch
+    bits and the id of every lane must be equal."""
     from pt_torch.accel import kernels
-    name = "closest_v6" if hasattr(tree, "c_order") else "closest_bf8"
     hw = getattr(kernels, name)(tree, *rays)
     hr = getattr(kernels, PER_RAY[name])(tree, *rays)
     hp, sched = getattr(kernels, name + "_warp_plain")(tree, *rays)
@@ -786,6 +813,15 @@ def _bf8_arms(tree, rays, what, rng):
         f"ray-chunk tests)")
     check(n_r == 0 and n_p == 0, f"warp {name} {what}: {n_r} lanes differ "
           f"from the per-ray arm, {n_p} from the plain schedule")
+
+
+def _bf8_arms(tree, rays, what, rng):
+    """`_closest_arms` of the warp K1 (over a BF8BVH) or closest_v6 (over a
+    BF8V6); then the occlusion twins (`_bf8_occ_arms`) on the same rays up
+    to seeded distances."""
+    import torch
+    _closest_arms("closest_v6" if hasattr(tree, "c_order") else
+                  "closest_bf8", tree, rays, what)
     o = rays[0]
     dist = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
                            .astype(np.float32), device=o.device)
@@ -901,10 +937,12 @@ def _parity_bf8_trees(rng):
 def _parity_v4(rng):
     """K3/K4 against their plain versions over the Morton tree of the
     Animated Heightfield's second frame, on real wavefronts; the warp
-    kernels against the per-ray arm bit for bit on the same sets, over that
-    tree, the Morton tree of the same triangles at block 128 and two static
-    SAH trees (the fallback at the default block, and one at block >= 512
-    whose pages are staged in 16 or more chunks)."""
+    kernels (K3/K4 and closest_ordered) against their per-ray arm bit for
+    bit on the same sets (closest_ordered also against its plain warp
+    schedule), over that tree, the Morton tree of the same triangles at
+    block 128 and two static SAH trees (the fallback at the default block,
+    and one at block >= 512 whose pages are staged in 16 or more
+    chunks)."""
     import torch
     from pt_torch.accel.bvh8 import build_packet_bvh, build_packet_bvh_sah
     t0 = time.perf_counter()
@@ -958,6 +996,8 @@ def _parity_v4(rng):
         tag = "" if tree is bvh else f"{name}, "
         for (what, (o, d, t)), dist in zip(sets, dists):
             _arms_equal(tree, o, d, t, dist, tag + what)
+            _closest_arms("closest_ordered", tree, (o, d, t),
+                          f"{name} (depth {tree.depth}), {what}")
             errs["closest_v4"] = max(errs["closest_v4"], _compare_closest(
                 tree, o, d, t, tag + what, name="closest_v4"))
             errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
@@ -969,7 +1009,8 @@ def _parity_v4(rng):
             errs["occluded_v4"] = max(errs["occluded_v4"], _compare_occluded(
                 tree, o, d, t, tag + what, name="occluded_v4"))
     torch.cuda.synchronize()
-    log(f"[parity] K3/K4 done in {time.perf_counter() - t0:.1f} s")
+    log(f"[parity] K3/K4 and closest_ordered done in "
+        f"{time.perf_counter() - t0:.1f} s")
     return errs
 
 
@@ -2100,6 +2141,11 @@ def phase_archive():
     errs["closest_ordered"] = max(
         _parity_exact("closest_ordered", tree, closest_sets, rng)
         for tree in (bk["tree"], fine))
+    for what, tree in (("harness SAH tree", bk["tree"]), ("fine SBVH", fine)):
+        for set_name, rays in closest_sets:
+            _closest_arms("closest_ordered", tree, rays,
+                          f"{what} (block {tree.block}, depth {tree.depth}), "
+                          f"{set_name}")
 
     # times on the real bounce-0 and bounce-2 wavefronts (262,144 lanes);
     # the walks over the fine SBVH's leaves compute one function, and so do
@@ -2143,6 +2189,12 @@ def phase_archive():
                                  ("occluded_v6", "occluded")), "archive")
     _log_build_of("archive", "bf8w", "V6Walk")
     _log_build_of("archive", "bf8wo", "V6AnyHit")
+    # the warp closest_ordered against its per-ray design, over the fine
+    # SBVH
+    _ab_warp(fine, [("closest_ordered", f"fine SBVH, bounce {b}",
+                     rec.closest[b], times[("closest_ordered", b)])
+                    for b in (0, 2)], "archive")
+    _log_build_of("archive", "ordw", "ordered_warp_kernels")
     del r, rec
 
     errs["closest_ordered"] = max(errs["closest_ordered"],
@@ -2169,6 +2221,10 @@ def phase_archive():
                                 what, plain=False)
                 _least_bound({"closest_ordered": tm, "closest_v4": k3},
                              what)
+                # its two designs in turns, with the warp schedule's groups
+                harness = dict(tm)
+                _ab_warp(tree, [("closest_ordered", what, args, harness)],
+                         "archive")
             elif kernel in by_kernel:
                 for k in ("plain_ms", "bound_ms", "bound_by", "bound_bytes",
                           "bound_ops"):
@@ -2192,6 +2248,16 @@ def phase_archive():
             what = "static bounce 0, BF8V6"
         tm["workload"] = what
         tm["err"] = max(tm.get("err", 0.0), errs.get(kernel, 0.0))
+        if kernel == "closest_ordered":       # its A/B on the wavefronts
+            keep = ("per_ray_ms", "ab_ms", "bound_ms")
+            tm["ab"] = {what: {k: harness[k] for k in keep}}
+            tm["ab"].update({
+                f"{tree_name} bounce {b}": {k: times[(key, b)][k]
+                                            for k in keep}
+                for tree_name, key in (("fine SBVH", "closest_ordered"),
+                                       ("Morton tree",
+                                        "closest_ordered morton"))
+                for b in (0, 2)})
         rows[entry] = tm
     _cross_device_v6()
     log(f"[archive] done in {time.perf_counter() - t0:.1f} s")
@@ -2202,7 +2268,8 @@ def _morton_ordered(rng, times):
     """closest_ordered over the Animated Heightfield's Morton tree (its
     second frame): parity on real wavefronts, and its time beside K3's on
     the bounce-0 and bounce-2 wavefronts (262,144 lanes), both held to the
-    bound of the lesser work of the two."""
+    bound of the lesser work of the two; then the A/B of closest_ordered's
+    two designs on the same wavefronts, beside the warp K3."""
     scene = build_animated_scene(port_namespace(), 224)
     r = _renderer(scene, 512, 1, 3, "cuda")
     _step_frame(r)
@@ -2231,6 +2298,16 @@ def _morton_ordered(rng, times):
             f"{o_['ms'] / o_['bound_ms']:.1f}x and "
             f"{v_['ms'] / v_['bound_ms']:.1f}x the bound; triangle tests "
             f"{o_['tri_tests']} against {v_['tri_tests']}")
+    _ab_warp(bvh, [("closest_ordered", f"Morton tree, animated bounce {b}",
+                    rec.closest[b], times[("closest_ordered morton", b)])
+                   for b in (0, 2)], "archive")
+    for b in (0, 2):
+        o_ = times[("closest_ordered morton", b)]
+        v_ = times[("closest_v4 morton", b)]
+        log(f"[archive] animated bounce {b}, Morton tree: the warp ordered "
+            f"walk {o_['ab_ms']:.3f} ms (per-ray {o_['per_ray_ms']:.3f}) "
+            f"beside the warp K3 {v_['ms']:.3f} ms; bound "
+            f"{o_['bound_ms']:.5f} ms")
     return err
 
 
@@ -2366,18 +2443,22 @@ def phase_cross_device():
 
 
 def _pops_checks(tag, bvh8, rows, rng):
-    """Phase 11's checks on every bounce's wavefront of a bench run: the
-    pops launch's (K1's per-ray design) hits equal the warp K1's bit for
-    bit on every lane, its
-    pops equal the bench's own launch's and, on a 16,384-lane sample, the
+    """Phase 11's checks on every bounce's wavefront of a bench run: K1's
+    pops launch (the warp kernel's pops instance) and its per-ray arm give
+    hits bit-equal to the warp K1's and pops equal to each other and to the
+    bench's own launch's on every lane, and, on a 16,384-lane sample, the
     plain walk's (whose hits equal the kernel's there); the pops sum to the
-    node visits plus leaf retests of a counted launch; rounds[b] is the most
-    of done[b, :]; no lane's stack passes the tree's bound. Returns the
-    largest difference found (0 when every check passed)."""
+    node visits plus leaf retests of a counted launch; the bench's rounds,
+    per-warp rounds and lockstep share are those of the per-ray arm's pops
+    (and rounds[b] the most of done[b, :]); no lane's stack passes the
+    tree's bound. Returns the largest difference found (0 when every check
+    passed)."""
     import torch
     from pt_torch.accel import kernels
+    from pt_torch.benches import drain_sim
     check(bvh8.stack_bound <= kernels.BF8_STACK,
           f"{tag}: stack bound {bvh8.stack_bound}")
+    threads = kernels.bf8_threads_per_block("cuda")
     err = 0.0
     for row in rows:
         o, d, tmax = row["wavefront"]
@@ -2385,12 +2466,17 @@ def _pops_checks(tag, bvh8, rows, rng):
         n = o.shape[0]
         limit = torch.full((n,), float(tmax), device=o.device)
         hk = kernels.closest_bf8(bvh8, o, d, limit)
-        pops = torch.empty(n, dtype=torch.int32, device=o.device)
-        hp = kernels.closest_bf8_per_ray(bvh8, o, d, limit, pops=pops)
+        pops = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+        hp = kernels.closest_bf8(bvh8, o, d, limit, pops=pops)
+        pops_r = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+        hr = kernels.closest_bf8_per_ray(bvh8, o, d, limit, pops=pops_r)
         counts = kernels.work_counts(bvh8)
         kernels.closest_bf8_per_ray(bvh8, o, d, limit, counts=counts)
-        same = all(torch.equal(a, b) for a, b in zip(_bits(hk), _bits(hp)))
-        t_err = float((hk.t - hp.t).abs().max())
+        same = all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(_bits(hk), _bits(hp), _bits(hr)))
+        t_err = float(torch.maximum((hk.t - hp.t).abs().max(),
+                                    (hk.t - hr.t).abs().max()))
+        n_pops = int((pops != pops_r).sum())
         totals = counts.totals.tolist()
         idx = torch.as_tensor(np.sort(rng.choice(n, min(N_PARITY, n),
                                                  replace=False)),
@@ -2400,23 +2486,43 @@ def _pops_checks(tag, bvh8, rows, rng):
                                                 limit[idx], peak=peak)
         walk_same = all(torch.equal(a, b[idx]) for a, b in zip(hw, hk))
         p_err = float((pw - pops[idx]).abs().max())
-        log(f"[{tag}] bounce {row['bounce']}: {n} lanes, pops launch hits "
-            f"{'equal' if same else 'DIFFER from'} the warp K1's (max|dt| "
-            f"{t_err:.3e}); pops sum {int(pops.sum())} against node visits "
-            f"+ leaf retests {totals[0] + totals[1]}; pops equal the plain "
-            f"walk's on {idx.numel()} lanes: {p_err == 0} (walk hits equal "
-            f"the kernel's: {walk_same}); lane pops mean "
-            f"{float(pops.float().mean()):.2f} max {int(pops.max())}; stack "
-            f"peak {int(peak.max())} of bound {bvh8.stack_bound}")
-        check(same, f"{tag} bounce {row['bounce']}: the pops launch's hits "
+        # the bench's numbers from the per-ray arm's pops
+        lanes_r = drain_sim.lanes_of(pops_r, threads)
+        done_r = lanes_r.max(axis=2)
+        rounds_r = done_r.max(axis=1)
+        lockstep_r = float(lanes_r.sum()) / max(drain_sim.WARP
+                                                * int(done_r.sum()), 1)
+        if "done" in row:
+            model_same = (np.array_equal(done_r, row["done"])
+                          and np.array_equal(rounds_r, row["rounds"])
+                          and drain_sim.simulate(done_r)
+                          == (row["current"], row["lower"], row["rows"]))
+        else:
+            model_same = (int(np.median(rounds_r)) == row["rounds_p50"]
+                          and int(rounds_r.max()) == row["rounds_max"])
+        model_same = model_same and lockstep_r == row["lockstep"]
+        log(f"[{tag}] bounce {row['bounce']}: {n} lanes, the warp pops "
+            f"launch's and the per-ray arm's hits {'equal' if same else 'DIFFER from'} "
+            f"the warp K1's (max|dt| {t_err:.3e}); {n_pops} lanes' pops "
+            f"differ between the two; pops sum {int(pops.sum())} against "
+            f"node visits + leaf retests {totals[0] + totals[1]}; pops "
+            f"equal the plain walk's on {idx.numel()} lanes: {p_err == 0} "
+            f"(walk hits equal the kernel's: {walk_same}); the bench's "
+            f"rounds and lockstep {lockstep_r:.4f} from the per-ray arm's "
+            f"pops: {'the same' if model_same else 'DIFFERENT'}; lane pops "
+            f"mean {float(pops.float().mean()):.2f} max {int(pops.max())}; "
+            f"stack peak {int(peak.max())} of bound {bvh8.stack_bound}")
+        check(same, f"{tag} bounce {row['bounce']}: the pops launches' hits "
               "differ from K1's")
-        check(torch.equal(pops, row["pops"]),
+        check(n_pops == 0 and torch.equal(pops, row["pops"]),
               f"{tag} bounce {row['bounce']}: pops differ between launches")
         check(int(pops.sum()) == totals[0] + totals[1],
               f"{tag} bounce {row['bounce']}: pops sum {int(pops.sum())} "
               f"against {totals[0] + totals[1]}")
         check(p_err == 0 and walk_same,
               f"{tag} bounce {row['bounce']}: pops differ from the plain walk")
+        check(model_same, f"{tag} bounce {row['bounce']}: the bench's rounds "
+              "or lockstep differ from the per-ray arm's")
         if "done" in row:
             check(bool((row["rounds"] == row["done"].max(axis=1)).all()),
                   f"{tag} bounce {row['bounce']}: rounds != max(done)")
@@ -2427,12 +2533,13 @@ def _pops_checks(tag, bvh8, rows, rng):
 
 
 def _time_pops(bvh8, row, what):
-    """The pops variant of K1's per-ray design beside the warp K1 and the
-    uncounted per-ray K1 on one wavefront (CUDA events, the least of 3
-    blocks of 5 launches each), its plain version's time (one run; its pops
-    must equal the kernel's on every lane), and its bound: K1's bound on
-    these rays from a counted launch, plus the 4 bytes per lane the variant
-    writes."""
+    """K1's pops launch (the warp kernel's pops instance) against its
+    per-ray arm on one wavefront, in turns (per-ray, warp, warp, per-ray;
+    each the least of 2 blocks of 5 launches), beside the uncounted warp
+    and per-ray K1 (the least of 3 blocks); its plain version's time (one
+    run; its pops must equal the kernel's on every lane), and its bound:
+    K1's bound on these rays from a counted launch, plus the 4 bytes per
+    lane the launch writes."""
     import torch
     from pt_torch.accel import kernels
     o, d, tmax = row["wavefront"]
@@ -2445,25 +2552,35 @@ def _time_pops(bvh8, row, what):
     k1 = _bound(n, 16, counts, bvh8)
     res = dict(n=n, k1_bound_ms=k1["bound_ms"],
                **_bound_of(k1["bound_bytes"] + 4 * n, k1["bound_ops"]))
-    res["ms"] = min(cuda_ms(lambda: kernels.closest_bf8_per_ray(
-        bvh8, o, d, limit, pops=pops), reps=5) for _ in range(3))
+    arms = {"per_ray": [], "warp": []}
+    fns = {"per_ray": kernels.closest_bf8_per_ray, "warp": kernels.closest_bf8}
+    for arm in ("per_ray", "warp", "warp", "per_ray"):
+        arms[arm].append(min(cuda_ms(lambda: fns[arm](
+            bvh8, o, d, limit, pops=pops), reps=5) for _ in range(2)))
+    res["ms"] = float(np.mean(arms["warp"]))
+    res["per_ray_ms"] = float(np.mean(arms["per_ray"]))
     res["k1_ms"] = min(cuda_ms(lambda: kernels.closest_bf8(
         bvh8, o, d, limit), reps=5) for _ in range(3))
-    res["per_ray_ms"] = min(cuda_ms(lambda: kernels.closest_bf8_per_ray(
+    res["per_ray_k1_ms"] = min(cuda_ms(lambda: kernels.closest_bf8_per_ray(
         bvh8, o, d, limit), reps=5) for _ in range(3))
+    kernels.closest_bf8(bvh8, o, d, limit, pops=pops)
     out = {}
     res["plain_ms"] = cuda_ms(lambda: out.update(
         p=kernels.closest_bf8_walk_plain(bvh8, o, d, limit)), reps=1,
         warm=False)
     check(torch.equal(out["p"][1], pops),
           f"{what}: the plain walk's pops differ from the kernel's")
-    log(f"[budget] closest_bf8_per_ray (pops) on {what}: {n} lanes, "
-        f"{res['ms']:.3f} ms against the warp K1 {res['k1_ms']:.3f} ms and "
-        f"the uncounted per-ray K1 {res['per_ray_ms']:.3f} ms (plain walk "
-        f"{res['plain_ms']:.1f} ms, pops equal on every lane), bound "
-        f"{res['bound_ms']:.5f} ms by {res['bound_by']} ({res['bound_bytes']}"
-        f" bytes: K1's {k1['bound_bytes']} + 4 per lane; K1's bound "
-        f"{k1['bound_ms']:.5f} ms)")
+    log(f"[budget] A/B of the pops launch on {what}: {n} lanes, per-ray "
+        f"{arms['per_ray'][0]:.3f} / {arms['per_ray'][1]:.3f} ms, warp "
+        f"{arms['warp'][0]:.3f} / {arms['warp'][1]:.3f} ms "
+        f"({res['per_ray_ms'] / res['ms']:.2f}x); beside the warp K1 "
+        f"{res['k1_ms']:.3f} ms and the uncounted per-ray K1 "
+        f"{res['per_ray_k1_ms']:.3f} ms (plain walk {res['plain_ms']:.1f} "
+        f"ms, pops equal on every lane); bound {res['bound_ms']:.5f} ms by "
+        f"{res['bound_by']} ({res['bound_bytes']} bytes: K1's "
+        f"{k1['bound_bytes']} + 4 per lane; K1's bound {k1['bound_ms']:.5f} "
+        f"ms): warp {res['ms'] / res['bound_ms']:.1f}x, per-ray "
+        f"{res['per_ray_ms'] / res['bound_ms']:.1f}x the bound")
     return res
 
 
@@ -2488,6 +2605,7 @@ def phase_budget():
     b_launches = {k: v for k, v in kernels.launches.items() if v}
     log(f"[budget] launches in budget.main: {b_launches}")
     check(b_launches.get("closest_bf8_pops") == len(bud["bounces"])
+          and "closest_bf8_pops_per_ray" not in b_launches
           and b_launches.get("closest_bf8", 0) > 0
           and b_launches.get("occluded_bf8", 0) > 0,
           f"budget.main: launches {b_launches}")
@@ -2502,6 +2620,7 @@ def phase_budget():
     log(f"[drain] launches in drain_sim.main (both scenes): {d_launches}")
     check(d_launches.get("closest_bf8_pops") == sum(
         len(r["bounces"]) for r in drains.values())
+        and "closest_bf8_pops_per_ray" not in d_launches
         and d_launches.get("closest_bf8", 0) > 0,
         f"drain_sim.main: launches {d_launches}")
     t2 = time.perf_counter()
@@ -2537,8 +2656,10 @@ def phase_budget():
                            ms_bounce2=tm[2]["ms"],
                            k1_ms_bounce2=tm[2]["k1_ms"],
                            per_ray_ms_bounce2=tm[2]["per_ray_ms"],
+                           per_ray_k1_ms_bounce2=tm[2]["per_ray_k1_ms"],
                            plain_ms_bounce2=tm[2]["plain_ms"],
                            bound_ms_bounce2=tm[2]["bound_ms"])
+    _log_build_of("budget", "bf8w", "Bf8PopsWalk")
     log(f"[budget] phase 11 in {time.perf_counter() - t0:.1f} s (budget.main "
         f"{t1 - t0:.1f} s, drain_sim.main {t2 - t1:.1f} s, checks "
         f"{t3 - t2:.1f} s, times {time.perf_counter() - t3:.1f} s)")
@@ -2552,9 +2673,16 @@ def main() -> None:
     if not (ROOT / "pt_torch" / "accel" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no pt_torch/)")
     sys.path.insert(0, str(ROOT))
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sass-against", metavar="CHECKOUT",
+                    help="also compare every kernel library's machine code "
+                    "with CHECKOUT's (pt_torch/benches/sass_diff.py)")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
+    phase_sass(args.sass_against)
     errs = phase_parity()
     counts, times, main_stats = phase_main()
     a_counts, a_times, anim_stats = phase_animated()
@@ -2601,23 +2729,26 @@ def main() -> None:
                      "lanes": tm["n"]})
         rows[-1].update({k: tm[k] for k in ("per_ray_ms", "ab_ms",
                                             "per_ray_ms_bounce2",
-                                            "ab_ms_bounce2") if k in tm})
+                                            "ab_ms_bounce2", "ab")
+                         if k in tm})
     for entry, line in (("rounds_of", "benches/budget.py:56"),
                         ("done_rounds_of", "benches/drain_sim.py:40")):
         tm = b_rows[entry]
         rows.append({"name": entry, "route": "cuda",
-                     "source": "pt_torch/accel/csrc/bf8_kernels.cu",
+                     "source": "pt_torch/accel/csrc/bf8_warp_kernels.cu",
                      "replaces": f"{line} {entry}",
                      "launches": tm["launches"], "max_abs_err": tm["err"],
                      "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                      "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                      "library_ms": None,
-                     "kernel": "closest_bf8_per_ray (pops)",
+                     "kernel": "closest_bf8 (pops)",
                      "workload": tm["workload"], "lanes": tm["n"],
                      "k1_ms": tm["k1_ms"], "ms_bounce2": tm["ms_bounce2"],
                      "k1_ms_bounce2": tm["k1_ms_bounce2"],
                      "per_ray_ms": tm["per_ray_ms"],
                      "per_ray_ms_bounce2": tm["per_ray_ms_bounce2"],
+                     "per_ray_k1_ms": tm["per_ray_k1_ms"],
+                     "per_ray_k1_ms_bounce2": tm["per_ray_k1_ms_bounce2"],
                      "plain_ms_bounce2": tm["plain_ms_bounce2"],
                      "bound_ms_bounce2": tm["bound_ms_bounce2"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; static main path "

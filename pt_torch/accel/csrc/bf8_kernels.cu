@@ -12,10 +12,11 @@
 // visited or a page column tested. A closest launch with `pops` (N int32)
 // non-null runs the pops variant, which writes each lane's iterations of its
 // walk loop there (one per pop of a wide node or a leaf; no atomics): the
-// port's counterpart of pt's diagnostic rows 4 and 5, the lockstep rounds
-// of benches/budget.py:rounds_of and benches/drain_sim.py:done_rounds_of.
-// A warp of 32 lanes steps in lockstep until its slowest lane is done, so
-// the max of a warp's pops is its rounds. The hits are those of the
+// per-ray arm of the pops launch that the port's benches/budget.py:rounds_of
+// and benches/drain_sim.py:done_rounds_of read (pt's diagnostic rows 4 and
+// 5, the lockstep rounds), bf8_warp_kernels.cu's pops instance. A warp of
+// 32 lanes steps in lockstep until its slowest lane is done, so the max of
+// a warp's pops is its rounds. The hits are those of the
 // uncounted launch. The kernels allocate nothing; each launcher returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 //

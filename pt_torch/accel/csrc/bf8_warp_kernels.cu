@@ -11,8 +11,8 @@
 // node or a leaf that its own walk would not visit.
 //
 // What bounded the first design (bf8_kernels.cu and v6_kernels.cu, kept as
-// the per-ray arm of the A/B and as the counted and pops variants,
-// `pt_bf8_closest`, `pt_v6_closest`): one lane tested a leaf alone, `block`
+// the per-ray arm of the A/B (K1's also of its pops instance) and as the
+// counted variants, `pt_bf8_closest`, `pt_v6_closest`): one lane tested a leaf alone, `block`
 // iterations of 22 scattered loads from 7 page rows page_cols * 4 bytes
 // apart, however many lanes of the warp were in that leaf; and a warp
 // stepped through those iterations until its slowest lane was done.
@@ -47,6 +47,15 @@
 //   5. The members resume their walks with the next pop of their own stacks.
 // Built with -fmad=false: every t, u and v rounds as in the per-ray kernels.
 //
+// K1's kernel has a pops instance (`Bf8PopsWalk`, `pt_bf8w_closest_pops`),
+// which B1/B2 (pt's benches/budget.py:rounds_of and benches/drain_sim.py:
+// done_rounds_of) read: each lane writes the iterations of its walk loop
+// (one per pop of a wide node or of a leaf, as bf8_traverse.cuh's kPops
+// counts them), with no atomics. A lane pops what its per-ray walk pops, in
+// the same order, so the pops are the per-ray pops variant's on every lane;
+// lanes past n make no iteration. The flag is the walk's compile-time
+// `kPops`, off in Bf8Walk and V6Walk, whose kernels carry no counting code.
+//
 // Resources: 128 threads (4 warps) a block; 22,528 bytes of static shared
 // memory a block (4 warps x 2 stages x 22 x 32 f32); each lane's stack of
 // bf8::kStackDepth entries lives in local memory, as in the per-ray
@@ -69,6 +78,7 @@ constexpr int kWarps = kThreads / kLanes;
 
 // K1's walk (bf8::closest)
 struct Bf8Walk {
+    static constexpr bool kPops = false;
     bf8::Tree tree;
 
     __device__ __forceinline__ bool leaf_box(int32_t lid, const rt::Ray& r,
@@ -85,8 +95,15 @@ struct Bf8Walk {
     }
 };
 
+// K1's walk with its pops written to `pops` (N,)
+struct Bf8PopsWalk : Bf8Walk {
+    static constexpr bool kPops = true;
+    int32_t* pops;
+};
+
 // closest_v6's walk (v6::closest, one pop per iteration)
 struct V6Walk {
+    static constexpr bool kPops = false;
     v6::Tree tree;
 
     __device__ __forceinline__ bool leaf_box(int32_t lid, const rt::Ray& r,
@@ -132,6 +149,7 @@ closest_kernel(Walk walk, const float* __restrict__ orig,
     const int block = walk.tree.block;
     const int cols = walk.tree.page_cols;
     const size_t page_floats = (size_t)8 * (size_t)cols;
+    [[maybe_unused]] int32_t n_pops = 0;
 
     // the walk's rule, on the lane's own best (bf8_traverse.cuh)
     auto merge = [&](float t, float u, float v, int32_t id) {
@@ -149,6 +167,7 @@ closest_kernel(Walk walk, const float* __restrict__ orig,
         int32_t pending = -1;
         while (sp > 0) {
             const int32_t ent = stack[--sp];
+            if constexpr (Walk::kPops) ++n_pops;
             if (ent >= bf8::kLeafBit) {
                 const int32_t lid = ent - bf8::kLeafBit;
                 if (walk.leaf_box(lid, r, best_t)) {
@@ -219,6 +238,7 @@ closest_kernel(Walk walk, const float* __restrict__ orig,
         // 5. the members resume their walks with the next pop
     }
     if (!valid) return;
+    if constexpr (Walk::kPops) walk.pops[i] = n_pops;
     t_out[i] = best_t;
     tri_out[i] = best_tri;
     u_out[i] = best_u;
@@ -256,6 +276,22 @@ int pt_bf8w_closest(const float* c_lo, const float* c_hi,
                   v_out, stream);
 }
 
+// K1 with each lane's pops written to `pops` (N,) int32
+int pt_bf8w_closest_pops(const float* c_lo, const float* c_hi,
+                         const int32_t* c_ent, const float* l_lo,
+                         const float* l_hi, const float* pages, int block,
+                         int page_cols, const float* orig, const float* dir,
+                         const float* tmax, float tmin, int n, float* t_out,
+                         int32_t* tri_out, float* u_out, float* v_out,
+                         int32_t* pops, void* stream) {
+    Bf8PopsWalk walk;
+    walk.tree = bf8::Tree{c_lo, c_hi, c_ent, l_lo, l_hi, pages, block,
+                          page_cols};
+    walk.pops = pops;
+    return launch(walk, orig, dir, tmax, tmin, n, t_out, tri_out, u_out,
+                  v_out, stream);
+}
+
 int pt_bf8w_closest_v6(const float* u_lo, const float* u_hi,
                        const int32_t* c_ent, const int32_t* c_order,
                        const float* pages, int n8, int block, int page_cols,
@@ -281,6 +317,10 @@ int pt_bf8w_blocks_per_sm(int walk) {
               &blocks, closest_kernel<Bf8Walk>, kThreads, 0);
     return e == cudaSuccess ? blocks : -(int)e;
 }
+
+// threads per block of every launch of this library (lane i runs in block
+// i / kThreads, warp (i % kThreads) / 32)
+int pt_bf8w_threads_per_block() { return kThreads; }
 
 int pt_bf8w_smem_per_block() {
     return (int)(sizeof(float) * kWarps * kStages * kChunkFloats);

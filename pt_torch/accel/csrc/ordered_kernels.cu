@@ -4,10 +4,13 @@
 // Replaces pt/accel/pallas_bvh_archive.py:packet_closest (A7),
 // :packet_closest_sub (A10) and :packet_closest_v3 (A1), whose Pallas
 // bodies walk the same tree in the same order and differ only in how they
-// schedule 1024-ray packets on the TPU. One thread per ray, blocks of 128
-// threads on a 1-D grid; the per-ray code is ordered_traverse.cuh, a
-// 64-entry stack per thread in local memory. Rays come as contiguous (N, 3)
-// f32 origins and directions and an (N,) f32 tmax. A launch with `stats`
+// schedule 1024-ray packets on the TPU. The first design, kept as the
+// per-ray arm of the A/B against the warp-cooperative kernel
+// (ordered_warp_kernels.cu, which the wrappers launch) and as the counted
+// variant. One thread per ray, blocks of 128 threads on a 1-D grid; the
+// per-ray code is ordered_traverse.cuh, a 64-entry stack per thread in
+// local memory. Rays come as contiguous (N, 3) f32 origins and directions
+// and an (N,) f32 tmax. A launch with `stats`
 // (2 uint64) null runs the uncounted variant, which carries no counting
 // code; with it, the counted variant adds the run's totals of box tests
 // (each node's box counted once, not its pop retest) and triangle tests

@@ -1,7 +1,9 @@
 // Pieces shared by the warp-cooperative traversal kernels
 // (v4_warp_kernels.cu: K3/K4 over a PacketBVH; bf8i_warp_kernels.cu: K5/K6
 // over an instanced BF8 tree; bf8_warp_kernels.cu: K1 over a BF8 tree and
-// closest_v6 over a BF8V6). Each lane walks its own ray; when every live
+// closest_v6 over a BF8V6; bf8_occluded_warp_kernels.cu: K2 and
+// occluded_v6; ordered_warp_kernels.cu: closest_ordered's near-child-first
+// walk over a PacketBVH). Each lane walks its own ray; when every live
 // lane of the warp holds a pending page or is done, the warp groups its
 // lanes by page and tests each page together. What they share:
 //   * the staging: a page is staged into shared memory in chunks of 32
@@ -15,8 +17,8 @@
 //     rt::woop's arithmetic in its order);
 //   * the key: closest reduces an order-preserving key of t (`t_key`, -0.0
 //     folded into +0.0) over the lanes, then the id at that key;
-//   * the group loop (`test_groups`) of the BF8 warp kernels (K1,
-//     closest_v6, K5/K6); K3/K4 keep their own, which their A/B measured;
+//   * the group loop (`test_groups`) of every warp kernel but K3/K4, which
+//     keep their own, which their A/B measured;
 //   * the pages' conditions (`stageable`): block % 32 == 0 (every
 //     builder's page-group granularity), page_cols % 4 == 0 and a 16-byte
 //     aligned base.

@@ -17,8 +17,9 @@ csrc/bf8_occluded_warp_kernels.cu and csrc/bf8_kernels.cu over
 csrc/bf8_traverse.cuh, csrc/v4_warp_kernels.cu and csrc/v4_kernels.cu over
 csrc/v4_traverse.cuh, csrc/bf8i_warp_kernels.cu and csrc/bf8i_kernels.cu
 over csrc/bf8i_traverse.cuh (the warp sources sharing their leaf test in
-csrc/warp_leaf.cuh), csrc/ordered_kernels.cu over
-csrc/ordered_traverse.cuh, csrc/v6_kernels.cu (and, for closest_v6 and
+csrc/warp_leaf.cuh), csrc/ordered_warp_kernels.cu and
+csrc/ordered_kernels.cu over csrc/ordered_traverse.cuh,
+csrc/v6_kernels.cu (and, for closest_v6 and
 occluded_v6, the two BF8 warp sources) over csrc/v6_traverse.cuh, the last
 two sharing their leaf tests in csrc/page_leaf.cuh, all over
 csrc/rt_common.cuh), built with nvcc at first use into the port's
@@ -26,18 +27,20 @@ git-ignored build directory, one library per source, and bound through
 ctypes. They are bound by dependent global loads of node and page rows,
 not by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6, the
 archive walks) or the preorder skip links (K3/K4). K1/K2, closest_v6,
-occluded_v6, K3/K4 and K5/K6 are redesigned for the card: each ray keeps
-its walk (K5/K6: in its own instance space), and the warp tests each
-pending leaf (K5/K6: each pending shared page) together, the page staged
-into shared memory once per group of lanes (csrc/bf8_warp_kernels.cu,
-csrc/bf8_occluded_warp_kernels.cu, csrc/v4_warp_kernels.cu,
-csrc/bf8i_warp_kernels.cu). Their first design, one thread per ray testing
-each leaf alone, stays as the baseline arm of the A/B and as their counted
-variant, reached only by name: `closest_bf8_per_ray` (also K1's pops
-variant), `occluded_bf8_per_ray` (csrc/bf8_kernels.cu),
+occluded_v6, K3/K4, K5/K6 and closest_ordered are redesigned for the card:
+each ray keeps its walk (K5/K6: in its own instance space), and the warp
+tests each pending leaf (K5/K6: each pending shared page) together, the
+page staged into shared memory once per group of lanes
+(csrc/bf8_warp_kernels.cu, csrc/bf8_occluded_warp_kernels.cu,
+csrc/v4_warp_kernels.cu, csrc/bf8i_warp_kernels.cu,
+csrc/ordered_warp_kernels.cu). Their first design, one thread per ray
+testing each leaf alone, stays as the baseline arm of the A/B and as their
+counted variant, reached only by name: `closest_bf8_per_ray` (also the A/B
+arm of K1's pops launch), `occluded_bf8_per_ray` (csrc/bf8_kernels.cu),
 `closest_v6_per_ray`, `occluded_v6_per_ray` (csrc/v6_kernels.cu),
 `closest_v4_per_ray`, `occluded_v4_per_ray` (csrc/v4_kernels.cu),
-`closest_bf8i_per_ray`, `occluded_bf8i_per_ray` (csrc/bf8i_kernels.cu).
+`closest_bf8i_per_ray`, `occluded_bf8i_per_ray` (csrc/bf8i_kernels.cu),
+`closest_ordered_per_ray` (csrc/ordered_kernels.cu).
 
 Beside each kernel sits its plain PyTorch version (`closest_bf8_plain`,
 `occluded_bf8_plain`, `closest_v4_plain`, `occluded_v4_plain`,
@@ -51,26 +54,30 @@ conservative, so it computes the same function as the traversal. The warp
 kernels' schedules have their own plain versions (`closest_bf8_warp_plain`,
 `occluded_bf8_warp_plain`, `closest_v6_warp_plain`,
 `occluded_v6_warp_plain`, `closest_v4_warp_plain`, `occluded_v4_warp_plain`,
-`closest_bf8i_warp_plain`, `occluded_bf8i_warp_plain`): the per-ray walk of
+`closest_bf8i_warp_plain`, `occluded_bf8i_warp_plain`,
+`closest_ordered_warp_plain`): the per-ray walk of
 every lane at once, paused at each leaf, grouped by (warp, leaf) or (warp,
 page) and reduced with the kernels' key; their hits are the per-ray walk's
 bit for bit, and they count the groups.
 
-K1's per-ray design has a pops variant (`closest_bf8_per_ray(...,
-pops=...)`): each lane writes the iterations of its walk loop, one per pop
-of a wide node or a leaf, and the hits are K1's. It is the port's
+K1 has a pops launch (`closest_bf8(..., pops=...)`, the warp kernel's
+pops instance; its A/B arm `closest_bf8_per_ray(..., pops=...)`): each
+lane writes the iterations of its walk loop, one per pop of a wide node or
+a leaf, and the hits are K1's. A lane of the warp kernel pops what its
+per-ray walk pops, so the two write the same pops. It is the port's
 counterpart of the diagnostic rows that benches/budget.py:rounds_of and
 benches/drain_sim.py:done_rounds_of read from pt's K1 (lockstep rounds per
 program, per sub-packet), reduced per warp by pt_torch/benches/: the
-lockstep of the per-ray design. Its plain version is
+lockstep of a one-thread-per-ray schedule. Its plain version is
 `closest_bf8_walk_plain`, a vectorised stack walk over all lanes that
 repeats the kernel step by step.
 
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises. Each
 launch adds one to `launches[name]` (a pops launch to
-`launches["closest_bf8_pops"]`, a per-ray launch to
-`launches["closest_bf8_per_ray"]`, `["closest_v4_per_ray"]` and so on).
+`launches["closest_bf8_pops"]` or `["closest_bf8_pops_per_ray"]`, a per-ray
+launch to `launches["closest_bf8_per_ray"]`, `["closest_v4_per_ray"]` and
+so on).
 """
 
 from __future__ import annotations
@@ -120,6 +127,10 @@ _CUDA_LIBS = {
     "ordered": (BUILD_DIR / "libpt_ordered_sm90a.so",
                 (CSRC / "ordered_kernels.cu", CSRC / "ordered_traverse.cuh",
                  CSRC / "v4_traverse.cuh", CSRC / "page_leaf.cuh", _COMMON)),
+    "ordw": (BUILD_DIR / "libpt_ordw_sm90a.so",
+             (CSRC / "ordered_warp_kernels.cu", CSRC / "warp_leaf.cuh",
+              CSRC / "ordered_traverse.cuh", CSRC / "v4_traverse.cuh",
+              CSRC / "page_leaf.cuh", _COMMON)),
     "v6": (BUILD_DIR / "libpt_v6_sm90a.so",
            (CSRC / "v6_kernels.cu", CSRC / "v6_traverse.cuh",
             CSRC / "bf8_traverse.cuh", CSRC / "page_leaf.cuh", _COMMON)),
@@ -129,12 +140,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launch counts per kernel: each wrapper adds one where it launches
 launches = {"closest_bf8": 0, "closest_bf8_per_ray": 0,
-            "closest_bf8_pops": 0, "occluded_bf8": 0,
-            "occluded_bf8_per_ray": 0, "closest_v4": 0,
+            "closest_bf8_pops": 0, "closest_bf8_pops_per_ray": 0,
+            "occluded_bf8": 0, "occluded_bf8_per_ray": 0, "closest_v4": 0,
             "occluded_v4": 0, "closest_v4_per_ray": 0,
             "occluded_v4_per_ray": 0, "closest_bf8i": 0,
             "occluded_bf8i": 0, "closest_bf8i_per_ray": 0,
-            "occluded_bf8i_per_ray": 0, "closest_ordered": 0, "closest_v6": 0,
+            "occluded_bf8i_per_ray": 0, "closest_ordered": 0,
+            "closest_ordered_per_ray": 0, "closest_v6": 0,
             "closest_v6_per_ray": 0, "closest_v6k2": 0, "closest_v7": 0,
             "occluded_v6": 0, "occluded_v6_per_ray": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
@@ -239,6 +251,11 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_bf8w_closest.restype = i
                 lib.pt_bf8w_closest.argtypes = ([p] * 6 + [i, i] + rays
                                                 + [i] + [p] * 5)
+                lib.pt_bf8w_closest_pops.restype = i
+                lib.pt_bf8w_closest_pops.argtypes = ([p] * 6 + [i, i] + rays
+                                                     + [i] + [p] * 6)
+                lib.pt_bf8w_threads_per_block.restype = i
+                lib.pt_bf8w_threads_per_block.argtypes = []
                 lib.pt_bf8w_closest_v6.restype = i
                 lib.pt_bf8w_closest_v6.argtypes = ([p] * 5 + [i] * 3 + rays
                                                    + [i] + [p] * 5)
@@ -257,6 +274,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_bf8wo_blocks_per_sm.argtypes = [i]
                 lib.pt_bf8wo_smem_per_block.restype = i
                 lib.pt_bf8wo_smem_per_block.argtypes = []
+            elif name == "ordw":        # closest_ordered: closest only
+                lib.pt_ordw_closest.restype = i
+                lib.pt_ordw_closest.argtypes = ([p] * 5 + [i] * 3 + rays
+                                                + [i] + [p] * 5)
+                lib.pt_ordw_blocks_per_sm.restype = i
+                lib.pt_ordw_blocks_per_sm.argtypes = [i]
+                lib.pt_ordw_smem_per_block.restype = i
+                lib.pt_ordw_smem_per_block.argtypes = []
             elif name in _WARP_LIBS:    # no counted variant
                 # v4w: five pointers, three ints; bf8iw: nine pointers, two
                 # ints, and an int flag (raw_ids, opaque_only)
@@ -292,9 +317,9 @@ def _lib(name: str) -> ctypes.CDLL:
 # the per-ray K3-K6 (v4_kernels.cu, bf8i_kernels.cu) are exported under
 # this suffix (K1's and closest_v6's per-ray designs keep their names)
 _PER_RAY = {"v4": "_per_ray", "bf8i": "_per_ray"}
-# the warp-cooperative K3/K4, K5/K6, K1 with closest_v6, and K2 with
-# occluded_v6: no counted variant
-_WARP_LIBS = ("v4w", "bf8iw", "bf8w", "bf8wo")
+# the warp-cooperative K3/K4, K5/K6, K1 with closest_v6, K2 with
+# occluded_v6, and closest_ordered: no counted variant
+_WARP_LIBS = ("v4w", "bf8iw", "bf8w", "bf8wo", "ordw")
 
 
 def _closest_symbol(lib_name: str) -> str:
@@ -352,13 +377,14 @@ def _check_pops(pops, n: int, device) -> None:
 
 
 def bf8_threads_per_block(device) -> int:
-    """Threads per block of K1's launches: lane i runs in block i // T and
-    warp (i % T) // 32. On the card the built library reports it
-    (`pt_bf8_threads_per_block`); on the CPU, where nothing is built, it is
-    read from the same constant in csrc/bf8_kernels.cu."""
+    """Threads per block of K1's launches, its pops launch's included: lane
+    i runs in block i // T and warp (i % T) // 32. On the card the built
+    library reports it (`pt_bf8w_threads_per_block`); on the CPU, where
+    nothing is built, it is read from the same constant in
+    csrc/bf8_warp_kernels.cu."""
     if torch.device(device).type == "cuda":
-        return int(_lib("bf8").pt_bf8_threads_per_block())
-    src = (CSRC / "bf8_kernels.cu").read_text()
+        return int(_lib("bf8w").pt_bf8w_threads_per_block())
+    src = (CSRC / "bf8_warp_kernels.cu").read_text()
     return int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
 
 
@@ -559,20 +585,36 @@ def _launch_occluded(name: str, lib_name: str, tree_args, bvh, origins,
 
 
 def closest_bf8(bvh8: BF8BVH, origins: torch.Tensor, dirs: torch.Tensor,
-                tmax: torch.Tensor, tmin: float = 1e-5) -> Hit:
+                tmax: torch.Tensor, tmin: float = 1e-5,
+                pops: Optional[torch.Tensor] = None) -> Hit:
     """Closest hit of N rays (origins/dirs (N,3) f32, tmax (N,) f32) over a
     BF8BVH. Returns Hit(t, tri, u, v); a miss gives t = tmax, tri = -1. On
     the card it launches the warp kernel (bf8_warp_kernels.cu): each ray
     walks as the per-ray kernel does, and the warp tests each pending leaf
-    together. Its counted and pops variants are the per-ray ones
-    (`closest_bf8_per_ray(..., counts=, pops=)`), since the walk is the
+    together. `pops`, a (N,) int32 tensor on the rays' device, selects its
+    pops instance (launch count `launches["closest_bf8_pops"]`), which B1/B2
+    read: each lane writes the iterations of its walk loop there, one per
+    pop of a wide node or a leaf, and the hits stay the same (on the CPU
+    `closest_bf8_walk_plain` fills it). Its counted variant is the per-ray
+    one (`closest_bf8_per_ray(..., counts=)`), since the walk is the
     same."""
     n = _check(bvh8, origins, dirs, tmax, "tmax")
+    if pops is not None:
+        _check_pops(pops, n, origins.device)
     if origins.device.type == "cpu":
-        return closest_bf8_plain(bvh8, origins, dirs, tmax, tmin)
+        if pops is None:
+            return closest_bf8_plain(bvh8, origins, dirs, tmax, tmin)
+        hit, walked = closest_bf8_walk_plain(bvh8, origins, dirs, tmax, tmin)
+        pops.copy_(walked)
+        return hit
     _check_warp_pages(bvh8)
-    return _launch_closest("closest_bf8", "bf8w", _tree_args(bvh8), bvh8,
-                           origins, dirs, tmax, tmin, n)
+    if pops is None:
+        return _launch_closest("closest_bf8", "bf8w", _tree_args(bvh8), bvh8,
+                               origins, dirs, tmax, tmin, n)
+    return _launch_closest("closest_bf8_pops", "bf8w", _tree_args(bvh8),
+                           bvh8, origins, dirs, tmax, tmin, n,
+                           tail=(pops.data_ptr(),),
+                           symbol="pt_bf8w_closest_pops")
 
 
 def closest_bf8_per_ray(bvh8: BF8BVH, origins: torch.Tensor,
@@ -581,15 +623,12 @@ def closest_bf8_per_ray(bvh8: BF8BVH, origins: torch.Tensor,
                         counts: Optional[WorkCounts] = None,
                         pops: Optional[torch.Tensor] = None) -> Hit:
     """K1's first design, one thread per ray testing each leaf alone
-    (bf8_kernels.cu): the baseline arm of the A/B against closest_bf8, its
-    counted variant and its pops variant. `counts`, from
-    `work_counts(bvh8)` on the card, selects the counted variant, which
-    adds the launch's work there. `pops`, a (N,) int32 tensor on the rays'
-    device, selects the pops variant (launch count
-    `launches["closest_bf8_pops"]`): each lane writes the iterations of its
-    walk loop there, and the hits stay closest_bf8's (on the CPU
-    `closest_bf8_walk_plain` fills it). Nothing on the render path calls
-    it."""
+    (bf8_kernels.cu): the baseline arm of the A/B against closest_bf8 (and,
+    with `pops`, against its pops instance), and its counted variant.
+    `counts`, from `work_counts(bvh8)` on the card, selects the counted
+    variant, which adds the launch's work there. `pops` as for closest_bf8
+    (launch count `launches["closest_bf8_pops_per_ray"]`): the same pops
+    and hits. Nothing on the render path calls it."""
     n = _check(bvh8, origins, dirs, tmax, "tmax")
     if pops is not None:
         _check_pops(pops, n, origins.device)
@@ -600,8 +639,9 @@ def closest_bf8_per_ray(bvh8: BF8BVH, origins: torch.Tensor,
         pops.copy_(walked)
         return hit
     return _launch_closest("closest_bf8_per_ray" if pops is None
-                           else "closest_bf8_pops", "bf8", _tree_args(bvh8),
-                           bvh8, origins, dirs, tmax, tmin, n, counts,
+                           else "closest_bf8_pops_per_ray", "bf8",
+                           _tree_args(bvh8), bvh8, origins, dirs, tmax, tmin,
+                           n, counts,
                            tail=(None if pops is None else pops.data_ptr(),))
 
 
@@ -689,14 +729,15 @@ def occluded_v4(pbvh: PacketBVH, origins: torch.Tensor, dirs: torch.Tensor,
 _WARP_KERNELS = {"v4w": ("closest", "occluded"),
                  "bf8iw": ("closest", "occluded"),
                  "bf8w": ("closest_bf8", "closest_v6"),
-                 "bf8wo": ("occluded_bf8", "occluded_v6")}
+                 "bf8wo": ("occluded_bf8", "occluded_v6"),
+                 "ordw": ("closest_ordered",)}
 
 
 def warp_occupancy(lib_name: str, device) -> Dict[str, int]:
     """A warp library's ("v4w": K3/K4, "bf8iw": K5/K6, "bf8w": K1 and
-    closest_v6, "bf8wo": K2 and occluded_v6) resident blocks per SM of each
-    kernel (`<kernel>_blocks_per_sm`) and static shared memory per block,
-    as the built library reports them."""
+    closest_v6, "bf8wo": K2 and occluded_v6, "ordw": closest_ordered)
+    resident blocks per SM of each kernel (`<kernel>_blocks_per_sm`) and
+    static shared memory per block, as the built library reports them."""
     if lib_name not in _WARP_LIBS:
         raise ValueError(f"{lib_name!r} is not a warp library: {_WARP_LIBS}")
     if torch.device(device).type != "cuda":
@@ -806,23 +847,53 @@ def occluded_bf8i_per_ray(bvh: BF8Instanced, origins: torch.Tensor,
                             tmin, n, counts, flags=(int(bool(opaque_only)),))
 
 
-def closest_ordered(pbvh: PacketBVH, origins: torch.Tensor,
-                    dirs: torch.Tensor, tmax: torch.Tensor,
-                    tmin: float = 1e-5,
-                    counts: Optional[WorkCounts] = None) -> Hit:
-    """Closest hit of N rays over a binary PacketBVH by the ordered
-    (near-child-first) stack walk. Arguments and result as closest_bf8. The
-    stack holds ORDERED_STACK entries; a tree with more levels raises
-    (`pbvh.depth`, worked out once on the host)."""
+def _check_ordered(pbvh, origins, dirs, tmax) -> int:
+    """`_check_rays` plus the ordered walk's stack bound: ORDERED_STACK
+    entries; a tree with more levels raises (`pbvh.depth`, worked out once
+    on the host)."""
     n = _check_rays(pbvh, origins, dirs, tmax, "tmax")
     if pbvh.depth > ORDERED_STACK:
         raise ValueError(f"binary tree depth {pbvh.depth} needs a stack of "
                          f"{pbvh.depth} entries; the ordered kernel holds "
                          f"{ORDERED_STACK}")
+    return n
+
+
+def closest_ordered(pbvh: PacketBVH, origins: torch.Tensor,
+                    dirs: torch.Tensor, tmax: torch.Tensor,
+                    tmin: float = 1e-5,
+                    counts: Optional[WorkCounts] = None) -> Hit:
+    """Closest hit of N rays over a binary PacketBVH by the ordered
+    (near-child-first) stack walk. Arguments and result as closest_bf8. On
+    the card it launches the warp kernel (ordered_warp_kernels.cu): each
+    ray walks as the per-ray kernel does, and the warp tests each pending
+    leaf together. `counts` runs the per-ray counted variant instead
+    (`closest_ordered_per_ray(..., counts=)`), since the walk is the same."""
+    if counts is not None:
+        return closest_ordered_per_ray(pbvh, origins, dirs, tmax, tmin,
+                                       counts)
+    n = _check_ordered(pbvh, origins, dirs, tmax)
     if origins.device.type == "cpu":
         return closest_ordered_plain(pbvh, origins, dirs, tmax, tmin)
-    return _launch_closest("closest_ordered", "ordered", _tree_args_v4(pbvh),
-                           pbvh, origins, dirs, tmax, tmin, n, counts)
+    _check_warp_pages(pbvh)
+    return _launch_closest("closest_ordered", "ordw", _tree_args_v4(pbvh),
+                           pbvh, origins, dirs, tmax, tmin, n)
+
+
+def closest_ordered_per_ray(pbvh: PacketBVH, origins: torch.Tensor,
+                            dirs: torch.Tensor, tmax: torch.Tensor,
+                            tmin: float = 1e-5,
+                            counts: Optional[WorkCounts] = None) -> Hit:
+    """closest_ordered's first design, one thread per ray testing each leaf
+    alone (ordered_kernels.cu): the baseline arm of the A/B against
+    closest_ordered, and its counted variant (`counts` as for
+    closest_bf8_per_ray). Nothing on the render path calls it."""
+    n = _check_ordered(pbvh, origins, dirs, tmax)
+    if origins.device.type == "cpu":
+        return closest_ordered_plain(pbvh, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_ordered_per_ray", "ordered",
+                           _tree_args_v4(pbvh), pbvh, origins, dirs, tmax,
+                           tmin, n, counts)
 
 
 def _check_v6(bvh6, origins, dirs, limit, what: str, stack: int) -> int:
@@ -1081,6 +1152,19 @@ class _Stacks:
         """The top entry of each lane of `lanes` (int64), popped."""
         self.sp[lanes] -= 1
         return self.stack[lanes, self.sp[lanes]].to(torch.int64)
+
+    def push(self, lanes, ent, where, bound: int):
+        """Push ent[i] onto lane lanes[i]'s stack where where[i]. Raises
+        where a stack would pass `bound` entries."""
+        lanes, ent = lanes[where], ent[where]
+        if lanes.numel() == 0:
+            return
+        sp = self.sp[lanes]
+        if int(sp.max()) >= bound:
+            raise ValueError(f"a lane's stack passes {bound} entries")
+        self.stack[lanes, sp] = ent.to(torch.int32)
+        self.sp[lanes] = sp + 1
+        self.high[lanes] = torch.maximum(self.high[lanes], sp + 1)
 
     def push_children(self, tree, lanes, ent, origins, inv, limit,
                       order: str, dirs=None):
@@ -1604,41 +1688,36 @@ def occluded_bf8i_warp_plain(bvh: BF8Instanced, origins, dirs, dist,
                                flag=opaque_only)
 
 
-def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float,
-                       any_hit: bool = False, opaque_only: bool = False):
-    """The warp K1's or K2's (a BF8BVH) or closest_v6's or occluded_v6's (a
-    BF8V6) schedule, every lane at once: each live lane runs its own stack
-    walk (`_Stacks`) to its next leaf to test; the round's pending lanes are
-    grouped by (warp, leaf) and tested chunk by chunk, closest with the
-    kernels' reduction, occlusion by whether any column accepts; then they
-    resume. The walks: K1 pushes far-first, closest_v6 in the node's static
-    order for the ray's octant, both retesting a popped leaf's box against
-    the lane's best t; the occlusion walks push in child order, K2 with no
-    leaf-box retest, occluded_v6 retesting against `limit`. An occluded
-    lane is done (its stack emptied); with `opaque_only` (K2) columns
-    tagged ALPHA_TRI_BIT cannot accept. A chunk with fewer columns that can
-    accept than rays to test is tested per ray in the kernel (`warp_tests`
-    counts it so); the bits are the same either way. Returns ((t, id, u, v)
-    or the occlusion bools, WarpSchedule)."""
-    tree = _walk_tree(bvh)
-    if any_hit:
-        order = "child"
-    else:
-        order = "near" if tree.c_order is None else "octant"
-    retest = not any_hit or tree.c_order is not None
+def _warp_rounds(bvh, origins, dirs, limit, tmin: float, any_hit: bool,
+                 opaque_only: bool, st: "_Stacks", step, nodes: int = 0,
+                 pops: Optional[torch.Tensor] = None):
+    """The leaf rounds of a warp kernel whose lanes walk their own stacks
+    (`st`), every lane at once: every live lane runs `step(walking, best_t,
+    pending)` (one pop of each lane of `walking`; a lane that stops at a
+    leaf to test gets it in `pending`; returns the node visits and
+    leaf-box retests the pops counted) until it holds a pending leaf or its
+    stack is empty; the round's pending lanes are grouped by (warp, leaf)
+    and tested chunk by chunk, closest with the kernels' reduction,
+    occlusion by whether any column accepts; then they resume. An occluded
+    lane is done (its stack emptied); with `opaque_only` columns tagged
+    ALPHA_TRI_BIT cannot accept. A chunk with fewer columns that can accept
+    than rays to test is tested per ray in the kernel (`warp_tests` counts
+    it so); the bits are the same either way. `nodes`: node visits counted
+    before the first pop. `pops`, an (N,) int32 tensor, receives each
+    lane's pops. Returns ((t, id, u, v) or the occlusion bools,
+    WarpSchedule)."""
     w, bias, wd, ids = _leaf_columns(bvh)
     dev = origins.device
     n, nc = origins.shape[0], bvh.block // WARP
-    inv = _safe_inv(dirs)
-    st = _Stacks(n, dev)
     best = (limit.clone(), torch.full((n,), -1, dtype=torch.int64,
                                       device=dev),
             torch.zeros_like(limit), torch.zeros_like(limit))
     occluded = torch.zeros(n, dtype=torch.bool, device=dev)
+    lane_pops = torch.zeros(n, dtype=torch.int32, device=dev)
     warp_rounds = torch.zeros((n + WARP - 1) // WARP, dtype=torch.int64,
                               device=dev)
     hist = torch.zeros(6, dtype=torch.int64, device=dev)
-    groups = visits = loads = tests = steps = nodes = boxes = tris = 0
+    groups = visits = loads = tests = steps = boxes = tris = 0
     per_slice = max(1, (1 << 22) // bvh.block)
     # per leaf and chunk, the columns that can accept
     can = ids >= 0
@@ -1650,20 +1729,10 @@ def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float,
         pending = torch.full((n,), -1, dtype=torch.int64, device=dev)
         walking = torch.nonzero(st.sp > 0).squeeze(1)
         while walking.numel():
-            ent = st.pop(walking)
-            leaf = ent >= LEAF_BIT
-            ll, lid = walking[leaf], ent[leaf] - LEAF_BIT
-            if retest:                            # the leaf-box retest
-                boxes += ll.numel()
-                ok, _ = _slab(tree.l_lo[lid], tree.l_hi[lid], origins[ll],
-                              inv[ll], best[0][ll])
-                ll, lid = ll[ok], lid[ok]
-            pending[ll] = lid
-            nl = walking[~leaf]
-            if nl.numel():
-                nodes += nl.numel()
-                st.push_children(tree, nl, ent[~leaf], origins, inv,
-                                 best[0][nl], order, dirs)
+            lane_pops[walking] += 1
+            nv, nb = step(walking, best[0], pending)
+            nodes += nv
+            boxes += nb
             walking = walking[pending[walking] < 0]
             walking = walking[st.sp[walking] > 0]
         lanes = torch.nonzero(pending >= 0).squeeze(1)
@@ -1710,6 +1779,8 @@ def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float,
             st.sp[lanes[occ_l]] = 0               # an occluded lane is done
         else:
             loads += cnt.numel() * nc
+    if pops is not None:
+        pops.copy_(lane_pops)
     sched = WarpSchedule(int((warp_rounds > 0).sum()),
                          int(warp_rounds.sum()), groups, groups, visits,
                          loads, tests, steps,
@@ -1722,12 +1793,54 @@ def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float,
                v), sched
 
 
+def _bf8_warp_schedule(bvh, origins, dirs, limit, tmin: float,
+                       any_hit: bool = False, opaque_only: bool = False,
+                       pops: Optional[torch.Tensor] = None):
+    """The warp K1's or K2's (a BF8BVH) or closest_v6's or occluded_v6's (a
+    BF8V6) schedule (`_warp_rounds`): each live lane runs its own stack
+    walk (`_Stacks`) to its next leaf to test. The walks: K1 pushes
+    far-first, closest_v6 in the node's static order for the ray's octant,
+    both retesting a popped leaf's box against the lane's best t; the
+    occlusion walks push in child order, K2 with no leaf-box retest,
+    occluded_v6 retesting against `limit`."""
+    tree = _walk_tree(bvh)
+    if any_hit:
+        order = "child"
+    else:
+        order = "near" if tree.c_order is None else "octant"
+    retest = not any_hit or tree.c_order is not None
+    inv = _safe_inv(dirs)
+    st = _Stacks(origins.shape[0], origins.device)
+
+    def step(walking, best_t, pending):
+        ent = st.pop(walking)
+        leaf = ent >= LEAF_BIT
+        ll, lid = walking[leaf], ent[leaf] - LEAF_BIT
+        if retest:                                # the leaf-box retest
+            ok, _ = _slab(tree.l_lo[lid], tree.l_hi[lid], origins[ll],
+                          inv[ll], best_t[ll])
+            pending[ll[ok]] = lid[ok]
+        else:
+            pending[ll] = lid
+        nl = walking[~leaf]
+        if nl.numel():
+            st.push_children(tree, nl, ent[~leaf], origins, inv, best_t[nl],
+                             order, dirs)
+        return nl.numel(), ll.numel() if retest else 0
+
+    return _warp_rounds(bvh, origins, dirs, limit, tmin, any_hit,
+                        opaque_only, st, step, pops=pops)
+
+
 def closest_bf8_warp_plain(bvh8: BF8BVH, origins, dirs, tmax,
-                           tmin: float = 1e-5):
+                           tmin: float = 1e-5,
+                           pops: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the closest_bf8 warp kernel's schedule:
     (Hit, WarpSchedule). Its hits are bit-equal to the per-ray walk's
-    (bf8_traverse.cuh), ties across leaves included."""
-    return _bf8_warp_schedule(bvh8, origins, dirs, tmax, tmin)
+    (bf8_traverse.cuh), ties across leaves included. `pops`, an (N,) int32
+    tensor, receives each lane's pops as the kernel's pops instance writes
+    them."""
+    return _bf8_warp_schedule(bvh8, origins, dirs, tmax, tmin, pops=pops)
 
 
 def closest_v6_warp_plain(bvh6, origins, dirs, tmax, tmin: float = 1e-5):
@@ -1751,6 +1864,50 @@ def occluded_v6_warp_plain(bvh6, origins, dirs, dist, tmin: float = 1e-5):
     BF8V6: (bool (N,), WarpSchedule), the bools the per-ray walk's
     (v6_traverse.cuh's `occluded`)."""
     return _bf8_warp_schedule(bvh6, origins, dirs, dist, tmin, any_hit=True)
+
+
+def closest_ordered_warp_plain(pbvh: PacketBVH, origins, dirs, tmax,
+                               tmin: float = 1e-5):
+    """Plain PyTorch version of the closest_ordered warp kernel's schedule
+    (`_warp_rounds`): (Hit, WarpSchedule). Each live lane runs
+    ordered_traverse.cuh's walk over its own stack of node ids: it pops a
+    node and retests its box against its best t; a leaf that passes is its
+    pending leaf; an internal node slab-tests its two children (node + 1
+    and top_miss of it) and pushes the far one first, by the lane's own
+    tnear, left winning ties. Its hits are bit-equal to the per-ray walk's,
+    ties across leaves included; `node_visits` counts box tests as the
+    per-ray counted variant does (the root's, and both children's of each
+    internal node whose pop retest passed). Raises where a lane's stack
+    would pass ORDERED_STACK entries."""
+    n = origins.shape[0]
+    inv = _safe_inv(dirs)
+    st = _Stacks(n, origins.device)
+    lo, hi = pbvh.top_lo, pbvh.top_hi
+    top_miss = pbvh.top_miss.to(torch.int64)
+    top_leaf = pbvh.top_leaf.to(torch.int64)
+
+    def step(walking, best_t, pending):
+        node = st.pop(walking)
+        o, iv, lim = origins[walking], inv[walking], best_t[walking]
+        ok, _ = _slab(lo[node], hi[node], o, iv, lim)
+        leaf = top_leaf[node]
+        at_leaf = ok & (leaf >= 0)
+        pending[walking[at_leaf]] = leaf[at_leaf]
+        inner = ok & (leaf < 0)
+        il, o, iv, lim = walking[inner], o[inner], iv[inner], lim[inner]
+        left = node[inner] + 1
+        right = top_miss[left]
+        hit_l, tn_l = _slab(lo[left], hi[left], o, iv, lim)
+        hit_r, tn_r = _slab(lo[right], hi[right], o, iv, lim)
+        near_left = ~(hit_l & hit_r) | (tn_l <= tn_r)
+        st.push(il, torch.where(near_left, right, left),          # far first
+                torch.where(near_left, hit_r, hit_l), ORDERED_STACK)
+        st.push(il, torch.where(near_left, left, right),
+                torch.where(near_left, hit_l, hit_r), ORDERED_STACK)
+        return 2 * il.numel(), 0
+
+    return _warp_rounds(pbvh, origins, dirs, tmax, tmin, False, False, st,
+                        step, nodes=n)
 
 
 # the archive kernels' plain versions: the page brute does not depend on

@@ -2,8 +2,8 @@
 harnesses (`bvh_kernels`, `widesub_ab`) check every arm against the brute
 oracle first, then time it with CUDA events, and print one JSON line per
 arm. The frame budget (`budget`) and the drain model (`drain_sim`) run
-`pt`'s bench frame through the integrator and read the pops variant of
-K1's per-ray design (`kernels.closest_bf8_per_ray`). Run
+`pt`'s bench frame through the integrator and read K1's pops launch
+(`kernels.closest_bf8(..., pops=)`). Run
 them as `python -m pt_torch.benches.<name>` (on the card; `--device cpu`
 runs the plain versions and times nothing)."""
 

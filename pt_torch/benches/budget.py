@@ -8,11 +8,14 @@ it prints, in five sections:
 1. per bounce: the live lanes, the host ms (each call ended by a
    synchronize) of the closest trace, `_shade_hit`, the occlusion trace of
    the NEE rays and the coherence keys plus their argsort over the binary
-   tree, and the lockstep rounds of K1's per-ray design (`rounds_of`,
-   `kernels.closest_bf8_per_ray`'s pops variant: the most pops of any lane
-   of a block, per block) with the warp lockstep share (the lanes' mean
-   pops over their warp's max; see `pt_torch.benches.drain_sim` for what a
-   round is on this card);
+   tree, and the lockstep rounds of a one-thread-per-ray schedule of K1's
+   walks (`rounds_of`, from K1's pops launch `kernels.closest_bf8(...,
+   pops=)`: the most pops of any lane of a block, per block) with the warp
+   lockstep share (the lanes' mean pops over their warp's max). Each lane
+   of the warp K1 pops what its per-ray walk pops, so these are the numbers
+   of K1's first design, one thread per ray, and not the warp kernel's own
+   leaf-group rounds (see `pt_torch.benches.drain_sim` for what a round is
+   on this card);
 2. leaf-visit waste on `n_sample` of bounce 1's rays, the live lanes first:
    the oracle's leaf visits per ray (leaves whose box the ray enters before
    its hit) against the union that a packet of 1024 lanes pays, unsorted
@@ -90,10 +93,10 @@ def timed(fn, *args, reps=5, warmup=2, label="", card=True, emit=print):
 
 
 def rounds_of(bvh8, origins, dirs, tmax=TMAX, pops=None):
-    """The lockstep rounds per block of K1's per-ray design (numpy int64
-    (B,)): the most pops of any lane in the block, from one launch of its
-    pops variant. `pops`, an
-    (N,) int32 tensor on the rays' device, also receives each lane's."""
+    """The lockstep rounds per block of a one-thread-per-ray schedule of
+    K1's walks (numpy int64 (B,)): the most pops of any lane in the block,
+    from one pops launch of K1 (`closest_bf8(..., pops=)`). `pops`, an (N,)
+    int32 tensor on the rays' device, also receives each lane's."""
     return done_rounds_of(bvh8, origins, dirs, tmax, pops)[0]
 
 

@@ -5,10 +5,18 @@ until its slowest 1024-ray sub-packet is done; `pt` read each sub's
 completion round (its kernel's diagnostic row 5) and bounded what a drain
 scheme would save: stop every program after B rounds, repack the unfinished
 subs densely, continue. On the card the unit that steps in lockstep is the
-warp, and K1's first design (`kernels.closest_bf8_per_ray`, whose pops
-variant this reads; its hits are K1's) runs one thread per ray:
+warp. This reads each lane's pops from K1's pops launch
+(`kernels.closest_bf8(..., pops=)`, the warp kernel's pops instance; its
+hits are K1's). Each lane of the warp kernel walks its own stack and pops
+what its per-ray walk pops, in the same order, pausing only while the warp
+tests the pending leaves together; so the pops, and every number below,
+are those of K1's first design, one thread per ray (`closest_bf8_per_ray(
+..., pops=)`, the same pops bit for bit). The rounds and the lockstep are
+a model of that one-thread-per-ray schedule, computed from each lane's
+pops: they are not the warp kernel's own leaf-group rounds, which `pt` has
+no counterpart of.
 
-    pt (TPU packet kernel)                 port (K1's per-ray design)
+    pt (TPU packet kernel)                 port (one thread per ray)
     sub-packet: 1024 lanes in lockstep     warp: 32 lanes in lockstep
     program: n_sub subs in a grid step     block: T/32 warps (T threads,
                                            read from the library); its SM
@@ -56,17 +64,18 @@ def lanes_of(pops: torch.Tensor, threads: int) -> np.ndarray:
 
 def done_rounds_of(bvh8, origins, dirs, tmax=1e30, pops=None):
     """(rounds per block (B,), per-warp completion rounds (B, W)) as numpy
-    int64, from one launch of the pops variant of K1's per-ray design over
-    the rays (tmax a scalar or (N,)): a warp's rounds are its lanes' most
-    pops, a block's the most of its warps'. `pops`, an (N,) int32 tensor on
-    the rays' device, also receives each lane's pops."""
+    int64, from one pops launch of K1 (`closest_bf8(..., pops=)`) over the
+    rays (tmax a scalar or (N,)): a warp's rounds are its lanes' most pops,
+    a block's the most of its warps', as a one-thread-per-ray schedule of
+    the same walks would step. `pops`, an (N,) int32 tensor on the rays'
+    device, also receives each lane's pops."""
     n = origins.shape[0]
     limit = torch.as_tensor(tmax, dtype=torch.float32,
                             device=origins.device).expand(n).contiguous()
     if pops is None:
         pops = torch.empty(n, dtype=torch.int32, device=origins.device)
-    kernels.closest_bf8_per_ray(bvh8, origins.contiguous(), dirs.contiguous(),
-                                limit, TMIN, pops=pops)
+    kernels.closest_bf8(bvh8, origins.contiguous(), dirs.contiguous(), limit,
+                        TMIN, pops=pops)
     done = lanes_of(pops, kernels.bf8_threads_per_block(
         origins.device)).max(axis=2)
     return done.max(axis=1), done
@@ -120,7 +129,7 @@ def main(device=None, scene: str = "heightfield", width: int = 512,
          tex_scale: float = 1.0) -> dict:
     """The drain model on `device` (the card unless "cpu" is named) for
     `scene` at width², over `bounces` bounces of sample 0: per bounce one
-    `done_rounds_of` (the per-ray K1's pops variant), `simulate` of warps within blocks
+    `done_rounds_of` (K1's pops launch), `simulate` of warps within blocks
     and of lanes within warps, then the carry advances through
     `bounce_once`. Returns {"scene", "tree" (the BF8BVH), "triangles",
     "device", "bounces": per bounce its alive lanes, rounds, done, pops,

@@ -1,13 +1,16 @@
 """The frame budget and the drain model of the PyTorch port: the pops
-variant of K1's per-ray design (`closest_bf8_per_ray(..., pops=)`), its
-plain version, and `pt_torch.benches.budget` /
-`pt_torch.benches.drain_sim` against `pt`'s `benches/budget.py` and
-`benches/drain_sim.py`.
+launch of K1 (`closest_bf8(..., pops=)`, the warp kernel's pops instance,
+and its per-ray arm `closest_bf8_per_ray(..., pops=)`), its plain version,
+and `pt_torch.benches.budget` / `pt_torch.benches.drain_sim` against `pt`'s
+`benches/budget.py` and `benches/drain_sim.py`.
 
-* `closest_bf8_walk_plain` (the plain version of the pops variant) gives
+* `closest_bf8_walk_plain` (the plain version of the pops launch) gives
   hits bit-equal to the brute plain version, and pops equal, lane by lane,
   to `csrc/bf8_traverse.cuh` built for the host by g++ with a pops pointer;
   the pops sum to the host build's node visits plus leaf-box retests.
+* The warp kernel's plain schedule (`closest_bf8_warp_plain`) pops what
+  the walk pops on every lane: each lane pauses at its leaves but pops the
+  same entries in the same order.
 * `done_rounds_of` / `rounds_of` lay lanes out as K1's launch runs them
   (block i // T, warp (i % T) // 32, T from the kernel source), and lanes
   past N count 0.
@@ -157,17 +160,34 @@ def test_walk_plain_matches_plain_and_host_build(host_pops, wavefront, case):
 
 
 def test_cpu_pops_launch_routes_to_the_walk(wavefront):
-    """closest_bf8_per_ray(..., pops=) on CPU tensors fills pops from the
-    plain walk and launches nothing."""
+    """closest_bf8(..., pops=) and closest_bf8_per_ray(..., pops=) on CPU
+    tensors fill pops from the plain walk and launch nothing."""
     b8, o, d, tmax = _rays_of("wavefront", wavefront)
     before = dict(kernels.launches)
-    pops = torch.full((o.shape[0],), -7, dtype=torch.int32)
-    hit = kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=pops)
     want, want_pops = kernels.closest_bf8_walk_plain(b8, o, d, tmax)
-    assert torch.equal(pops, want_pops)
-    for a, b in zip(hit, want):
-        assert torch.equal(a, b)
+    for fn in (kernels.closest_bf8, kernels.closest_bf8_per_ray):
+        pops = torch.full((o.shape[0],), -7, dtype=torch.int32)
+        hit = fn(b8, o, d, tmax, pops=pops)
+        assert torch.equal(pops, want_pops)
+        for a, b in zip(hit, want):
+            assert torch.equal(a, b)
     assert kernels.launches == before
+
+
+@pytest.mark.parametrize("case", ["random", "wavefront"])
+def test_warp_schedule_pops_equal_walk_pops(wavefront, case):
+    """The warp K1's plain schedule writes each lane's pops as its pops
+    instance does: equal to the walk's on every lane, with the same hits;
+    their sum is the schedule's node visits plus leaf-box retests."""
+    b8, o, d, tmax = _rays_of(case, wavefront)
+    hit, want = kernels.closest_bf8_walk_plain(b8, o, d, tmax)
+    pops = torch.full((o.shape[0],), -7, dtype=torch.int32)
+    whit, sched = kernels.closest_bf8_warp_plain(b8, o, d, tmax, pops=pops)
+    assert torch.equal(pops, want)
+    for a, b in zip(whit, hit):
+        assert torch.equal(a, b)
+    assert int(pops.sum()) == sched.node_visits + sched.leaf_boxes
+    assert sched.rounds > sched.warps       # lanes paused at leaves
 
 
 def test_pops_argument_checks():
@@ -175,22 +195,19 @@ def test_pops_argument_checks():
     o, d = _random_rays(64, 5)
     tmax = torch.full((64,), 1e4)
     good = torch.zeros(64, dtype=torch.int32)
-    kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good)
-    with pytest.raises(TypeError):         # K1's warp design has no pops
-        kernels.closest_bf8(b8, o, d, tmax, pops=good)
-    with pytest.raises(TypeError):
-        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good.long())
-    with pytest.raises(TypeError):
-        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good.numpy())
-    with pytest.raises(ValueError):
-        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=good[:63])
-    with pytest.raises(ValueError):
-        kernels.closest_bf8_per_ray(
-            b8, o, d, tmax, pops=torch.zeros(128, dtype=torch.int32)[::2])
-    with pytest.raises(ValueError):
-        kernels.closest_bf8_per_ray(
-            b8, o, d, tmax,
-            pops=torch.zeros(64, dtype=torch.int32, device="meta"))
+    for fn in (kernels.closest_bf8, kernels.closest_bf8_per_ray):
+        fn(b8, o, d, tmax, pops=good)
+        with pytest.raises(TypeError):
+            fn(b8, o, d, tmax, pops=good.long())
+        with pytest.raises(TypeError):
+            fn(b8, o, d, tmax, pops=good.numpy())
+        with pytest.raises(ValueError):
+            fn(b8, o, d, tmax, pops=good[:63])
+        with pytest.raises(ValueError):
+            fn(b8, o, d, tmax, pops=torch.zeros(128, dtype=torch.int32)[::2])
+        with pytest.raises(ValueError):
+            fn(b8, o, d, tmax,
+               pops=torch.zeros(64, dtype=torch.int32, device="meta"))
 
 
 # ------------------------------------------------------ rounds and warps

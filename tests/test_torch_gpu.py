@@ -10,11 +10,13 @@ neither JAX nor `pt`, so it also runs on a machine that has only PyTorch:
 K1-K6 and the archive kernels (closest_ordered, closest_v6, closest_v6k2,
 closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the kernels are
 built with -fmad=false and run the plain version's f32 arithmetic in its
-order. The pops variant of K1's per-ray design gives the warp K1's hits
-and the plain walk's pops. The warp-cooperative K1/K2, closest_v6,
-occluded_v6, K3/K4 and K5/K6 give the per-ray arm's bits on every lane
-(K1/K2, the v6 walks and K5/K6 also the plain warp schedule's), and K1/K2
-and the v6 walks raise on a tree whose pages cannot be staged.
+order. K1's pops launch (the warp kernel's pops instance) gives its per-ray
+arm's hits and pops bit for bit, and the plain walk's pops. The
+warp-cooperative K1/K2, closest_v6, occluded_v6, K3/K4, K5/K6 and
+closest_ordered give the per-ray arm's bits on every lane (K1/K2, the v6
+walks, K5/K6 and closest_ordered also the plain warp schedule's), and
+K1/K2, the v6 walks and closest_ordered raise on a tree whose pages cannot
+be staged; closest_ordered also on a tree deeper than its stack.
 """
 
 import numpy as np
@@ -612,9 +614,10 @@ def test_cuda_bf8_v6_film_matches_cpu_film(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("soup", ["random", "heightfield"])
 def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
-    """The pops variant of K1's per-ray design: hits bit-equal to K1's (the
-    warp kernel's), pops equal to `closest_bf8_walk_plain`'s on every lane
-    and summing to a counted launch's node visits plus leaf retests; the
+    """K1's pops launch (the warp kernel's pops instance) and its per-ray
+    arm: hits bit-equal to K1's, pops equal to each other and to
+    `closest_bf8_walk_plain`'s on every lane and summing to a counted
+    launch's node visits plus leaf retests; each counts its own launch; the
     drain layout uses the library's threads per block, which the kernel
     source states."""
     from pt_torch.benches import drain_sim
@@ -628,14 +631,16 @@ def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
     tmax = torch.full((n,), 1e4, device=cuda_device)
     before = dict(kernels.launches)
     hk = kernels.closest_bf8(b8, o, d, tmax)
-    pops = torch.empty(n, dtype=torch.int32, device=cuda_device)
-    hp = kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=pops)
+    pops = torch.full((n,), -7, dtype=torch.int32, device=cuda_device)
+    hp = kernels.closest_bf8(b8, o, d, tmax, pops=pops)
+    pops_r = torch.full((n,), -7, dtype=torch.int32, device=cuda_device)
+    hr = kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=pops_r)
     torch.cuda.synchronize()
-    assert kernels.launches["closest_bf8"] == before["closest_bf8"] + 1
-    assert kernels.launches["closest_bf8_pops"] == \
-        before["closest_bf8_pops"] + 1
-    for a, b in zip(hp, hk):
-        assert torch.equal(a, b)
+    for k in ("closest_bf8", "closest_bf8_pops", "closest_bf8_pops_per_ray"):
+        assert kernels.launches[k] == before[k] + 1, k
+    for a, b, c in zip(_bits(hp), _bits(hk), _bits(hr)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(pops, pops_r)
     hw, pw = kernels.closest_bf8_walk_plain(b8, o, d, tmax)
     assert torch.equal(pops, pw)
     for a, b in zip(hw, hk):
@@ -649,8 +654,9 @@ def test_cuda_pops_variant_matches_plain_walk(cuda_device, soup):
     rounds, done = drain_sim.done_rounds_of(b8, o, d, tmax=1e4)
     assert done.shape == (-(-n // threads), threads // 32)
     assert (rounds == done.max(axis=1)).all()
-    with pytest.raises(ValueError):
-        kernels.closest_bf8_per_ray(b8, o, d, tmax, pops=pops.cpu())
+    for fn in (kernels.closest_bf8, kernels.closest_bf8_per_ray):
+        with pytest.raises(ValueError):
+            fn(b8, o, d, tmax, pops=pops.cpu())
 
 
 def bf8_walk_trees(device, block, seed=81):
@@ -833,9 +839,10 @@ def test_cuda_bf8_warp_kernels_raise_on_unstageable_trees(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_bench_pops_hits_equal_warp_k1(cuda_device):
-    """B1/B2 (the benches' pops launches of K1's per-ray design) on every
-    bounce's wavefront of a small budget frame: hits bit-equal to the warp
-    K1's on every lane, pops equal to the bench's own launch's."""
+    """B1/B2 (the benches' pops launches, K1's warp kernel) on every
+    bounce's wavefront of a small budget frame: the bench's own launch
+    counted, and the per-ray arm's pops launch with pops equal to the
+    bench's and hits bit-equal to the warp K1's on every lane."""
     from pt_torch.benches import budget
     kernels.reset_launch_counts()
     res = budget.main(device=cuda_device, width=32, bounces=3, n=16,
@@ -852,6 +859,7 @@ def test_cuda_bench_pops_hits_equal_warp_k1(cuda_device):
         for a, b in zip(_bits(hp), _bits(hk)):
             assert torch.equal(a, b)
         assert torch.equal(pops, row["pops"])
+    assert kernels.launches["closest_bf8_pops_per_ray"] == len(res["bounces"])
 
 
 # the warp kernel behind each walk of bf8_occluded_warp_kernels.cu
@@ -960,3 +968,150 @@ def test_cuda_bf8_occluded_warp_kernels_raise_on_unstageable_trees(
             with pytest.raises(ValueError, match="multiples of 32"):
                 getattr(kernels, name)(bad, o, d, dist)
         assert kernels.launches == before
+
+
+# ------------------------------------------------ the warp closest_ordered
+
+
+def ordered_trees(device):
+    """{name: PacketBVH} over a seeded soup with every third triangle
+    alpha-tagged: Morton trees at blocks 64 and 128 (built on the card,
+    padded subtrees) and SAH trees at blocks 32, 64 and 1024 (32 chunks a
+    page)."""
+    verts, tri = _random_tris(6200, 91)
+    opaque = (np.arange(tri.shape[0]) % 3) != 0
+    trees = {f"morton {b}": bvh8.build_packet_bvh(
+        torch.as_tensor(verts, device=device),
+        torch.as_tensor(tri, device=device), block=b,
+        tri_opaque=torch.as_tensor(opaque, device=device)) for b in (64, 128)}
+    trees.update({f"sah {b}": bvh8.build_packet_bvh_sah(
+        verts, tri, block=b, tri_opaque_np=opaque, device=device)
+        for b in (32, 64, 1024)})
+    for name, tree in trees.items():
+        assert tree.block == int(name.split()[1]), name
+        assert tree.depth <= kernels.ORDERED_STACK, name
+    return trees
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_cuda_ordered_warp_kernel_matches_per_ray(cuda_device, n):
+    """The warp closest_ordered against its per-ray arm and the plain warp
+    schedule on every lane (t, u, v bits and ids) over every tree of
+    `ordered_trees`, with lanes that fill no whole warp; each wrapper counts
+    its own launches; a counted call runs the per-ray arm."""
+    o, d = _rays(4096, 92, cuda_device)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    tmax = torch.as_tensor(np.random.default_rng(93).uniform(5, 40, n)
+                           .astype(np.float32), device=cuda_device)
+    for name, tree in ordered_trees(cuda_device).items():
+        before = dict(kernels.launches)
+        hw = kernels.closest_ordered(tree, o, d, tmax)
+        hr = kernels.closest_ordered_per_ray(tree, o, d, tmax)
+        counts = kernels.work_counts(tree)
+        hc = kernels.closest_ordered(tree, o, d, tmax, counts=counts)
+        torch.cuda.synchronize()
+        assert kernels.launches["closest_ordered"] == \
+            before["closest_ordered"] + 1, name
+        assert kernels.launches["closest_ordered_per_ray"] == \
+            before["closest_ordered_per_ray"] + 2, name
+        hp, sched = kernels.closest_ordered_warp_plain(tree, o, d, tmax)
+        for a, x, y, z in zip(_bits(hw), _bits(hr), _bits(hp), _bits(hc)):
+            assert torch.equal(a, x) and torch.equal(a, y), name
+            assert torch.equal(a, z), name
+        assert counts.totals.tolist() == [sched.node_visits,
+                                          sched.tri_tests], name
+        if n == 1000:
+            assert 20 < int((hr.tri >= 0).sum()) < n, name
+
+
+def binary_leaf_tree(device, leaves, pad, blk=32):
+    """A PacketBVH over three leaves of `blk` columns, root -> (leaf 0,
+    node -> (leaf 1, leaf 2)) in preorder. `leaves`: per leaf its
+    triangles' corners (k, 3, 3) and ids (k,); each leaf's box is its
+    triangles' widened by `pad`."""
+    v0 = np.zeros((3 * blk, 3), np.float32)
+    e1, e2 = np.zeros_like(v0), np.zeros_like(v0)
+    ids = np.full(3 * blk, -1, np.int32)
+    lo, hi = [], []
+    for s, (corners, tri_ids) in enumerate(leaves):
+        rows = slice(s * blk, s * blk + len(tri_ids))
+        v0[rows] = corners[:, 0]
+        e1[rows] = corners[:, 1] - corners[:, 0]
+        e2[rows] = corners[:, 2] - corners[:, 0]
+        ids[rows] = tri_ids
+        lo.append(corners.reshape(-1, 3).min(axis=0) - pad)
+        hi.append(corners.reshape(-1, 3).max(axis=0) + pad)
+    lo, hi = np.stack(lo), np.stack(hi)
+    top_lo = np.stack([lo.min(0), lo[0], lo[1:].min(0), lo[1], lo[2]])
+    top_hi = np.stack([hi.max(0), hi[0], hi[1:].max(0), hi[1], hi[2]])
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype),
+                               device=device)
+    return bvh8.PacketBVH(
+        top_lo=t(top_lo, np.float32), top_hi=t(top_hi, np.float32),
+        top_miss=t([5, 2, 5, 4, 5], np.int32),
+        top_leaf=t([-1, 0, -1, 1, 2], np.int32),
+        pages=t(bvh8._woop_pages(v0, e1, e2, ids, 3, blk), np.float32),
+        n_top=5, block=blk)
+
+
+@pytest.mark.gpu
+def test_cuda_ordered_warp_kernel_on_a_tie_across_leaves(cuda_device):
+    """The same 8 triangles in two leaves under ids 8-15 and 0-7 (boxes
+    widened so that no pop retest culls): the smaller id wins on every
+    lane, bit-equal to the per-ray arm and the plain schedule."""
+    import chip_smoke
+    pos, _, _, tris = chip_smoke._wavy_grid(3)
+    k = len(tris)
+    corners = pos[tris]
+    tree = binary_leaf_tree(cuda_device, [
+        (corners, np.arange(k) + k), (corners, np.arange(k)),
+        (corners + [2.5, 0, 0], np.arange(k) + 2 * k)], pad=0.5)
+    n = 1024
+    gx, gz = np.meshgrid(np.linspace(-0.9, 3.4, 32),
+                         np.linspace(-0.9, 0.9, 32), indexing="ij")
+    o = torch.as_tensor(np.stack([gx.ravel(), np.full(n, 3.0), gz.ravel()],
+                                 -1).astype(np.float32), device=cuda_device)
+    d = torch.as_tensor(np.tile(np.asarray([[0.01, -1.0, 0.02]], np.float32),
+                                (n, 1)), device=cuda_device)
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    hw = kernels.closest_ordered(tree, o, d, tmax)
+    hr = kernels.closest_ordered_per_ray(tree, o, d, tmax)
+    hp, _ = kernels.closest_ordered_warp_plain(tree, o, d, tmax)
+    for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+        assert torch.equal(a, x) and torch.equal(a, y)
+    on_pair = (hw.tri >= 0) & (hw.tri < 2 * k)
+    assert int(on_pair.sum()) > n // 4
+    assert int(hw.tri[on_pair].max()) < k
+
+
+@pytest.mark.gpu
+def test_cuda_ordered_warp_kernel_raises_on_unstageable_and_deep_trees(
+        cuda_device):
+    """closest_ordered raises on pages the warp kernel cannot stage (a base
+    off 16 bytes, a block off 32) and on a tree deeper than its stack, and
+    launches nothing: no fallback to the per-ray kernel."""
+    import dataclasses
+    tree = ordered_trees(cuda_device)["sah 32"]
+    o, d = _rays(64, 94, cuda_device)
+    tmax = torch.full((64,), 20.0, device=cuda_device)
+    pages = tree.pages
+    off = torch.empty(pages.numel() + 1, device=cuda_device)[1:]
+    off = off.view(pages.shape).copy_(pages)
+    assert off.data_ptr() % 16 != 0
+    before = dict(kernels.launches)
+    for bad in (dataclasses.replace(tree, pages=off),
+                dataclasses.replace(tree, block=48)):
+        with pytest.raises(ValueError, match="multiples of 32"):
+            kernels.closest_ordered(bad, o, d, tmax)
+    deep = dataclasses.replace(tree)
+    deep._depth = kernels.ORDERED_STACK + 1
+    with pytest.raises(ValueError, match="stack"):
+        kernels.closest_ordered(deep, o, d, tmax)
+    assert kernels.launches == before
+    empty = torch.empty((0, 3), device=cuda_device)
+    h = kernels.closest_ordered(tree, empty, empty,
+                                torch.empty((0,), device=cuda_device))
+    assert h.t.shape == (0,) and kernels.launches == before
