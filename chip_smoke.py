@@ -8,8 +8,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
 1. device: name, count, versions, `nvidia-smi` name and power limit;
 2. build: every traversal kernel (one nvcc per source for sm_90a, with
    -Xptxas -v) and the native SBVH library (g++), all started together;
-   the warp K1/closest_v6's, K2/occluded_v6's, K3/K4's, K5/K6's and
-   closest_ordered's resident blocks per SM and shared memory per block;
+   the warp K1/closest_v6's, K2/occluded_v6's, K3/K4's, K5/K6's,
+   closest_ordered's and closest_v6k2/closest_v7's resident blocks per SM
+   and shared memory per block;
    with --sass-against, every library's SASS against that checkout's,
    kernel by kernel (logged);
 3. kernel parity at full size, each kernel against its plain PyTorch version
@@ -27,7 +28,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
    closest_ordered bit-equal to its per-ray arm (closest_ordered_per_ray)
    and its plain warp schedule; the warp K1 (closest_bf8) and closest_v6 bit-equal
    to their per-ray arm (closest_bf8_per_ray, closest_v6_per_ray) and to
-   their plain warp schedule on every lane of every BF8 and BF8V6 set, and
+   their plain warp schedule on every lane of every BF8 and BF8V6 set (on
+   the BF8V6 sets also the warp closest_v6k2 and closest_v7, at windows 1
+   and 8, against closest_v6k2_per_ray and closest_v7_per_ray), and
    likewise the warp K2 (occluded_bf8, opaque_only off and on) and
    occluded_v6 (occluded_bf8_per_ray, occluded_v6_per_ray) on the same
    rays up to seeded distances and on the recorded shadow wavefronts of
@@ -99,8 +102,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
    the fine SBVH and the Animated Heightfield's Morton tree; their times on
    the bounce-0 and bounce-2 wavefronts, closest_ordered beside K3 on the
    Morton tree's, each bound from the least work of the walks that computed
-   the same function on the same rays; the A/B of closest_v6's and
-   occluded_v6's two designs on the same wavefronts, and of
+   the same function on the same rays; the A/B of closest_v6's,
+   closest_v6k2's, closest_v7's and occluded_v6's two designs on the same
+   wavefronts, and of
    closest_ordered's over the fine SBVH and the Morton tree (beside the
    warp K3), their plain warp schedules' groups and ptxas's lines; the warp
    closest_ordered bit-equal to its per-ray arm and plain schedule over the
@@ -146,7 +150,7 @@ occluded_bf8i_per_ray) on every lane of the same sets.
 Prints the kernels' JSON line (K1-K6, each with its per-ray arm's time
 from the A/B, then one row per archive entry point, with the kernel it
 runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
-time on the same rays; A3 and A6 their A/B at both bounces; A1, A7 and
+time on the same rays; A3-A6 their A/B at both bounces; A1, A7 and
 A10 their per-ray arm's time and the A/B over the fine SBVH and the
 Morton tree), then the
 rows `rounds_of` and `done_rounds_of`, kernel "closest_bf8 (pops)", with
@@ -236,7 +240,8 @@ SOURCES = {
     "occluded_bf8i": "pt_torch/accel/csrc/bf8i_warp_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
-# K1's, K2's, the v6 walks', K3-K6's and the ordered walk's first design,
+# K1's, K2's, the v6 walks' (A3-A6), K3-K6's and the ordered walk's first
+# design,
 # the per-ray arm of the A/B; it also carries their counted variant (the
 # walk is the same)
 PER_RAY = {"closest_bf8": "closest_bf8_per_ray",
@@ -247,7 +252,9 @@ PER_RAY = {"closest_bf8": "closest_bf8_per_ray",
            "occluded_v4": "occluded_v4_per_ray",
            "closest_bf8i": "closest_bf8i_per_ray",
            "occluded_bf8i": "occluded_bf8i_per_ray",
-           "closest_ordered": "closest_ordered_per_ray"}
+           "closest_ordered": "closest_ordered_per_ray",
+           "closest_v6k2": "closest_v6k2_per_ray",
+           "closest_v7": "closest_v7_per_ray"}
 # the archive's entry points (pt/accel/pallas_bvh_archive.py), in pt's order
 # A1-A10, each with the port's kernel that it runs
 ARCHIVE = {
@@ -264,8 +271,8 @@ ARCHIVE = {
 }
 SOURCES.update(closest_ordered="pt_torch/accel/csrc/ordered_warp_kernels.cu",
                closest_v6="pt_torch/accel/csrc/bf8_warp_kernels.cu",
-               closest_v6k2="pt_torch/accel/csrc/v6_kernels.cu",
-               closest_v7="pt_torch/accel/csrc/v6_kernels.cu",
+               closest_v6k2="pt_torch/accel/csrc/v6_warp_kernels.cu",
+               closest_v7="pt_torch/accel/csrc/v6_warp_kernels.cu",
                occluded_v6="pt_torch/accel/csrc/"
                            "bf8_occluded_warp_kernels.cu")
 
@@ -551,7 +558,8 @@ def phase_build():
     for lib, which in (("v4w", "K3/K4"), ("bf8iw", "K5/K6"),
                        ("bf8w", "K1/closest_v6"),
                        ("bf8wo", "K2/occluded_v6"),
-                       ("ordw", "closest_ordered")):
+                       ("ordw", "closest_ordered"),
+                       ("v6w", "closest_v6k2/closest_v7")):
         occ = kernels.warp_occupancy(lib, "cuda")
         check(min(occ.values()) > 0,
               f"warp {which} occupancy query failed: {occ}")
@@ -576,8 +584,8 @@ def phase_sass(other):
 def _log_build_of(tag, lib, walk):
     """Re-print, beside an A/B, what ptxas said of the warp kernel whose
     mangled name holds `walk` (Bf8Walk: K1, V6Walk: closest_v6, Bf8AnyHit:
-    K2, V6AnyHit: occluded_v6), and the library's resident blocks per
-    SM."""
+    K2, V6AnyHit: occluded_v6, TwoPops: closest_v6k2, LeafQueue:
+    closest_v7), and the library's resident blocks per SM."""
     lines, on = [], False
     for line in PTXAS:
         if "Compiling entry function" in line:
@@ -791,15 +799,18 @@ def _arms_equal(bvh, o, d, t, dist, what, pair=("closest_v4",
           f"{n_o} occlusion lanes differ from the per-ray arm")
 
 
-def _closest_arms(name, tree, rays, what):
+def _closest_arms(name, tree, rays, what, **kw):
     """The warp closest kernel `name` (closest_bf8 over a BF8BVH,
-    closest_v6 over a BF8V6, closest_ordered over a PacketBVH) against its
-    per-ray arm and its plain warp schedule on one ray set: the t, u and v
-    bits and the id of every lane must be equal."""
+    closest_v6, closest_v6k2 or closest_v7 over a BF8V6, closest_ordered
+    over a PacketBVH) against its per-ray arm and its plain warp schedule
+    on one ray set, each with the keywords `kw` (closest_v7's window): the
+    t, u and v bits and the id of every lane must be equal."""
     from pt_torch.accel import kernels
-    hw = getattr(kernels, name)(tree, *rays)
-    hr = getattr(kernels, PER_RAY[name])(tree, *rays)
-    hp, sched = getattr(kernels, name + "_warp_plain")(tree, *rays)
+    hw = getattr(kernels, name)(tree, *rays, **kw)
+    hr = getattr(kernels, PER_RAY[name])(tree, *rays, **kw)
+    hp, sched = getattr(kernels, name + "_warp_plain")(tree, *rays, **kw)
+    if kw:
+        name += "".join(f" {k} {v}" for k, v in kw.items())
     n_r = int((sum((a != b) for a, b in zip(_bits(hw), _bits(hr))) > 0)
               .sum())
     n_p = int((sum((a != b) for a, b in zip(_bits(hw), _bits(hp))) > 0)
@@ -816,12 +827,18 @@ def _closest_arms(name, tree, rays, what):
 
 
 def _bf8_arms(tree, rays, what, rng):
-    """`_closest_arms` of the warp K1 (over a BF8BVH) or closest_v6 (over a
-    BF8V6); then the occlusion twins (`_bf8_occ_arms`) on the same rays up
-    to seeded distances."""
+    """`_closest_arms` of the warp K1 (over a BF8BVH) or closest_v6,
+    closest_v6k2 and closest_v7 at windows 1 and 8 (over a BF8V6); then
+    the occlusion twins (`_bf8_occ_arms`) on the same rays up to seeded
+    distances."""
     import torch
-    _closest_arms("closest_v6" if hasattr(tree, "c_order") else
-                  "closest_bf8", tree, rays, what)
+    if hasattr(tree, "c_order"):
+        _closest_arms("closest_v6", tree, rays, what)
+        _closest_arms("closest_v6k2", tree, rays, what)
+        for window in (1, 8):
+            _closest_arms("closest_v7", tree, rays, what, window=window)
+    else:
+        _closest_arms("closest_bf8", tree, rays, what)
     o = rays[0]
     dist = torch.as_tensor(rng.uniform(0.05, 20.0, o.shape[0])
                            .astype(np.float32), device=o.device)
@@ -1541,7 +1558,8 @@ def _ab_warp(bvh, cases, tag):
             f"leaves and {sched.leaf_visits / max(sched.groups, 1):.2f} "
             f"lanes per group, {sched.rounds / max(sched.warps, 1):.1f} "
             f"rounds per warp, {sched.chunk_loads / max(sched.groups, 1):.2f}"
-            f" chunks staged per group; {sched._asdict()}")
+            f" chunks staged per group, {sched.tri_tests / n:.1f} triangle "
+            f"tests per lane; {sched._asdict()}")
 
 
 def _ab_bounces(bvh, rec, times, pairs, tag):
@@ -2184,10 +2202,15 @@ def phase_archive():
                      f"static shadow rays of bounce {b}")
         times[("closest_v7", b)]["plain_ms"] = \
             times[("closest_v6", b)]["plain_ms"]      # the same function
-    # the warp closest_v6 against its per-ray design on the same wavefronts
+    # the warp BF8V6 walks against their per-ray designs on the same
+    # wavefronts
     _ab_bounces(v6, rec, times, (("closest_v6", "closest"),
+                                 ("closest_v6k2", "closest"),
+                                 ("closest_v7", "closest"),
                                  ("occluded_v6", "occluded")), "archive")
     _log_build_of("archive", "bf8w", "V6Walk")
+    _log_build_of("archive", "v6w", "TwoPops")
+    _log_build_of("archive", "v6w", "LeafQueue")
     _log_build_of("archive", "bf8wo", "V6AnyHit")
     # the warp closest_ordered against its per-ray design, over the fine
     # SBVH

@@ -19,25 +19,27 @@ csrc/v4_traverse.cuh, csrc/bf8i_warp_kernels.cu and csrc/bf8i_kernels.cu
 over csrc/bf8i_traverse.cuh (the warp sources sharing their leaf test in
 csrc/warp_leaf.cuh), csrc/ordered_warp_kernels.cu and
 csrc/ordered_kernels.cu over csrc/ordered_traverse.cuh,
-csrc/v6_kernels.cu (and, for closest_v6 and
+csrc/v6_warp_kernels.cu and csrc/v6_kernels.cu (and, for closest_v6 and
 occluded_v6, the two BF8 warp sources) over csrc/v6_traverse.cuh, the last
 two sharing their leaf tests in csrc/page_leaf.cuh, all over
 csrc/rt_common.cuh), built with nvcc at first use into the port's
 git-ignored build directory, one library per source, and bound through
 ctypes. They are bound by dependent global loads of node and page rows,
 not by FLOPs: one thread per ray walks its own stack (K1/K2, K5/K6, the
-archive walks) or the preorder skip links (K3/K4). K1/K2, closest_v6,
-occluded_v6, K3/K4, K5/K6 and closest_ordered are redesigned for the card:
-each ray keeps its walk (K5/K6: in its own instance space), and the warp
-tests each pending leaf (K5/K6: each pending shared page) together, the
-page staged into shared memory once per group of lanes
-(csrc/bf8_warp_kernels.cu, csrc/bf8_occluded_warp_kernels.cu,
+archive walks) or the preorder skip links (K3/K4). Every kernel is
+redesigned for the card: each ray keeps its walk (K5/K6: in its own
+instance space), and the warp tests each pending leaf (K5/K6: each pending
+shared page) together, the page staged into shared memory once per group
+of lanes (csrc/bf8_warp_kernels.cu, csrc/bf8_occluded_warp_kernels.cu,
 csrc/v4_warp_kernels.cu, csrc/bf8i_warp_kernels.cu,
-csrc/ordered_warp_kernels.cu). Their first design, one thread per ray
+csrc/ordered_warp_kernels.cu, csrc/v6_warp_kernels.cu: closest_v6k2 and
+closest_v7, whose lanes list more than one leaf at once and drain the
+lists together). Their first design, one thread per ray
 testing each leaf alone, stays as the baseline arm of the A/B and as their
 counted variant, reached only by name: `closest_bf8_per_ray` (also the A/B
 arm of K1's pops launch), `occluded_bf8_per_ray` (csrc/bf8_kernels.cu),
-`closest_v6_per_ray`, `occluded_v6_per_ray` (csrc/v6_kernels.cu),
+`closest_v6_per_ray`, `closest_v6k2_per_ray`, `closest_v7_per_ray`,
+`occluded_v6_per_ray` (csrc/v6_kernels.cu),
 `closest_v4_per_ray`, `occluded_v4_per_ray` (csrc/v4_kernels.cu),
 `closest_bf8i_per_ray`, `occluded_bf8i_per_ray` (csrc/bf8i_kernels.cu),
 `closest_ordered_per_ray` (csrc/ordered_kernels.cu).
@@ -55,10 +57,11 @@ kernels' schedules have their own plain versions (`closest_bf8_warp_plain`,
 `occluded_bf8_warp_plain`, `closest_v6_warp_plain`,
 `occluded_v6_warp_plain`, `closest_v4_warp_plain`, `occluded_v4_warp_plain`,
 `closest_bf8i_warp_plain`, `occluded_bf8i_warp_plain`,
-`closest_ordered_warp_plain`): the per-ray walk of
-every lane at once, paused at each leaf, grouped by (warp, leaf) or (warp,
-page) and reduced with the kernels' key; their hits are the per-ray walk's
-bit for bit, and they count the groups.
+`closest_ordered_warp_plain`, `closest_v6k2_warp_plain`,
+`closest_v7_warp_plain`): the per-ray walk of every lane at once, paused
+at each leaf (v6k2 and v7: after each round that lists one), grouped by
+(warp, leaf) or (warp, page) and reduced with the kernels' key; their hits
+are the per-ray walk's bit for bit, and they count the groups.
 
 K1 has a pops launch (`closest_bf8(..., pops=...)`, the warp kernel's
 pops instance; its A/B arm `closest_bf8_per_ray(..., pops=...)`): each
@@ -134,6 +137,10 @@ _CUDA_LIBS = {
     "v6": (BUILD_DIR / "libpt_v6_sm90a.so",
            (CSRC / "v6_kernels.cu", CSRC / "v6_traverse.cuh",
             CSRC / "bf8_traverse.cuh", CSRC / "page_leaf.cuh", _COMMON)),
+    "v6w": (BUILD_DIR / "libpt_v6w_sm90a.so",
+            (CSRC / "v6_warp_kernels.cu", CSRC / "warp_leaf.cuh",
+             CSRC / "v6_traverse.cuh", CSRC / "bf8_traverse.cuh",
+             CSRC / "page_leaf.cuh", _COMMON)),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -147,12 +154,16 @@ launches = {"closest_bf8": 0, "closest_bf8_per_ray": 0,
             "occluded_bf8i": 0, "closest_bf8i_per_ray": 0,
             "occluded_bf8i_per_ray": 0, "closest_ordered": 0,
             "closest_ordered_per_ray": 0, "closest_v6": 0,
-            "closest_v6_per_ray": 0, "closest_v6k2": 0, "closest_v7": 0,
-            "occluded_v6": 0, "occluded_v6_per_ray": 0}
+            "closest_v6_per_ray": 0, "closest_v6k2": 0,
+            "closest_v6k2_per_ray": 0, "closest_v7": 0,
+            "closest_v7_per_ray": 0, "occluded_v6": 0,
+            "occluded_v6_per_ray": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
 # v6_traverse.cuh); the wrappers raise on a tree that could overflow them
 ORDERED_STACK = 64
 V6_STACK = 128
+# leaves a v7 round queues at most (kQueueCap in v6_traverse.cuh)
+V6_QUEUE = 48
 # K1's per-thread stack (kStackDepth in bf8_traverse.cuh)
 BF8_STACK = 128
 
@@ -282,6 +293,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_ordw_blocks_per_sm.argtypes = [i]
                 lib.pt_ordw_smem_per_block.restype = i
                 lib.pt_ordw_smem_per_block.argtypes = []
+            elif name == "v6w":         # closest_v6k2 and closest_v7
+                lib.pt_v6w_closest.restype = i
+                lib.pt_v6w_closest.argtypes = ([p] * 5 + [i] * 3 + rays
+                                               + [i, i, i] + [p] * 5)
+                lib.pt_v6w_blocks_per_sm.restype = i
+                lib.pt_v6w_blocks_per_sm.argtypes = [i]
+                lib.pt_v6w_smem_per_block.restype = i
+                lib.pt_v6w_smem_per_block.argtypes = []
             elif name in _WARP_LIBS:    # no counted variant
                 # v4w: five pointers, three ints; bf8iw: nine pointers, two
                 # ints, and an int flag (raw_ids, opaque_only)
@@ -318,8 +337,9 @@ def _lib(name: str) -> ctypes.CDLL:
 # this suffix (K1's and closest_v6's per-ray designs keep their names)
 _PER_RAY = {"v4": "_per_ray", "bf8i": "_per_ray"}
 # the warp-cooperative K3/K4, K5/K6, K1 with closest_v6, K2 with
-# occluded_v6, and closest_ordered: no counted variant
-_WARP_LIBS = ("v4w", "bf8iw", "bf8w", "bf8wo", "ordw")
+# occluded_v6, closest_ordered, and closest_v6k2 with closest_v7: no
+# counted variant
+_WARP_LIBS = ("v4w", "bf8iw", "bf8w", "bf8wo", "ordw", "v6w")
 
 
 def _closest_symbol(lib_name: str) -> str:
@@ -730,12 +750,14 @@ _WARP_KERNELS = {"v4w": ("closest", "occluded"),
                  "bf8iw": ("closest", "occluded"),
                  "bf8w": ("closest_bf8", "closest_v6"),
                  "bf8wo": ("occluded_bf8", "occluded_v6"),
-                 "ordw": ("closest_ordered",)}
+                 "ordw": ("closest_ordered",),
+                 "v6w": ("closest_v6k2", "closest_v7")}
 
 
 def warp_occupancy(lib_name: str, device) -> Dict[str, int]:
     """A warp library's ("v4w": K3/K4, "bf8iw": K5/K6, "bf8w": K1 and
-    closest_v6, "bf8wo": K2 and occluded_v6, "ordw": closest_ordered)
+    closest_v6, "bf8wo": K2 and occluded_v6, "ordw": closest_ordered,
+    "v6w": closest_v6k2 and closest_v7)
     resident blocks per SM of each kernel (`<kernel>_blocks_per_sm`) and
     static shared memory per block, as the built library reports them."""
     if lib_name not in _WARP_LIBS:
@@ -939,34 +961,77 @@ def closest_v6_per_ray(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
 
 
 def closest_v6k2(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
-                 tmax: torch.Tensor, tmin: float = 1e-5,
-                 counts: Optional[WorkCounts] = None) -> Hit:
-    """closest_v6 with two pops per iteration, both tested against the best
-    t as the iteration starts (stack 16*D8, see v6_traverse.cuh)."""
+                 tmax: torch.Tensor, tmin: float = 1e-5) -> Hit:
+    """closest_v6 with two pops per round, both tested against the best t
+    as the round starts (stack 16*D8, see v6_traverse.cuh). On the card it
+    launches the warp kernel (v6_warp_kernels.cu, walk 0): each ray walks
+    as the per-ray kernel does and lists the leaves whose boxes pass in a
+    round, and the warp tests the listed leaves together. Its counted
+    variant is the per-ray one (`closest_v6k2_per_ray(..., counts=)`)."""
     n = _check_v6(bvh6, origins, dirs, tmax, "tmax", 16 * bvh6.depth)
     if origins.device.type == "cpu":
         return closest_v6k2_plain(bvh6, origins, dirs, tmax, tmin)
-    return _launch_closest("closest_v6k2", "v6", _tree_args_v6(bvh6), bvh6,
-                           origins, dirs, tmax, tmin, n, counts,
+    _check_warp_pages(bvh6)
+    return _launch_closest("closest_v6k2", "v6w", _tree_args_v6(bvh6), bvh6,
+                           origins, dirs, tmax, tmin, n, flags=(0, 1))
+
+
+def closest_v6k2_per_ray(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+                         tmax: torch.Tensor, tmin: float = 1e-5,
+                         counts: Optional[WorkCounts] = None) -> Hit:
+    """closest_v6k2's first design, one thread per ray testing each leaf
+    alone (v6_kernels.cu, walk 1): the baseline arm of the A/B against
+    closest_v6k2, and its counted variant (`counts` as for
+    closest_bf8_per_ray). Nothing on the render path calls it."""
+    n = _check_v6(bvh6, origins, dirs, tmax, "tmax", 16 * bvh6.depth)
+    if origins.device.type == "cpu":
+        return closest_v6k2_plain(bvh6, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v6k2_per_ray", "v6", _tree_args_v6(bvh6),
+                           bvh6, origins, dirs, tmax, tmin, n, counts,
                            flags=(1, 1))
 
 
+def _check_window(window) -> int:
+    if int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    return int(window)
+
+
 def closest_v7(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
-               tmax: torch.Tensor, tmin: float = 1e-5, window: int = 8,
-               counts: Optional[WorkCounts] = None) -> Hit:
+               tmax: torch.Tensor, tmin: float = 1e-5,
+               window: int = 8) -> Hit:
     """Closest hit of N rays over a BF8V6 by pt's v7 walk: rounds of up to
     `window` pops (>= 1) prune against the best t of the last round and
     queue the leaves whose boxes pass, then test the queue (at most 48
     leaves a round; see v6_traverse.cuh). The same function as closest_v6,
-    with more leaves visited; stack 7*D8 + 1."""
-    if int(window) < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
+    with more leaves visited; stack 7*D8 + 1. On the card it launches the
+    warp kernel (v6_warp_kernels.cu, walk 1): each ray walks as the per-ray
+    kernel does, and the warp tests the queued leaves together. Its counted
+    variant is the per-ray one (`closest_v7_per_ray(..., counts=)`)."""
+    window = _check_window(window)
     n = _check_v6(bvh6, origins, dirs, tmax, "tmax", bvh6.stack_bound)
     if origins.device.type == "cpu":
         return closest_v7_plain(bvh6, origins, dirs, tmax, tmin)
-    return _launch_closest("closest_v7", "v6", _tree_args_v6(bvh6), bvh6,
-                           origins, dirs, tmax, tmin, n, counts,
-                           flags=(2, int(window)))
+    _check_warp_pages(bvh6)
+    return _launch_closest("closest_v7", "v6w", _tree_args_v6(bvh6), bvh6,
+                           origins, dirs, tmax, tmin, n, flags=(1, window))
+
+
+def closest_v7_per_ray(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
+                       tmax: torch.Tensor, tmin: float = 1e-5,
+                       window: int = 8,
+                       counts: Optional[WorkCounts] = None) -> Hit:
+    """closest_v7's first design, one thread per ray testing each queued
+    leaf alone (v6_kernels.cu, walk 2): the baseline arm of the A/B against
+    closest_v7, and its counted variant. Nothing on the render path calls
+    it."""
+    window = _check_window(window)
+    n = _check_v6(bvh6, origins, dirs, tmax, "tmax", bvh6.stack_bound)
+    if origins.device.type == "cpu":
+        return closest_v7_plain(bvh6, origins, dirs, tmax, tmin)
+    return _launch_closest("closest_v7_per_ray", "v6", _tree_args_v6(bvh6),
+                           bvh6, origins, dirs, tmax, tmin, n, counts,
+                           flags=(2, window))
 
 
 def occluded_v6(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
@@ -1317,12 +1382,15 @@ _NO_KEY = 0xFFFFFFFF
 
 class WarpSchedule(NamedTuple):
     """What the warp kernels (v4_warp_kernels.cu, bf8i_warp_kernels.cu,
-    bf8_warp_kernels.cu, bf8_occluded_warp_kernels.cu) do on a launch's
-    rays, as their plain schedules (`closest_v4_warp_plain`,
-    `closest_bf8i_warp_plain`, `closest_bf8_warp_plain`,
-    `closest_v6_warp_plain` and the occlusion twins) count it. A warp is
+    bf8_warp_kernels.cu, bf8_occluded_warp_kernels.cu,
+    v6_warp_kernels.cu) do on a launch's rays, as their plain schedules
+    (`closest_v4_warp_plain`, `closest_bf8i_warp_plain`,
+    `closest_bf8_warp_plain`, `closest_v6_warp_plain`,
+    `closest_v6k2_warp_plain`, `closest_v7_warp_plain` and the occlusion
+    twins) count it. A warp is
     32 consecutive lanes; in a round every lane of a warp that is not done
-    holds a pending leaf. Per launch:
+    holds a pending leaf (v6k2 and v7: a pending list, drained in several
+    rounds, one `test_groups` call each). Per launch:
     `node_visits` (slab tests of a binary node or wide-node visits, as the
     per-ray walk's counted variant counts them), `warps` with any leaf
     round, `rounds` (summed over warps), `groups` (distinct pages of a
@@ -1688,17 +1756,67 @@ def occluded_bf8i_warp_plain(bvh: BF8Instanced, origins, dirs, dist,
                                flag=opaque_only)
 
 
+def _drain_steps(pending):
+    """The steps in which a warp kernel tests its lanes' pending leaves,
+    (lanes, leaf ids) each; the caller tests a step before the next is
+    made. One step for `pending` (N,), a leaf or -1 a lane. Pending lists
+    ((N, cap), -1 past a list's end) drain as v6_warp_kernels.cu drains
+    them, each in ascending leaf order: at each step a lane offers its next
+    leaf when it is below the entry after the next of every lane of its
+    warp, or is the least next leaf of the warp, so each distinct leaf of a
+    warp's lists is offered once, by all its lanes together."""
+    if pending.dim() == 1:
+        lanes = torch.nonzero(pending >= 0).squeeze(1)
+        yield lanes, pending[lanes]
+        return
+    none = torch.iinfo(torch.int64).max
+    lists = torch.where(pending >= 0, pending, none).sort(dim=1).values
+    count = (pending >= 0).sum(dim=1)
+    head = torch.zeros_like(count)
+    warp = torch.arange(pending.shape[0], device=pending.device) // WARP
+    n_warps = int(warp[-1]) + 1
+
+    def entry(k):
+        got = lists.gather(1, torch.clamp(k, max=lists.shape[1] - 1)[:, None])
+        return torch.where(k < count, got[:, 0], none)
+
+    def warp_min(x):
+        least = torch.full((n_warps,), none, dtype=torch.int64,
+                           device=x.device)
+        return least.scatter_reduce(0, warp, x, "amin")[warp]
+
+    while True:
+        h = entry(head)
+        least = warp_min(h)
+        if not bool((least != none).any()):
+            return
+        offer = (h != none) & ((h < warp_min(entry(head + 1)))
+                               | (h == least))
+        lanes = torch.nonzero(offer).squeeze(1)
+        yield lanes, h[lanes]
+        head[lanes] += 1
+
+
+def _list_leaves(pending, lanes, lid):
+    """Add leaf lid[i] to lane lanes[i]'s pending list (`pending` (N, cap),
+    -1 past each list's end; a lane at most once a call)."""
+    pending[lanes, (pending[lanes] >= 0).sum(dim=1)] = lid
+
+
 def _warp_rounds(bvh, origins, dirs, limit, tmin: float, any_hit: bool,
                  opaque_only: bool, st: "_Stacks", step, nodes: int = 0,
-                 pops: Optional[torch.Tensor] = None):
+                 pops: Optional[torch.Tensor] = None, cap: int = 1):
     """The leaf rounds of a warp kernel whose lanes walk their own stacks
     (`st`), every lane at once: every live lane runs `step(walking, best_t,
-    pending)` (one pop of each lane of `walking`; a lane that stops at a
-    leaf to test gets it in `pending`; returns the node visits and
-    leaf-box retests the pops counted) until it holds a pending leaf or its
-    stack is empty; the round's pending lanes are grouped by (warp, leaf)
-    and tested chunk by chunk, closest with the kernels' reduction,
-    occlusion by whether any column accepts; then they resume. An occluded
+    pending)` (one pop of each lane of `walking`, or with `cap` > 1 one
+    round of its walk; a lane that stops at a leaf to test gets it in
+    `pending`, with `cap` > 1 in its pending list (`_list_leaves`); returns
+    the node visits and leaf-box retests it counted) until it holds a
+    pending leaf or its stack is empty; the pending leaves are tested in
+    `_drain_steps` (one step for one pending leaf a lane), each step's
+    lanes grouped by (warp, leaf) and tested chunk by chunk, closest with
+    the kernels' reduction, occlusion by whether any column accepts; then
+    they resume. An occluded
     lane is done (its stack emptied); with `opaque_only` columns tagged
     ALPHA_TRI_BIT cannot accept. A chunk with fewer columns that can accept
     than rays to test is tested per ray in the kernel (`warp_tests` counts
@@ -1726,59 +1844,63 @@ def _warp_rounds(bvh, origins, dirs, limit, tmin: float, any_hit: bool,
     n_cols = can.reshape(-1, nc, WARP).sum(dim=2)             # (L, nc)
     chunk = torch.arange(nc, device=dev)
     while True:
-        pending = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        pending = torch.full((n, cap) if cap > 1 else (n,), -1,
+                             dtype=torch.int64, device=dev)
+        first = pending if cap == 1 else pending[:, 0]
         walking = torch.nonzero(st.sp > 0).squeeze(1)
         while walking.numel():
             lane_pops[walking] += 1
             nv, nb = step(walking, best[0], pending)
             nodes += nv
             boxes += nb
-            walking = walking[pending[walking] < 0]
+            walking = walking[first[walking] < 0]
             walking = walking[st.sp[walking] > 0]
-        lanes = torch.nonzero(pending >= 0).squeeze(1)
-        if lanes.numel() == 0:
+        if not bool((first >= 0).any()):
             break
-        lid = pending[lanes]
-        inverse, cnt, h = _group_stats(lanes, lid, bvh.pages.shape[0])
-        warp_rounds[torch.unique(lanes // WARP)] += 1
-        groups += cnt.numel()
-        visits += lanes.numel()
-        hist += h
-        tested = torch.full((lanes.numel(),), nc, dtype=torch.int64,
-                            device=dev)
-        for s0 in range(0, lanes.numel(), per_slice):
-            sl = slice(s0, s0 + per_slice)
-            ln, li = lanes[sl], lid[sl]
-            t, u, v, acc = _woop_chunk(origins[ln], dirs[ln], w[li],
-                                       bias[li], wd[li], tmin, limit[ln])
-            acc &= can[li]
-            tris += _tri_tests(can[li], acc, any_hit)
+        for lanes, lid in _drain_steps(pending):
+            inverse, cnt, h = _group_stats(lanes, lid, bvh.pages.shape[0])
+            warp_rounds[torch.unique(lanes // WARP)] += 1
+            groups += cnt.numel()
+            visits += lanes.numel()
+            hist += h
+            tested = torch.full((lanes.numel(),), nc, dtype=torch.int64,
+                                device=dev)
+            for s0 in range(0, lanes.numel(), per_slice):
+                sl = slice(s0, s0 + per_slice)
+                ln, li = lanes[sl], lid[sl]
+                t, u, v, acc = _woop_chunk(origins[ln], dirs[ln], w[li],
+                                           bias[li], wd[li], tmin, limit[ln])
+                acc &= can[li]
+                tris += _tri_tests(can[li], acc, any_hit)
+                if any_hit:
+                    occ, tested[sl] = _any_chunk_hit(acc, nc)
+                    occluded[ln[occ]] = True
+                    continue
+                idc = ids[li].to(torch.int64) & ~ALPHA_TRI_BIT
+                mine = tuple(b[ln] for b in best)
+                for c in range(nc):
+                    cs = slice(c * WARP, (c + 1) * WARP)
+                    mine = _merge_best(mine, *_chunk_winner(
+                        t[:, cs], u[:, cs], v[:, cs], acc[:, cs],
+                        idc[:, cs]))
+                for b, m in zip(best, mine):
+                    b[ln] = m
+            tests += int(tested.sum())
+            # the rays each group still tests at each chunk against its
+            # columns that can accept: the warp steps through the fewer of
+            # the two
+            active = torch.zeros((cnt.numel(), nc), dtype=torch.int64,
+                                 device=dev).index_add_(
+                0, inverse, (tested[:, None] > chunk).long())
+            g_leaf = torch.zeros_like(cnt).scatter_(0, inverse, lid)
+            steps += int(torch.minimum(active, n_cols[g_leaf]).sum())
             if any_hit:
-                occ, tested[sl] = _any_chunk_hit(acc, nc)
-                occluded[ln[occ]] = True
-                continue
-            idc = ids[li].to(torch.int64) & ~ALPHA_TRI_BIT
-            mine = tuple(b[ln] for b in best)
-            for c in range(nc):
-                cs = slice(c * WARP, (c + 1) * WARP)
-                mine = _merge_best(mine, *_chunk_winner(
-                    t[:, cs], u[:, cs], v[:, cs], acc[:, cs], idc[:, cs]))
-            for b, m in zip(best, mine):
-                b[ln] = m
-        tests += int(tested.sum())
-        # the rays each group still tests at each chunk against its columns
-        # that can accept: the warp steps through the fewer of the two
-        active = torch.zeros((cnt.numel(), nc), dtype=torch.int64,
-                             device=dev).index_add_(
-            0, inverse, (tested[:, None] > chunk).long())
-        g_leaf = torch.zeros_like(cnt).scatter_(0, inverse, lid)
-        steps += int(torch.minimum(active, n_cols[g_leaf]).sum())
-        if any_hit:
-            occ_l = occluded[lanes]
-            loads += _occlusion_loads(occ_l, inverse, tested, cnt.numel(), nc)
-            st.sp[lanes[occ_l]] = 0               # an occluded lane is done
-        else:
-            loads += cnt.numel() * nc
+                occ_l = occluded[lanes]
+                loads += _occlusion_loads(occ_l, inverse, tested,
+                                          cnt.numel(), nc)
+                st.sp[lanes[occ_l]] = 0           # an occluded lane is done
+            else:
+                loads += cnt.numel() * nc
     if pops is not None:
         pops.copy_(lane_pops)
     sched = WarpSchedule(int((warp_rounds > 0).sum()),
@@ -1848,6 +1970,80 @@ def closest_v6_warp_plain(bvh6, origins, dirs, tmax, tmin: float = 1e-5):
     BF8V6: (Hit, WarpSchedule). Its hits are bit-equal to the per-ray walk's
     (v6_traverse.cuh's `closest`), ties across leaves included."""
     return _bf8_warp_schedule(bvh6, origins, dirs, tmax, tmin)
+
+
+def _v6_list_schedule(bvh6, origins, dirs, tmax, tmin: float,
+                      window: Optional[int]):
+    """The warp closest_v6k2's (`window` None) or closest_v7's schedule
+    (`_warp_rounds` with pending lists): each live lane runs rounds of its
+    own stack walk (`_Stacks`), slab-testing each popped entry against its
+    best t as the round starts (v7's t_slab: no leaf is tested inside a
+    round), pushing a wide node's hit children in the node's static order
+    for the ray's octant and listing a leaf whose box passes, until a
+    round lists a leaf or the stack is empty. A v6k2 round pops the top
+    entry e0 and, if there is one, e1 below it, then runs e1's pushes and
+    e0's last; a v7 round pops up to `window` entries, fewer once the stack
+    empties or V6_QUEUE leaves are listed."""
+    tree = _walk_tree(bvh6)
+    inv = _safe_inv(dirs)
+    st = _Stacks(origins.shape[0], origins.device)
+    cap = 2 if window is None else V6_QUEUE
+
+    def visit(lanes, ent, best_t, pending):
+        """Popped entries `ent` of `lanes`: (node visits, leaf-box
+        retests)."""
+        leaf = ent >= LEAF_BIT
+        ll, lid = lanes[leaf], ent[leaf] - LEAF_BIT
+        ok, _ = _slab(tree.l_lo[lid], tree.l_hi[lid], origins[ll], inv[ll],
+                      best_t[ll])
+        _list_leaves(pending, ll[ok], lid[ok])
+        nl = lanes[~leaf]
+        if nl.numel():
+            st.push_children(tree, nl, ent[~leaf], origins, inv, best_t[nl],
+                             "octant", dirs)
+        return nl.numel(), ll.numel()
+
+    def two_pops(walking, best_t, pending):
+        e0 = st.pop(walking)
+        two = walking[st.sp[walking] > 0]
+        e1 = st.pop(two)
+        n1, b1 = visit(two, e1, best_t, pending)
+        n0, b0 = visit(walking, e0, best_t, pending)
+        return n0 + n1, b0 + b1
+
+    def leaf_queue(walking, best_t, pending):
+        nodes = boxes = 0
+        for _ in range(window):
+            walking = walking[(st.sp[walking] > 0)
+                              & (pending[walking, -1] < 0)]
+            if walking.numel() == 0:
+                break
+            nv, nb = visit(walking, st.pop(walking), best_t, pending)
+            nodes += nv
+            boxes += nb
+        return nodes, boxes
+
+    return _warp_rounds(bvh6, origins, dirs, tmax, tmin, False, False, st,
+                        two_pops if window is None else leaf_queue, cap=cap)
+
+
+def closest_v6k2_warp_plain(bvh6, origins, dirs, tmax, tmin: float = 1e-5):
+    """Plain PyTorch version of the closest_v6k2 warp kernel's schedule over
+    a BF8V6 (`_v6_list_schedule`): (Hit, WarpSchedule). Its hits are
+    bit-equal to the per-ray walk's (v6_traverse.cuh's `closest_two_pops`),
+    ties across leaves included, and it counts that walk's work."""
+    return _v6_list_schedule(bvh6, origins, dirs, tmax, tmin, None)
+
+
+def closest_v7_warp_plain(bvh6, origins, dirs, tmax, tmin: float = 1e-5,
+                          window: int = 8):
+    """Plain PyTorch version of the closest_v7 warp kernel's schedule over a
+    BF8V6 (`_v6_list_schedule`), `window` pops a round: (Hit,
+    WarpSchedule). Its hits are bit-equal to the per-ray walk's
+    (v6_traverse.cuh's `closest_leaf_queue`), ties across leaves included,
+    and it counts that walk's work."""
+    return _v6_list_schedule(bvh6, origins, dirs, tmax, tmin,
+                             _check_window(window))
 
 
 def occluded_bf8_warp_plain(bvh8: BF8BVH, origins, dirs, dist,

@@ -12,11 +12,12 @@ closest_v7, occluded_v6) hold bit-equal to their plain PyTorch versions: the ker
 built with -fmad=false and run the plain version's f32 arithmetic in its
 order. K1's pops launch (the warp kernel's pops instance) gives its per-ray
 arm's hits and pops bit for bit, and the plain walk's pops. The
-warp-cooperative K1/K2, closest_v6, occluded_v6, K3/K4, K5/K6 and
-closest_ordered give the per-ray arm's bits on every lane (K1/K2, the v6
-walks, K5/K6 and closest_ordered also the plain warp schedule's), and
-K1/K2, the v6 walks and closest_ordered raise on a tree whose pages cannot
-be staged; closest_ordered also on a tree deeper than its stack.
+warp-cooperative K1/K2, closest_v6, occluded_v6, closest_v6k2, closest_v7,
+K3/K4, K5/K6 and closest_ordered give the per-ray arm's bits on every lane
+(K1/K2, the v6 walks, K5/K6 and closest_ordered also the plain warp
+schedule's), and K1/K2, the v6 walks and closest_ordered raise on a tree
+whose pages cannot be staged; closest_ordered also on a tree deeper than
+its stack.
 """
 
 import numpy as np
@@ -582,6 +583,79 @@ def test_cuda_archive_kernels_match_plain(cuda_device, soup):
     got = kernels.occluded_v6(v6, o, d, dist)
     assert torch.equal(got, kernels.occluded_v6_plain(v6, o, d, dist))
     assert 0 < int(got.sum()) < 8192
+    # the warp v6k2 and v7 (at windows 1 and 8) bit-equal to their per-ray
+    # arms and their plain warp schedules, each arm counting its launches
+    for name, kw in V6_LIST_WALKS:
+        before = dict(kernels.launches)
+        hw = getattr(kernels, name)(v6, o, d, tmax, **kw)
+        hr = getattr(kernels, name + "_per_ray")(v6, o, d, tmax, **kw)
+        torch.cuda.synchronize()
+        for k in (name, name + "_per_ray"):
+            assert kernels.launches[k] == before[k] + 1, (k, kw)
+        hp, _ = getattr(kernels, name + "_warp_plain")(v6, o, d, tmax, **kw)
+        for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+            assert torch.equal(a, x) and torch.equal(a, y), (name, kw)
+
+
+# the warp kernels of v6_warp_kernels.cu, with their window
+V6_LIST_WALKS = (("closest_v6k2", {}), ("closest_v7", {"window": 1}),
+                 ("closest_v7", {"window": 8}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("walk", range(len(V6_LIST_WALKS)))
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_cuda_v6_list_warp_kernels_match_per_ray(cuda_device, walk, block,
+                                                 n):
+    """The warp closest_v6k2 and closest_v7 against their per-ray arm and
+    the plain warp schedule on every lane (t, u, v bits and ids), at leaves
+    of `block`, with lanes that fill no whole warp."""
+    tree = bf8_walk_trees(cuda_device, block)["v6"]
+    name, kw = V6_LIST_WALKS[walk]
+    o, d = _rays(4096, 84, cuda_device)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    hw = getattr(kernels, name)(tree, o, d, tmax, **kw)
+    hr = getattr(kernels, name + "_per_ray")(tree, o, d, tmax, **kw)
+    hp, _ = getattr(kernels, name + "_warp_plain")(tree, o, d, tmax, **kw)
+    for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+        assert torch.equal(a, x) and torch.equal(a, y)
+    if n == 1000:
+        assert int((hr.tri >= 0).sum()) > 20
+
+
+@pytest.mark.gpu
+def test_cuda_v6_list_warp_kernels_on_sparse_leaves_and_bad_trees(
+        cuda_device):
+    """Leaves of 8 triangles under groups of up to 32 rays, tested column by
+    column: bits equal the per-ray arm's and the plain schedule's. Pages
+    the warp kernels cannot stage, and a window below 1, raise and launch
+    nothing: no fallback to the per-ray kernel."""
+    import dataclasses
+    n = 4096
+    o, d = sparse_leaf_rays(n, cuda_device)
+    tmax = torch.full((n,), 1e4, device=cuda_device)
+    tree = sparse_leaf_trees(cuda_device)[1]
+    for name, kw in V6_LIST_WALKS:
+        hw = getattr(kernels, name)(tree, o, d, tmax, **kw)
+        hr = getattr(kernels, name + "_per_ray")(tree, o, d, tmax, **kw)
+        hp, sched = getattr(kernels, name + "_warp_plain")(tree, o, d, tmax,
+                                                           **kw)
+        for a, x, y in zip(_bits(hw), _bits(hr), _bits(hp)):
+            assert torch.equal(a, x) and torch.equal(a, y)
+        assert sched.warp_tests < sched.ray_chunk_tests // 2
+    off = torch.empty(tree.pages.numel() + 1, device=cuda_device)[1:]
+    off = off.view(tree.pages.shape).copy_(tree.pages)
+    before = dict(kernels.launches)
+    for name, kw in V6_LIST_WALKS:
+        for bad in (dataclasses.replace(tree, pages=off),
+                    dataclasses.replace(tree, block=48)):
+            with pytest.raises(ValueError, match="multiples of 32"):
+                getattr(kernels, name)(bad, o, d, tmax, **kw)
+    with pytest.raises(ValueError, match="window"):
+        kernels.closest_v7(tree, o, d, tmax, window=0)
+    assert kernels.launches == before
 
 
 @pytest.mark.gpu
