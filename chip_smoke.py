@@ -118,6 +118,24 @@ Phases, each fatal on failure (nothing is caught and passed over):
     1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
     alpha frames, the static alpha variant and a small instanced alpha scene
     at 32²;
+10b. entry (`[entry]` lines), the main path's two callers, launch counters
+    set to 0 just before each call and read just after:
+    `render_image_stats` on the Heightfield (n=224, its Morton tree) at
+    512², 5 bounces, 4 spp, one warm call and 3 timed ones (ms per call,
+    useful Mrays/s, peak memory; exactly 20 closest_v4 and 20 occluded_v4
+    launches a call, nothing else, no plain version called); the same work
+    on the Animated Heightfield through `Renderer` (update, rebuild, render)
+    and through `render_image_stats` in turns (R, S, S, R twice), and a
+    torch.profiler breakdown of one `render_image_stats` sample; card
+    against the CPU (film MSE < 1e-3) on the Default at `entry()`'s
+    settings (32², 1 spp, 3 bounces) and the Heightfield (n=64) at 64², 2
+    spp; `pt_torch.run.cli.main(["render", ...])` with no --device on the
+    Default at 512², 4 spp, 5 bounces (exit code 0, the PNG decoded by the
+    port's decoder, 20 closest_bf8 and 20 occluded_bf8 launches, wall
+    seconds) and at 32², 2 spp, to HDR with no --device against --device cpu
+    (film MSE < 1e-3); an OfflineRenderer render of 2 spp, checkpointed
+    and resumed to 4, bit-equal to an uninterrupted 4-spp render; and
+    `list-scenes`, `pt`'s seven "Test Scenes" in `pt`'s order;
 11. budget and drain: `pt`'s last two Pallas entry points through K1's
     pops launch (`closest_bf8(..., pops=)`, the warp kernel's pops
     instance: each lane's walk iterations; a warp's rounds are its lanes'
@@ -148,7 +166,8 @@ apart), and bit-equal to their per-ray arm (closest_bf8i_per_ray,
 occluded_bf8i_per_ray) on every lane of the same sets.
 
 Prints the kernels' JSON line (K1-K6, each with its per-ray arm's time
-from the A/B, then one row per archive entry point, with the kernel it
+from the A/B, and for K1-K4 `launches_entry`, their launches in phase
+10b's CLI render (K1/K2) or in one `render_image_stats` call (K3/K4), then one row per archive entry point, with the kernel it
 runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
 time on the same rays; A3-A6 their A/B at both bounces; A1, A7 and
 A10 their per-ray arm's time and the A/B over the fine SBVH and the
@@ -2465,6 +2484,269 @@ def phase_cross_device():
               f"{what}: film MSE {mse} >= 1e-3")
 
 
+# pt's "Test Scenes" group, in pt's order (pt/scene/examples.py:458-466)
+TEST_SCENE_NAMES = ("Default", "MetallicRoughness Cubes",
+                    "Roughness Test Cubes", "Heightfield", "Reuse Mesh",
+                    "Courtyard", "Courtyard Flythrough")
+# the plain versions of the kernels the two entry points reach
+ENTRY_PLAIN = ("closest_bf8_plain", "occluded_bf8_plain", "closest_v4_plain",
+               "occluded_v4_plain")
+
+
+class _PlainCalls:
+    """Within the block, count the calls of the plain versions in
+    ENTRY_PLAIN (each wrapped in `pt_torch.accel.kernels`, the module the
+    wrappers call them through)."""
+
+    def __enter__(self):
+        from pt_torch.accel import kernels
+        self.calls = dict.fromkeys(ENTRY_PLAIN, 0)
+        self._saved = {k: getattr(kernels, k) for k in ENTRY_PLAIN}
+
+        def counting(name, fn):
+            def wrapped(*args, **kwargs):
+                self.calls[name] += 1
+                return fn(*args, **kwargs)
+            return wrapped
+        for k, fn in self._saved.items():
+            setattr(kernels, k, counting(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from pt_torch.accel import kernels
+        for k, fn in self._saved.items():
+            setattr(kernels, k, fn)
+
+
+def _entry_inputs(scene, width: int, device: str):
+    """What `render_image_stats` takes for `scene` on `device`: the
+    flattened scene, its texture pool and the first camera's matrices at a
+    `width`² film."""
+    from pt_torch.render.textures import default_texture_pool
+    from pt_torch.scene.flatten import flatten_scene
+    from pt_torch.scene.textures import build_scene_textures
+    ds = flatten_scene(scene, device=device)
+    tex = (build_scene_textures(scene, device=device) if scene.textures
+           else default_texture_pool(device=device))
+    cam = scene.cameras[0]
+    cam.on_resize(width, width)
+    return ds, tex, cam.inv_view, cam.inv_proj
+
+
+def _cli(argv):
+    """`pt_torch.run.cli.main(argv)` in this process: (exit code, standard
+    output, wall seconds, every kernel's launches), with the launch counters
+    set to 0 just before and read just after."""
+    import contextlib
+    import io
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.run import cli
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return rc, out.getvalue(), dt, {k: v for k, v in kernels.launches.items()
+                                    if v}
+
+
+def _offline_film(scene_fn, width, spp, path, ckpt=None):
+    """An OfflineRenderer run of `scene_fn()` on the card, 3 bounces, 2
+    samples a step: its Renderer."""
+    from pt_torch.out.saver import OutputInfo
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.offline import OfflineRenderer, RenderSettings
+    from pt_torch.run.renderer import Renderer
+    r = Renderer(PathTracingSettings(sample_count=1, bounce_count=3),
+                 device="cuda")
+    r.set_scene(scene_fn())
+    frames = OfflineRenderer(r).render(RenderSettings(
+        output=OutputInfo(str(path), width, width, 30.0, "png"),
+        frame_count=1, max_sample_count=spp, samples_per_step=2,
+        checkpoint_path=ckpt and str(ckpt)))
+    check(frames == 1 and r.total_samples == spp,
+          f"offline render: {frames} frames, {r.total_samples} spp")
+    return r
+
+
+def phase_entry():
+    """The main path's two callers (`[entry]` lines): (a)
+    `render_image_stats` on the Heightfield at full size (Morton tree: the
+    warp K3/K4, exactly sample_count x bounce_count launches of each per
+    call, no plain version, no other kernel); (b) `render_image_stats` on
+    the card against the CPU, the Default at `entry()`'s settings and the
+    Heightfield (n=64) at 2 spp; (c) `python -m pt_torch.run.cli render` in
+    this process, with no --device: the Default at 512², then at 32² to
+    HDR with no --device and with --device cpu; (d) an offline render
+    resumed from its checkpoint against an uninterrupted one; (e)
+    `list-scenes`. Returns the launches and times for the summary."""
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.render.integrator import (PathTracingSettings,
+                                            render_image_stats)
+    from pt_torch.scene.examples import (make_default_scene,
+                                         make_heightfield_scene)
+    from pt_torch.scene.textures import decode_png, read_radiance_hdr
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+
+    # (a) render_image_stats at full size
+    spp, bounces, width = 4, 5, 512
+    settings = PathTracingSettings(sample_count=spp, bounce_count=bounces)
+    args = _entry_inputs(make_heightfield_scene(224), width, "cuda")
+    ta = time.perf_counter()
+    render_image_stats(*args, width, width, 0, settings)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - ta
+    torch.cuda.reset_peak_memory_stats()
+    want = {"closest_v4": spp * bounces, "occluded_v4": spp * bounces}
+    secs, rays = [], []
+    with _PlainCalls() as plain:
+        for frame in range(1, 4):
+            kernels.reset_launch_counts()
+            ta = time.perf_counter()
+            img, n = render_image_stats(*args, width, width, frame,
+                                        settings)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - ta)
+            got = {k: v for k, v in kernels.launches.items() if v}
+            check(got == want, f"[entry] render_image_stats launched {got}, "
+                  f"want {want}")
+            rays.append(int(n))
+    check(not any(plain.calls.values()),
+          f"[entry] plain versions ran on the card: {plain.calls}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    film = img.cpu().numpy() / spp
+    check(film.shape == (width, width, 3) and bool(np.isfinite(film).all())
+          and float(film.max()) > 0.0, "[entry] render_image_stats film")
+    ms = [s * 1e3 for s in secs]
+    mrays = sum(rays) / sum(secs) / 1e6
+    log(f"[entry] render_image_stats, Heightfield n=224 ({args[0].num_triangles}"
+        f" triangles, Morton tree), {width}x{width}, {bounces} bounces, "
+        f"{spp} spp: warm call {warm:.2f} s, ms per call "
+        f"{', '.join(f'{m:.1f}' for m in ms)} (mean {sum(ms) / 3:.1f}), "
+        f"{mrays:.3f} useful Mrays/s ({rays[0]} rays a call), peak memory "
+        f"{peak:.0f} MiB, launches per call {want}, plain calls "
+        f"{plain.calls}")
+
+    # (a2) the same work through Renderer, in turns on one scene: the
+    # Animated Heightfield (the Morton tree rebuilt for each call of both)
+    r = _renderer(build_animated_scene(port_namespace(), 224), width, spp,
+                  bounces, "cuda")
+    _step_frame(r)
+    r.render()
+    iv, ip = r._camera_mats()
+
+    def stats_call():
+        render_image_stats(r.ds, r.tex, iv, ip, width, width, 0, settings)
+
+    def renderer_step():
+        _step_frame(r)
+        r.render()
+    stats_call()
+    turns = {"Renderer": [], "render_image_stats": []}
+    for name in ("Renderer", "render_image_stats", "render_image_stats",
+                 "Renderer") * 2:
+        fn = renderer_step if name == "Renderer" else stats_call
+        ta = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - ta) * 1e3)
+    log(f"[entry] in turns on the Animated Heightfield, 512x512, 5 bounces, "
+        f"4 spp, ms per call (Renderer: update, rebuild, render; "
+        f"render_image_stats: build, render): "
+        + "; ".join(f"{k} {', '.join(f'{v:.1f}' for v in vs)} (mean "
+                    f"{sum(vs) / len(vs):.1f})" for k, vs in turns.items()))
+    one = PathTracingSettings(sample_count=1, bounce_count=bounces)
+    _profile(lambda: render_image_stats(r.ds, r.tex, iv, ip, width, width, 0,
+                                        one),
+             "render_image_stats, Animated Heightfield, one sample")
+    del r
+
+    # (b) render_image_stats, card against CPU
+    for what, scene_fn, w, n_spp in (
+            ("Default, 32x32, 3 bounces, 1 spp (entry()'s settings)",
+             make_default_scene, 32, 1),
+            ("Heightfield n=64, 64x64, 3 bounces, 2 spp",
+             lambda: make_heightfield_scene(64), 64, 2)):
+        st = PathTracingSettings(sample_count=n_spp, bounce_count=3)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            img, n = render_image_stats(*_entry_inputs(scene_fn(), w, dev),
+                                        w, w, 0, st, device=dev)
+            out[dev] = (img.cpu().numpy() / n_spp, int(n))
+        mse = float(np.mean((out["cuda"][0] - out["cpu"][0]) ** 2))
+        log(f"[entry] render_image_stats {what}: film MSE cuda vs cpu "
+            f"{mse:.3e} (limit 1e-3), rays {out['cuda'][1]} against "
+            f"{out['cpu'][1]}")
+        check(bool(np.isfinite(mse)) and mse < 1e-3,
+              f"[entry] {what}: film MSE {mse}")
+
+    # (c) the CLI, in this process, with no --device
+    png = OUT_DIR / "cli_default_512.png"
+    rc, _, cli_s, cli_launches = _cli(
+        ["render", "--scene", "Test Scenes/Default", "--size", "512x512",
+         "--spp", "4", "--bounces", "5", "--out", str(png)])
+    check(rc == 0, f"[entry] cli render returned {rc}")
+    decoded = decode_png(png.read_bytes())
+    check(decoded.shape[:2] == (512, 512) and decoded[..., :3].shape[2] == 3
+          and int(decoded[..., :3].max()) > 0,
+          f"[entry] cli PNG decodes to {decoded.shape}")
+    want_cli = {"closest_bf8": 20, "occluded_bf8": 20}
+    check(cli_launches == want_cli,
+          f"[entry] cli render launched {cli_launches}, want {want_cli}")
+    log(f"[entry] python -m pt_torch.run.cli render --scene \"Test "
+        f"Scenes/Default\" --size 512x512 --spp 4 --bounces 5 (no "
+        f"--device): rc 0, {cli_s:.2f} s wall (scene, accel and texture "
+        f"pool built), launches {cli_launches}, wrote "
+        f"{png.relative_to(ROOT)} ({png.stat().st_size} bytes, decodes to "
+        f"{decoded.shape[0]}x{decoded.shape[1]})")
+    hdr = {}
+    for dev in (None, "cpu"):
+        path = OUT_DIR / f"cli_default_32_{dev or 'card'}.hdr"
+        rc, _, _, _ = _cli(
+            ["render", "--scene", "Test Scenes/Default", "--size", "32x32",
+             "--spp", "2", "--bounces", "3", "--format", "hdr", "--out",
+             str(path)] + (["--device", dev] if dev else []))
+        check(rc == 0, f"[entry] cli render --device {dev} returned {rc}")
+        hdr[dev] = read_radiance_hdr(path.read_bytes())
+    mse = float(np.mean((hdr[None] - hdr["cpu"]) ** 2))
+    log(f"[entry] cli render 32x32, 2 spp, 3 bounces, --format hdr: no "
+        f"--device against --device cpu, film MSE {mse:.3e} (limit 1e-3)")
+    check(hdr[None].shape == (32, 32, 3) and mse < 1e-3,
+          f"[entry] cli hdr films: MSE {mse}")
+
+    # (d) resume from a checkpoint, against an uninterrupted render
+    ckpt = OUT_DIR / "entry_resume.ckpt.npz"
+    full = _offline_film(make_default_scene, 64, 4,
+                         OUT_DIR / "entry_full.png").accum.cpu().numpy()
+    first = _offline_film(make_default_scene, 64, 2,
+                          OUT_DIR / "entry_half.png")
+    first.save_checkpoint(str(ckpt))
+    resumed = _offline_film(make_default_scene, 64, 4,
+                            OUT_DIR / "entry_resumed.png", ckpt)
+    same = bool(np.array_equal(resumed.accum.cpu().numpy(), full))
+    log(f"[entry] OfflineRenderer, Default 64x64, 3 bounces: 2 spp, "
+        f"checkpoint, resumed to 4 spp: film bit-equal to an uninterrupted "
+        f"4-spp render: {same}; checkpoint deleted: {not ckpt.exists()}")
+    check(same and not ckpt.exists(), "[entry] resumed film differs")
+
+    # (e) list-scenes
+    rc, text, _, _ = _cli(["list-scenes"])
+    names = [line.strip().split("/", 1)[1] for line in text.splitlines()
+             if line.startswith("  Test Scenes/")]
+    log(f"[entry] list-scenes: {names}")
+    check(rc == 0 and tuple(names) == TEST_SCENE_NAMES,
+          f"[entry] list-scenes gave {names}")
+    log(f"[entry] phase: {time.perf_counter() - t0:.1f} s")
+    return dict(stats_ms=ms, stats_mrays=mrays, stats_peak_mib=peak,
+                turns_ms=turns, cli_s=cli_s,
+                launches={**want, **cli_launches})
+
+
 def _pops_checks(tag, bvh8, rows, rng):
     """Phase 11's checks on every bounce's wavefront of a bench run: K1's
     pops launch (the warp kernel's pops instance) and its per-ray arm give
@@ -2715,6 +2997,7 @@ def main() -> None:
     phase_courtyard()
     phase_default()
     phase_cross_device()
+    entry = phase_entry()
     b_rows = phase_budget()
     counts.update(a_counts)
     counts.update(i_counts)
@@ -2734,6 +3017,8 @@ def main() -> None:
                      "ms_bounce2": times[(k, 2)]["ms"],
                      "plain_ms_bounce2": times[(k, 2)]["plain_ms"],
                      "bound_ms_bounce2": times[(k, 2)]["bound_ms"]})
+        if k in entry["launches"]:   # the [entry] phase's two callers
+            rows[-1]["launches_entry"] = entry["launches"][k]
         if k in PER_RAY:        # the in-call A/B against the first design
             rows[-1].update(per_ray_ms=tm["per_ray_ms"], ab_ms=tm["ab_ms"],
                             per_ray_ms_bounce2=times[(k, 2)]["per_ray_ms"],
@@ -2778,7 +3063,8 @@ def main() -> None:
         f"{json.dumps(main_stats)}; animated main path "
         f"{json.dumps(anim_stats)}; instanced main path "
         f"{json.dumps(inst_stats)}; archive path (b) "
-        f"{json.dumps(ar_stats)}")
+        f"{json.dumps(ar_stats)}; entry points (render_image_stats per "
+        f"call, the CLI's 512² render) {json.dumps(entry)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

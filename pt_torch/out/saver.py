@@ -1,19 +1,55 @@
 """Offline frame sink: PNG and Radiance HDR image files.
 
-Port of the still-image half of `pt.out.saver`. PNG is written with the
-standard library alone (`zlib` + `struct`: 8 bits per sample, filter 0
-per scanline), so the port needs no Pillow; HDR is the Radiance RGBE writer.
-The threaded video sink (OutputSaver) comes with a later slice.
+Port of the still-image half of `pt.out.saver` (≙ the reference's
+OutputSaver, Renderer/OutputSaver.cpp): `OutputInfo`, and `OutputSaver`
+with its writer thread (frames are handed off and converted to host arrays
+there), numbered file names for a sequence, `end_output` (drain and close),
+`cancel_output` (delete the partial file), and errors of the writer thread
+raised on the caller's next `submit_frame` or `end_output`. PNG is written
+with the standard library alone (`zlib` + `struct`: 8 bits per sample,
+filter 0 per scanline), so the port needs no Pillow; HDR is the Radiance
+RGBE writer. Video (mp4 through ffmpeg, the MJPEG AVI fallback) and the JPG
+and TGA writers are queue 1, item 5 of the port: they raise.
 """
 
 from __future__ import annotations
 
+import os
 import pathlib
+import queue
 import struct
+import threading
 import zlib
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
+
+FORMATS = ("png", "hdr")
+LATER_FORMATS = ("jpg", "jpeg", "tga", "mp4")
+
+
+class OutputInfo(NamedTuple):
+    """≙ OutputInfo (Renderer.h): target path, extent, framerate, format."""
+    path: str
+    width: int
+    height: int
+    framerate: float = 30.0
+    format: str = "png"          # png | hdr (jpg | tga | mp4: queue 1, item 5)
+    sequence: bool = False       # image formats with >1 frame → numbered
+
+
+def check_format(fmt: str) -> str:
+    """`fmt` lower-cased if the port writes it; else ValueError, naming the
+    queue item that brings the format."""
+    fmt = fmt.lower()
+    if fmt in LATER_FORMATS:
+        raise ValueError(f"output format '{fmt}' comes with queue 1, item 5 "
+                         "of the port (video and the other image formats); "
+                         "use png or hdr")
+    if fmt not in FORMATS:
+        raise ValueError(f"unsupported image format '{fmt}' (png or hdr)")
+    return fmt
 
 
 def write_radiance_hdr(path: str, rgb: np.ndarray) -> None:
@@ -61,11 +97,112 @@ def encode_png(u8: np.ndarray) -> bytes:
 def write_image(path: str, image: np.ndarray, fmt: Optional[str] = None) -> None:
     """Write one frame. `image` is float (H, W, 3): display-encoded [0,1]
     for PNG, linear radiance for HDR (≙ WriteImage, OutputSaver.cpp:227-257)."""
-    fmt = (fmt or pathlib.Path(path).suffix.lstrip(".")).lower()
+    fmt = check_format(fmt or pathlib.Path(path).suffix.lstrip("."))
     if fmt == "hdr":
         write_radiance_hdr(path, image)
         return
-    if fmt != "png":
-        raise ValueError(f"unsupported image format '{fmt}' (png or hdr)")
     u8 = (np.clip(image, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
     pathlib.Path(path).write_bytes(encode_png(u8))
+
+
+def frame_path(info: OutputInfo, index: int) -> str:
+    """Where frame `index` of an output goes: the target path, or for a
+    sequence `<stem>_<index:05d><suffix>` beside it."""
+    if not info.sequence:
+        return info.path
+    base = pathlib.Path(info.path)
+    return str(base.with_name(f"{base.stem}_{index:05d}{base.suffix}"))
+
+
+class OutputSaver:
+    """Async frame sink with a writer thread (≙ OutputSaver), still images
+    only."""
+
+    def __init__(self):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=4)
+        self._thread: Optional[threading.Thread] = None
+        self._info: Optional[OutputInfo] = None
+        self._frame_index = 0
+        self._error: Optional[Exception] = None
+
+    @property
+    def active(self) -> bool:
+        return self._info is not None
+
+    def register_output(self, info: OutputInfo) -> None:
+        """≙ RegisterOutput (OutputSaver.cpp:64-111)."""
+        if self.active:
+            raise RuntimeError("output already registered")
+        check_format(info.format)
+        self._info = info
+        self._frame_index = 0
+        self._error = None
+        self._thread = threading.Thread(target=self._writer, daemon=True)
+        self._thread.start()
+
+    def submit_frame(self, image) -> None:
+        """Queue one frame; `image` may be a tensor on the card: the copy to
+        the host happens on the writer thread (≙ the fence-wait + readback
+        jthread, OutputSaver.cpp:164-181)."""
+        if not self.active:
+            raise RuntimeError("no output registered")
+        while True:
+            if self._error:
+                raise self._error
+            try:
+                self._queue.put(image, timeout=0.25)
+                return
+            except queue.Full:
+                continue
+
+    def end_output(self) -> None:
+        """≙ EndOutput (OutputSaver.cpp:183-203): drain, flush, close."""
+        if not self.active:
+            return
+        self._queue.put(None)
+        if self._thread:
+            self._thread.join()
+        self._info = None
+        self._thread = None
+        if self._error:
+            raise self._error
+
+    def cancel_output(self) -> None:
+        """≙ CancelOutput (OutputSaver.cpp:204-225): stop the writer and
+        delete the partial file."""
+        if not self.active:
+            return
+        info = self._info
+        self._queue.put(None)
+        if self._thread:
+            self._thread.join()
+        self._info = None
+        self._thread = None
+        try:
+            if os.path.exists(info.path):
+                os.remove(info.path)
+        except OSError:
+            pass
+
+    # ------------------------------------------------------------------
+    def _writer(self) -> None:
+        info = self._info
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            try:
+                frame = (item.detach().cpu().numpy()
+                         if isinstance(item, torch.Tensor)
+                         else np.asarray(item))      # off the caller
+                write_image(frame_path(info, self._frame_index), frame,
+                            info.format)
+                self._frame_index += 1
+            except Exception as exc:            # surfaced on next submit
+                self._error = exc
+                # keep draining (discarding) until the sentinel: producers
+                # block on the bounded queue, so exiting here would leave
+                # submit_frame/end_output stuck in put() forever
+                while self._queue.get() is not None:
+                    pass
+                return

@@ -9,8 +9,9 @@ not fit) to K3/K4, and a structure that carries its own `closest` /
 `occluded` methods through them: a `BF8Instanced` (static scenes with
 shared-BLAS instancing) to K5/K6, the archive's `BF8V6` (A/B work) to its
 kernels. The host drives the sample and bounce loops
-(`pt_torch.run.renderer`); every stage is plain tensor code plus the kernel
-launches, with no host sync inside a bounce.
+(`pt_torch.run.renderer`, and `render_flat` / `render_image_stats` here,
+the single-call render over the Morton tree); every stage is plain tensor
+code plus the kernel launches, with no host sync inside a bounce.
 
 Alpha-tested geometry runs the any-hit emulation loops
 (`trace_closest_alpha`, `trace_occluded_alpha`): up to ALPHA_ROUNDS
@@ -31,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pt_torch import default_device
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, build_packet_bvh
 from pt_torch.accel.lbvh import _expand_bits_10
 from pt_torch.accel.intersect import Hit
@@ -808,3 +810,69 @@ def finish_sample(carry: BounceCarry, radiance_sum):
     """NaN/Inf rejection + accumulate (≙ raygen.rgen:99-117, rejected
     samples zeroed instead of resampled)."""
     return radiance_sum + _finite_or_zero(carry.radiance)
+
+
+def render_flat(ds: DeviceScene, tex: DeviceTextures, inv_view, inv_proj,
+                px, py, width: int, height: int, frame,
+                settings: PathTracingSettings):
+    """`settings.sample_count` full paths for each listed pixel, in one
+    call (≙ `pt`'s single-program render; here a host loop).
+
+    As in `pt`: the accel is the Morton `PacketBVH` (`prepare_accel`, so
+    K3/K4 on the card); the RNG is seeded once from `frame` and carried
+    from sample to sample; one ray counter runs across the samples; every
+    bounce samples textures with full trilinear filtering (no nearest-mip
+    tail), while Russian roulette still reads the bounce index.
+
+    Returns (radiance (N, 3) summed over the samples, rays () int64).
+    """
+    accel = prepare_accel(ds)
+    trilinear = dataclasses.replace(settings, tex_nearest_tail=False)
+    state = init_rng_state(px, py, width, frame)
+    radiance_sum = torch.zeros((px.shape[0], 3), dtype=torch.float32,
+                               device=px.device)
+    ray_count = torch.zeros((), dtype=torch.int64, device=px.device)
+    for _ in range(settings.sample_count):
+        state, origin, direction, diff = raygen(px, py, width, height,
+                                                inv_view, inv_proj, state,
+                                                settings)
+        carry = start_carry(state, origin, direction, diff)
+        carry = carry._replace(rays=ray_count)
+        for bounce in range(settings.bounce_count):
+            carry = bounce_once(ds, tex, accel, carry, trilinear, bounce)
+        radiance_sum = finish_sample(carry, radiance_sum)
+        state, ray_count = carry.state, carry.rays
+    return radiance_sum, ray_count
+
+
+def render_image_stats(ds: DeviceScene, tex: DeviceTextures, inv_view,
+                       inv_proj, width: int, height: int, frame,
+                       settings: PathTracingSettings, device=None):
+    """Full-frame render through `render_flat`, pixels in row-major order.
+    Returns ((H, W, 3) radiance summed over the samples, rays traced: a
+    0-d int64 tensor).
+
+    `device`: None means the card (`default_device`); the scene and the
+    texture pool must already be on it, or this raises."""
+    device = default_device(device)
+    for what, t in (("scene", ds.tri_idx), ("texture pool", tex.data)):
+        if t.device.type != device.type or (
+                device.index is not None and t.device.index != device.index):
+            raise ValueError(f"the {what} is on {t.device}, the render on "
+                             f"{device}")
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device), indexing="ij")
+    mat = lambda m: torch.as_tensor(m, dtype=torch.float32,  # noqa: E731
+                                    device=device)
+    radiance, rays = render_flat(ds, tex, mat(inv_view), mat(inv_proj),
+                                 xs.reshape(-1), ys.reshape(-1), width,
+                                 height, frame, settings)
+    return radiance.reshape(height, width, 3), rays
+
+
+def render_image(ds: DeviceScene, tex: DeviceTextures, inv_view, inv_proj,
+                 width: int, height: int, frame,
+                 settings: PathTracingSettings, device=None):
+    """Full-frame render: (H, W, 3) radiance sum over sample_count samples."""
+    return render_image_stats(ds, tex, inv_view, inv_proj, width, height,
+                              frame, settings, device)[0]

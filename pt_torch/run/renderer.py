@@ -22,16 +22,24 @@ pixels.
 spp-major groups; this port runs the uncompacted per-sample loop. Nothing
 in a render step reads a device value back: the ray counts stay on the
 device until `rays_traced` is read.
+
+For the offline path and the app: `set_settings` (a change resets the
+film), the adaptive samples-per-frame controller behind `on_update`, and
+`save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys. Each sample
+seeds its RNG from (pixel, total samples so far), so a resumed render
+continues the exact RNG stream.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from pt_torch import default_device
+from pt_torch.core.stats import Stats, Timer
 from pt_torch.accel.bvh8 import build_bf8, build_packet_bvh_sah
 from pt_torch.post.pipeline import PostProcessSettings, postprocess
 from pt_torch.render.integrator import (Accel, AlphaSplit,
@@ -40,6 +48,7 @@ from pt_torch.render.integrator import (Accel, AlphaSplit,
                                         prepare_accel, prepare_attribs,
                                         raygen, start_carry)
 from pt_torch.render.textures import DeviceTextures, default_texture_pool
+from pt_torch.run.adaptive import AdaptiveSampleController
 from pt_torch.scene.builder import Scene
 from pt_torch.accel.instanced import (build_instanced_bf8,
                                       build_instanced_split)
@@ -66,9 +75,13 @@ class Renderer:
 
     def __init__(self, settings: Optional[PathTracingSettings] = None,
                  post: Optional[PostProcessSettings] = None,
+                 min_refresh_rate: float = 60.0,
+                 max_samples_per_frame: int = 64,
                  device=None, mesh=None, instancing: str = "auto"):
         """`device`: None → `cuda:0` (raises without a card); "cpu" runs
-        the kernels' plain versions. `instancing`: the shared-BLAS policy
+        the kernels' plain versions. `min_refresh_rate` and
+        `max_samples_per_frame` drive the adaptive samples-per-frame
+        controller (`on_update`). `instancing`: the shared-BLAS policy
         for static scenes: "auto" switches to the instanced structure when
         geometry reuse is heavy (see `_want_instanced`), "shared" forces it
         where it is feasible, "flatten" disables it. `mesh` (multi-device
@@ -90,6 +103,8 @@ class Renderer:
         # int only when read
         self._rays_chunks: list = []
         self._rays_host = 0
+        self.adaptive = AdaptiveSampleController(min_refresh_rate,
+                                                 max_samples_per_frame)
         self.camera_index = 0
         self._px = self._py = self._film_perm = None
         self._accel_dirty = True
@@ -100,11 +115,13 @@ class Renderer:
         """Upload a new scene (≙ Renderer::UpdateSceneData). Without `tex`
         the pool is built from the scene's textures (in-memory pixels)."""
         self.scene = scene
-        self.ds = flatten_scene(scene, device=self.device)
+        with Timer("Mesh Upload"):
+            self.ds = flatten_scene(scene, device=self.device)
         if tex is not None:
             self.tex = tex
         elif scene.textures:
-            self.tex = build_scene_textures(scene, device=self.device)
+            with Timer("Texture Upload"):
+                self.tex = build_scene_textures(scene, device=self.device)
         else:
             self.tex = default_texture_pool(device=self.device)
         self._accel_dirty = True
@@ -133,6 +150,28 @@ class Renderer:
         self._film_perm = torch.as_tensor(order.astype(np.int64),
                                           device=self.device)
         self.reset_accumulation()
+
+    def set_settings(self, settings: Optional[PathTracingSettings] = None,
+                     post: Optional[PostProcessSettings] = None) -> None:
+        """≙ Renderer::SetSettings (Renderer.cpp:825-852): a change of the
+        path-tracing settings resets the accumulation. (`pt` also rebuilds
+        its accel when its backend or leaf size changes; the port's
+        settings have neither.)"""
+        if settings is not None and settings != self.settings:
+            self.settings = settings
+            self.reset_accumulation()
+        if post is not None:
+            self.post = post
+
+    def on_update(self, dt: float) -> None:
+        """Feed one frame time to the adaptive controller (≙
+        Renderer::OnUpdate); its samples per frame become
+        settings.sample_count."""
+        spf = self.adaptive.on_update(dt)
+        if spf != self.settings.sample_count:
+            self.settings = dataclasses.replace(self.settings,
+                                                sample_count=spf)
+        Stats.add_stat("Samples Per Frame", spf)
 
     def reset_accumulation(self) -> None:
         """≙ ResetAccumulationImage (Renderer.cpp:801-808)."""
@@ -305,8 +344,12 @@ class Renderer:
         """Linear per-pixel mean radiance (host)."""
         return self.accum.cpu().numpy() / max(self.total_samples, 1)
 
-    def snapshot(self) -> np.ndarray:
-        """Resolve the film through the post stack → float image (host)."""
+    def snapshot(self, hdr: bool = False) -> np.ndarray:
+        """Resolve the film through the post stack → float image (host).
+        `hdr=True` (HDR10 PQ encoding) is queue 1, item 4 of the port."""
+        if hdr:
+            raise NotImplementedError("HDR10 output comes with queue 1, "
+                                      "item 4 of the port")
         out = postprocess(self.accum, float(max(self.total_samples, 1)),
                           self.post)
         return out.cpu().numpy()
@@ -318,3 +361,21 @@ class Renderer:
         self._rays_host += sum(int(c) for c in self._rays_chunks)
         self._rays_chunks = []
         return self._rays_host
+
+    # -- checkpoint / resume ------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the accumulation film + counters in `pt`'s keys; a
+        resumed render continues the exact RNG stream (seeding is (pixel,
+        total_samples))."""
+        np.savez(path, accum=self.accum.cpu().numpy(),
+                 total_samples=self.total_samples,
+                 rays_total=self.rays_traced,
+                 width=self.width, height=self.height)
+
+    def load_checkpoint(self, path: str) -> None:
+        with np.load(path) as data:
+            self.on_resize(int(data["width"]), int(data["height"]))
+            self.accum = torch.as_tensor(data["accum"], device=self.device)
+            self.total_samples = int(data["total_samples"])
+            self._rays_host = int(data["rays_total"])
+        self._rays_chunks = []

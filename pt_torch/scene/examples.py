@@ -3,12 +3,15 @@
 Port of `pt.scene.examples`: the built-in "Default" Cornell-box-like scene
 with glass and mirror cubes, an area light and the four embedded textures
 (≙ ExampleScenes.cpp:320-545), the shared cube mesh helper (≙ AddCube,
-ExampleScenes.cpp:265-318), the Heightfield (the procedural stress scene of
-the static main path) and, through `pt_torch.scene.standin`, the Courtyard
-and its flythrough. `TEST_SCENES` is the catalog of the scenes the port
-has. Vertex data, transforms, materials and the default input camera
-(fov 45, near/far 100/0.1: the reference's reversed-argument quirk is kept;
-pos (3,1,0), dir (-1,0,0)) match `pt`'s exactly.
+ExampleScenes.cpp:265-318), the roughness/metalness grid, the textured
+MetallicRoughness cubes with their animated node-attached point light and
+equirect sky, the Reuse Mesh grid of one cube model under a cube skybox,
+the Heightfield (the procedural stress scene of the static main path) and,
+through `pt_torch.scene.standin`, the Courtyard and its flythrough.
+`TEST_SCENES` is `pt`'s catalog of seven, in `pt`'s order. Vertex data,
+transforms, materials and the default input camera (fov 45, near/far
+100/0.1: the reference's reversed-argument quirk is kept; pos (3,1,0), dir
+(-1,0,0)) match `pt`'s exactly.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ import numpy as np
 
 from pt_torch.core.camera import InputCamera
 from pt_torch.scene.builder import Scene, SceneBuilder
+from pt_torch.scene.graph import Animation, AnimationNode, KeySequence
 from pt_torch.scene.types import (DirectionalLight, Geometry, MeshInfo,
-                                  MetallicRoughnessMaterial, TextureInfo,
+                                  MetallicRoughnessMaterial, PointLight,
+                                  Skybox, SkyboxKind, TextureInfo,
                                   TextureType)
 
 
@@ -218,6 +223,134 @@ def create_default_scene(builder: SceneBuilder) -> None:
                                                    direction=(0, -1, 0)))
 
 
+def create_roughness_test_scene(builder: SceneBuilder) -> None:
+    """6x6 grid of cubes sweeping roughness (x) and metalness (y)
+    (≙ CreateRoughnessTestCubesScene) plus a point light — textureless
+    material/BSDF test scene."""
+    cube_geos = add_cube(builder)
+    root = builder.add_scene_node(0, np.eye(4))
+    for iy in range(6):
+        for ix in range(6):
+            m = builder.add_material(
+                f"rm-{ix}-{iy}",
+                MetallicRoughnessMaterial(
+                    color=(0.8, 0.2, 0.2, 1.0),
+                    roughness=ix / 5.0, metalness=iy / 5.0, ior=1.5))
+            model = builder.add_model([MeshInfo(g, m) for g in cube_geos])
+            node = builder.add_scene_node(
+                root, _translate(ix * 2.5 - 6.25, iy * 2.5 - 6.25, 0.0) @ _scale(0.9))
+            builder.add_model_instance(model, node)
+    builder.add_point_light(PointLight(color=(200.0, 200.0, 200.0),
+                                       position=(0.0, 0.0, -12.0)))
+    builder.set_directional_light(DirectionalLight())
+    builder.add_camera(InputCamera(45.0, 100.0, 0.1, (0.0, 0.0, -20.0),
+                                   (0.0, 0.0, 1.0)))
+
+
+def _procedural_pbr_textures(builder: SceneBuilder, name: str, seed: int):
+    """Noise-generated color/normal/roughness/metallic texture quartet —
+    stand-in for the ambientcg JPG sets the reference downloads at
+    configure time (unavailable here, cmake/DownloadAssets.cmake); keeps
+    the full 4-slot texture sampling path exercised."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    base = rng.uniform(0.2, 0.9, 3)
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    pattern = (0.5 + 0.5 * np.sin(xx * 0.4 + seed) * np.cos(yy * 0.3)
+               + 0.15 * rng.standard_normal((n, n))).clip(0, 1)
+    color = (base[None, None] * (0.4 + 0.6 * pattern[..., None]))
+    color = np.concatenate([color, np.ones((n, n, 1))], -1).astype(np.float32)
+    # normal map: slopes of the pattern, encoded [0,1]
+    gx = np.gradient(pattern, axis=1)
+    gy = np.gradient(pattern, axis=0)
+    nrm = np.stack([-gx, -gy, np.ones_like(gx)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    normal = np.concatenate([(nrm * 0.5 + 0.5),
+                             np.ones((n, n, 1))], -1).astype(np.float32)
+    rough = np.repeat((0.3 + 0.6 * pattern)[..., None], 4,
+                      -1).astype(np.float32)
+
+    def add(px, ttype, srgb):
+        return builder.add_texture(TextureInfo(
+            name=f"{name}-{ttype.name.lower()}", type=ttype,
+            pixels=px, is_srgb=srgb))
+
+    return dict(
+        color_idx=add(color, TextureType.COLOR, True),
+        normal_idx=add(normal, TextureType.NORMAL, False),
+        roughness_idx=add(rough, TextureType.ROUGHNESS, False),
+        metallic_idx=add(rough, TextureType.METALLIC, False))
+
+
+def create_metallic_roughness_cubes_scene(builder: SceneBuilder) -> None:
+    """Textured cubes with a node-attached ANIMATED point light
+    (≙ CreateMetallicRoughnessCubesScene, ExampleScenes.cpp:547-658):
+    two cube models (3 materials / 1 material), three instances, a white
+    quadratic-falloff point light on a scene node keyframed x: −1→1→−1
+    over 180 ticks at 30 tps, and an equirect skybox. The only scene
+    exercising animated node-attached lights end-to-end."""
+    mats = []
+    for i, name in enumerate(("Metal", "PavingStones", "Logs")):
+        tex = _procedural_pbr_textures(builder, name, seed=7 + i)
+        mats.append(builder.add_material(name, MetallicRoughnessMaterial(
+            color=(1.0, 1.0, 1.0, 1.0), roughness=1.0, metalness=1.0,
+            ior=1.5, **tex)))
+
+    geos = add_cube(builder)
+    # cube1: faces (0,1)->Metal, (2,3)->PavingStones, (4,5)->Logs
+    m1 = [MeshInfo(geos[f], mats[f // 2]) for f in range(6)]
+    m2 = [MeshInfo(g, mats[0]) for g in geos]
+    cube1 = builder.add_model(m1)
+    cube2 = builder.add_model(m2)
+
+    root = builder.add_scene_node(0, np.eye(4))
+    n_inst1 = builder.add_scene_node(root, _translate(1.0, 1.0, 1.0))
+    n_inst2 = builder.add_scene_node(root, _translate(-1.0, -1.0, -1.0))
+    n_cube2 = builder.add_scene_node(
+        root, _translate(0.5, -1.0, -3.0) @ np.diag([2.0, 1.0, 0.3, 1.0]))
+    builder.add_model_instance(cube1, n_inst1)
+    builder.add_model_instance(cube1, n_inst2)
+    builder.add_model_instance(cube2, n_cube2)
+
+    light_node = builder.add_scene_node(root, _translate(-1.0, 3.0, 0.0))
+    builder.add_point_light(
+        PointLight(color=(1.0, 1.0, 1.0), position=(0.0, 0.0, 0.0),
+                   attenuation_constant=0.0, attenuation_linear=0.0,
+                   attenuation_quadratic=1.0),
+        node_index=light_node)
+
+    anim_node = AnimationNode(
+        scene_node_index=light_node,
+        positions=KeySequence(
+            ticks=np.asarray([0.0, 90.0, 180.0]),
+            values=np.asarray([[-1.0, 3.0, 0.0], [1.0, 3.0, 0.0],
+                               [-1.0, 3.0, 0.0]])),
+        rotations=KeySequence(ticks=np.asarray([0.0]),
+                              values=np.asarray([[1.0, 0.0, 0.0, 0.0]]),
+                              is_rotation=True),
+        scales=KeySequence(ticks=np.asarray([0.0]),
+                           values=np.asarray([[1.0, 1.0, 1.0]])))
+    builder.add_animation(Animation(nodes=[anim_node], ticks_per_second=30.0,
+                                    duration=180.0))
+
+    # procedural equirect sky gradient (≙ the sky_42_2k.png 2D skybox)
+    h, w = 32, 64
+    v = np.linspace(0.0, 1.0, h)[:, None]
+    sky = np.stack([0.35 + 0.3 * v, 0.5 + 0.3 * v, 0.8 + 0.2 * v],
+                   axis=-1).astype(np.float32)
+    sky = np.broadcast_to(sky, (h, w, 3)).copy()
+    builder.set_skybox(Skybox(kind=SkyboxKind.EQUIRECT, image=sky))
+    builder.set_directional_light(DirectionalLight())
+    builder.add_camera(InputCamera(45.0, 100.0, 0.1, (6.0, 1.0, 2.0),
+                                   (-0.9, -0.15, -0.35)))
+
+
+def make_metallic_roughness_cubes_scene() -> Scene:
+    b = SceneBuilder("MetallicRoughness Cubes")
+    create_metallic_roughness_cubes_scene(b)
+    return b.create_scene()
+
+
 def create_heightfield_scene(builder: SceneBuilder, n: int = 224) -> None:
     """Procedural stress scene (no reference counterpart): an n×n wavy
     heightfield (2·(n−1)² triangles) with a diffuse material, a sun
@@ -258,6 +391,41 @@ def create_heightfield_scene(builder: SceneBuilder, n: int = 224) -> None:
                                    (0.0, -0.25, 1.0)))
 
 
+def create_reuse_mesh_scene(builder: SceneBuilder) -> None:
+    """Grid of instances sharing ONE cube model with a cubemap skybox
+    (≙ the "Reuse Mesh" catalog entry, ExampleScenes.cpp:248 — exercises
+    instancing/geometry reuse and the cube-skybox miss path)."""
+    cube_geos = add_cube(builder)
+    mat = builder.add_material("reuse", MetallicRoughnessMaterial(
+        color=(0.7, 0.7, 0.75, 1.0), roughness=0.35, metalness=0.8))
+    model = builder.add_model([MeshInfo(g, mat) for g in cube_geos])
+    root = builder.add_scene_node(0, np.eye(4))
+    for iy in range(4):
+        for ix in range(4):
+            node = builder.add_scene_node(
+                root, _translate(ix * 3.0 - 4.5, iy * 3.0 - 4.5, 0.0)
+                @ _rotate_y(ix * 20 + iy * 10) @ _scale(0.8))
+            builder.add_model_instance(model, node)
+    # procedural gradient cubemap (6, H, W, 3)
+    faces = np.zeros((6, 16, 16, 3), np.float32)
+    tints = np.asarray([[1, .6, .4], [.4, .6, 1], [.9, .9, .5],
+                        [.3, .3, .35], [.6, 1, .6], [.5, .4, .6]])
+    grad = np.linspace(0.4, 1.0, 16)[:, None]
+    for f in range(6):
+        faces[f] = tints[f] * grad[..., None]
+    builder.set_skybox(Skybox(kind=SkyboxKind.CUBE, image=faces))
+    builder.set_directional_light(DirectionalLight(color=(2.0, 2.0, 1.9),
+                                                   direction=(0.3, 0.8, 0.4)))
+    builder.add_camera(InputCamera(45.0, 100.0, 0.1, (0.0, 0.0, -14.0),
+                                   (0.0, 0.0, 1.0)))
+
+
+def make_reuse_mesh_scene() -> Scene:
+    b = SceneBuilder("Reuse Mesh")
+    create_reuse_mesh_scene(b)
+    return b.create_scene()
+
+
 def make_heightfield_scene(n: int = 224) -> Scene:
     b = SceneBuilder("Heightfield")
     create_heightfield_scene(b, n)
@@ -268,6 +436,12 @@ def make_default_scene() -> Scene:
     b = SceneBuilder("Default")
     create_default_scene(b)
     b.add_camera(InputCamera(45.0, 100.0, 0.1, (3.0, 1.0, 0.0), (-1.0, 0.0, 0.0)))
+    return b.create_scene()
+
+
+def make_roughness_test_scene() -> Scene:
+    b = SceneBuilder("Roughness Test Cubes")
+    create_roughness_test_scene(b)
     return b.create_scene()
 
 
@@ -284,7 +458,10 @@ def _make_courtyard_flythrough():
 
 TEST_SCENES: Dict[str, Callable[[], Scene]] = {
     "Default": make_default_scene,
+    "MetallicRoughness Cubes": make_metallic_roughness_cubes_scene,
+    "Roughness Test Cubes": make_roughness_test_scene,
     "Heightfield": make_heightfield_scene,
+    "Reuse Mesh": make_reuse_mesh_scene,
     "Courtyard": _make_courtyard,
     "Courtyard Flythrough": _make_courtyard_flythrough,
 }

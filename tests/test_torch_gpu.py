@@ -1189,3 +1189,61 @@ def test_cuda_ordered_warp_kernel_raises_on_unstageable_and_deep_trees(
     h = kernels.closest_ordered(tree, empty, empty,
                                 torch.empty((0,), device=cuda_device))
     assert h.t.shape == (0,) and kernels.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_render_image_stats_matches_cpu(cuda_device):
+    """`render_image_stats` at `entry()`'s settings (the Default, 32², 1
+    spp, 3 bounces) with no device argument: on the card, through the warp
+    K3/K4 only (sample_count x bounce_count launches each); film within
+    MSE 1e-3 of the CPU's, ray counts equal."""
+    from pt_torch.render.integrator import (PathTracingSettings,
+                                            render_image_stats)
+    from pt_torch.scene.examples import make_default_scene
+    from pt_torch.scene.flatten import flatten_scene
+    from pt_torch.scene.textures import build_scene_textures
+    out = {}
+    for dev in (None, "cpu"):
+        scene = make_default_scene()
+        cam = scene.cameras[0]
+        cam.on_resize(32, 32)
+        on = dev or cuda_device
+        kernels.reset_launch_counts()
+        img, rays = render_image_stats(
+            flatten_scene(scene, device=on),
+            build_scene_textures(scene, device=on), cam.inv_view,
+            cam.inv_proj, 32, 32, 0,
+            PathTracingSettings(sample_count=1, bounce_count=3), device=dev)
+        if dev is None:
+            assert img.device == cuda_device
+            assert {k: v for k, v in kernels.launches.items() if v} == {
+                "closest_v4": 3, "occluded_v4": 3}
+        out[dev] = (img.cpu().numpy(), int(rays))
+    assert np.isfinite(out[None][0]).all() and out[None][0].max() > 0
+    assert float(np.mean((out[None][0] - out["cpu"][0]) ** 2)) < 1e-3
+    assert out[None][1] == out["cpu"][1]
+
+
+@pytest.mark.gpu
+def test_cuda_cli_render(cuda_device, tmp_path):
+    """`python -m pt_torch.run.cli render` at 32² with no --device renders
+    on the card (K1/K2) and writes a PNG; its HDR film is within MSE 1e-3
+    of the same command's with --device cpu."""
+    from pt_torch.run import cli
+    from pt_torch.scene.textures import decode_png, read_radiance_hdr
+    base = ["render", "--scene", "Test Scenes/Default", "--size", "32x32",
+            "--spp", "2", "--bounces", "3"]
+    png = tmp_path / "card.png"
+    kernels.reset_launch_counts()
+    assert cli.main(base + ["--out", str(png)]) == 0
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        "closest_bf8": 6, "occluded_bf8": 6}
+    assert decode_png(png.read_bytes()).shape == (32, 32, 4)
+    films = []
+    for extra in ([], ["--device", "cpu"]):
+        hdr = tmp_path / f"film{len(films)}.hdr"
+        assert cli.main(base + ["--format", "hdr", "--out", str(hdr)]
+                        + extra) == 0
+        films.append(read_radiance_hdr(hdr.read_bytes()))
+    assert films[0].max() > 0
+    assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3

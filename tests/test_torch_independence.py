@@ -8,8 +8,10 @@ where they are made unimportable, pt_torch imports and renders an 8²
 Heightfield, the Default scene, a small Courtyard and an instanced alpha
 scene on the CPU, runs the archive path (both
 harnesses, a frame through a BF8V6) and the frame budget and drain model
-(`pt_torch.benches.budget`, `.drain_sim`); and with no device named, the
-entry points take the card and raise when there is none.
+(`pt_torch.benches.budget`, `.drain_sim`), and runs `python -m
+pt_torch.run.cli` (`list-scenes`, and a 16² `render --device cpu` to PNG);
+and with no device named, the entry points take the card and raise when
+there is none.
 """
 
 import ast
@@ -218,6 +220,39 @@ def test_budget_and_drain_run_without_jax_or_pt():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+def test_cli_runs_without_jax_pt_or_pillow(tmp_path):
+    """`python -m pt_torch.run.cli list-scenes` and a 16² `render --device
+    cpu` to PNG, in a process where `jax`, `pt`, `benches` and Pillow
+    cannot be imported."""
+    png = tmp_path / "cli.png"
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'pt', 'benches', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "for argv in (['list-scenes'], ['render', '--scene',"
+        " 'Test Scenes/Default', '--size', '16x16', '--spp', '1',"
+        f" '--bounces', '2', '--device', 'cpu', '--out', {str(png)!r}]):\n"
+        "    sys.argv = ['pt_torch.run.cli'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('pt_torch.run.cli', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (argv, e.code)\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
+        " if v is not None}\n"
+        "assert not loaded & {'jax', 'pt', 'benches', 'PIL'}\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "Test Scenes" and lines[-1] == "OK"
+    assert "  Test Scenes/Reuse Mesh" in lines
+    from pt_torch.scene.textures import decode_png
+    assert decode_png(png.read_bytes()).shape == (16, 16, 4)
 
 
 def test_default_device_is_the_card():

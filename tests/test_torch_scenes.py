@@ -1,10 +1,12 @@
 """The Courtyard, the Default scene, the embedded art and the texture file
 decoders of the PyTorch port against `pt` on the CPU.
 
-* `make_courtyard_scene(detail=0.1, tex_scale=0.05)`, its flythrough and
-  `make_default_scene()`: every array and scalar of the `Scene` equals
-  `pt`'s; the flattened `DeviceScene` is array-equal and the texture pool
-  bit-equal (bf16 compared as its uint16 bits).
+* `make_courtyard_scene(detail=0.1, tex_scale=0.05)`, its flythrough,
+  `make_default_scene()` and the Roughness Test Cubes, MetallicRoughness
+  Cubes and Reuse Mesh scenes: every array and scalar of the `Scene`
+  equals `pt`'s; the flattened `DeviceScene` is array-equal (the
+  MetallicRoughness one also after its light's node has moved) and the
+  texture pool bit-equal (bf16 compared as its uint16 bits).
 * `decode_png` (standard library only) gives exactly what `pt`'s
   `_decode_bytes` gives through Pillow, on the four embedded PNGs, on
   seeded PNGs written by the port's own writer (grey, grey+alpha, RGB, RGBA)
@@ -122,6 +124,11 @@ SCENES = {
     "flythrough": (lambda: tstand.make_courtyard_flythrough_scene(0.1, 0.05),
                    lambda: jstand.make_courtyard_flythrough_scene(0.1, 0.05)),
     "default": (tex_.make_default_scene, jex.make_default_scene),
+    "roughness": (tex_.make_roughness_test_scene,
+                  jex.make_roughness_test_scene),
+    "metallic_roughness": (tex_.make_metallic_roughness_cubes_scene,
+                           jex.make_metallic_roughness_cubes_scene),
+    "reuse_mesh": (tex_.make_reuse_mesh_scene, jex.make_reuse_mesh_scene),
 }
 
 
@@ -130,7 +137,9 @@ def test_scene_equals_pt(which):
     ts, js = (f() for f in SCENES[which])
     _same(ts, js)
     assert len(ts.textures) == {"courtyard": 59, "flythrough": 59,
-                                "default": 4}[which]
+                                "default": 4, "roughness": 0,
+                                "metallic_roughness": 12,
+                                "reuse_mesh": 0}[which]
     _assert_device_scene_equal(t_flatten(ts, device="cpu"), j_flatten(js))
     _assert_pool_equal(tstex.build_scene_textures(ts, device="cpu"),
                        jstex.build_scene_textures(js))
@@ -140,6 +149,12 @@ def test_scene_equals_pt(which):
         np.testing.assert_array_equal(np.asarray(ts.cameras[0].inv_view),
                                       np.asarray(js.cameras[0].inv_view))
         assert not ts.has_animated_instances
+    if which == "metallic_roughness":
+        # the light's node is keyframed: the light moves, no instance does
+        assert ts.update(3.0) == js.update(3.0) is True
+        assert not ts.has_animated_instances
+        _assert_device_scene_equal(t_flatten(ts, device="cpu"),
+                                   j_flatten(js))
 
 
 def test_courtyard_instancing_numbers():
@@ -161,9 +176,9 @@ def test_courtyard_instancing_numbers():
 
 
 def test_test_scenes_catalog():
-    assert list(tex_.TEST_SCENES) == ["Default", "Heightfield", "Courtyard",
-                                      "Courtyard Flythrough"]
-    assert set(tex_.TEST_SCENES) <= set(jex.TEST_SCENES)
+    assert list(tex_.TEST_SCENES) == list(jex.TEST_SCENES) == [
+        "Default", "MetallicRoughness Cubes", "Roughness Test Cubes",
+        "Heightfield", "Reuse Mesh", "Courtyard", "Courtyard Flythrough"]
     assert tex_.TEST_SCENES["Default"]().name == "Default"
     geos = tex_.add_cube(tex_.SceneBuilder("cube"))
     assert len(geos) == 6
