@@ -2629,7 +2629,7 @@ def phase_entry():
         f"{spp} spp: warm call {warm:.2f} s, ms per call "
         f"{', '.join(f'{m:.1f}' for m in ms)} (mean {sum(ms) / 3:.1f}), "
         f"{mrays:.3f} useful Mrays/s ({rays[0]} rays a call), peak memory "
-        f"{peak:.0f} MiB, launches per call {want}, plain calls "
+        f"{peak:.0f} MiB, launches per call {got}, plain calls "
         f"{plain.calls}")
 
     # (a2) the same work through Renderer, in turns on one scene: the
@@ -2744,7 +2744,7 @@ def phase_entry():
     log(f"[entry] phase: {time.perf_counter() - t0:.1f} s")
     return dict(stats_ms=ms, stats_mrays=mrays, stats_peak_mib=peak,
                 turns_ms=turns, cli_s=cli_s,
-                launches={**want, **cli_launches})
+                launches={**got, **cli_launches})
 
 
 def _pops_checks(tag, bvh8, rows, rng):

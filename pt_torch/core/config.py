@@ -1,114 +1,17 @@
-"""Runtime configuration.
+"""Runtime configuration of the port: the knobs its modules read.
 
-Port of `pt.core.config`: every field of `Config` with `pt`'s defaults,
-`Config.create` with the `-A/-S/-C/-L` flags and the directory
-autodiscovery of the reference (Core/Config.{h,cpp}: fields at
-Config.h:119-167, parsing at Config.cpp:138-242), and the process-wide
-instance behind `get_config` / `set_config`.
-
-`ray_batch_size` and `traversal_backend` were `pt`'s knobs for the TPU's
-wavefront sizing; they keep `pt`'s names and defaults, and nothing in the
-port reads them yet.
+A copy of the fields of `pt.core.config.Config` that the ported modules
+use, with `pt`'s defaults. Callers create a `Config` and pass it; there is
+no process-wide instance.
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import os
-import pathlib
-from typing import Optional
-
-
-def _find_folder(name: str, start: Optional[pathlib.Path] = None) -> Optional[pathlib.Path]:
-    """Walk up at most 3 parents looking for a directory called `name`.
-
-    Mirrors the reference's `FindFolder` (Core/Config.cpp:99-122) used to
-    autodiscover Assets/Scenes/ShaderCache next to the executable.
-    """
-    here = (start or pathlib.Path.cwd()).resolve()
-    for parent in [here, *list(here.parents)[:3]]:
-        candidate = parent / name
-        if candidate.is_dir():
-            return candidate
-    return None
 
 
 @dataclasses.dataclass
 class Config:
-    """All runtime-visible knobs (reference: Core/Config.h:119-167)."""
-
-    # --- paths (reference: AssetsPath/ScenesPath/CachePath/LogsPath) ---
-    assets_path: Optional[pathlib.Path] = None
-    scenes_path: Optional[pathlib.Path] = None
-    cache_path: Optional[pathlib.Path] = None    # compilation cache dir
-    logs_path: Optional[pathlib.Path] = None
-
-    # --- rendering ---
-    max_samples_per_frame: int = 64          # ≙ Config::MaxSamplesPerFrame
-    min_refresh_rate: float = 60.0           # ≙ Config::MinRefreshRate (adaptive spp target)
-    max_bounces: int = 16                    # interactive cap (UI slider 1..16)
-    max_bounces_offline: int = 64            # offline cap (UserInterface.cpp:965)
-    max_sample_count: int = 10_000           # offline max samples (UserInterface.cpp:906)
-    max_light_count: int = 64                # ≙ Shaders MaxLightCount
-    max_bones: int = 64 * 1024 // 48         # ≙ Shaders MaxBones (64KiB UBO / mat3x4)
-
-    # --- wavefront sizing (pt's TPU knobs; read by nothing in the port) ---
-    ray_batch_size: int = 1 << 20            # rays traced per device dispatch
-    traversal_backend: str = "auto"          # "auto" | "xla" | "pallas" | "brute"
-
     # --- memory / streaming budgets ---
-    staging_buffer_size: int = 64 << 20      # ≙ Config::StagingBufferSize (64 MiB)
     texture_memory_budget: int = 2 << 30     # bytes the texture pool may take
     max_texture_size: int = 4096             # downscale textures larger than this
-    loader_thread_count: int = max(1, (os.cpu_count() or 2) // 2)  # ≙ TextureUploader threads
-
-    # --- misc ---
-    seed: int = 0
-    validation: bool = False                 # extra device-side checks (≙ validation layers)
-
-    @staticmethod
-    def create(argv: Optional[list[str]] = None) -> "Config":
-        """Build a Config from CLI args + directory autodiscovery.
-
-        Mirrors `Config::Create` (Core/Config.cpp:138-242): flags -A/-S/-C/-L
-        override autodiscovered Assets/Scenes/Cache/Logs directories.
-        """
-        parser = argparse.ArgumentParser(prog="pt_torch", add_help=True,
-                                         description="path tracer on "
-                                         "PyTorch and CUDA")
-        parser.add_argument("-A", "--assets", type=pathlib.Path, default=None,
-                            help="assets directory")
-        parser.add_argument("-S", "--scenes", type=pathlib.Path, default=None,
-                            help="scenes directory")
-        parser.add_argument("-C", "--cache", type=pathlib.Path, default=None,
-                            help="compilation-cache directory")
-        parser.add_argument("-L", "--logs", type=pathlib.Path, default=None,
-                            help="logs directory")
-        args, _ = parser.parse_known_args(argv)
-
-        cfg = Config(
-            assets_path=args.assets or _find_folder("Assets"),
-            scenes_path=args.scenes or _find_folder("Scenes"),
-            cache_path=args.cache or _find_folder("ShaderCache"),
-            logs_path=args.logs,
-        )
-        for name, path in (("assets", cfg.assets_path), ("scenes", cfg.scenes_path)):
-            if path is not None and not path.is_dir():
-                raise ValueError(f"{name} path {path} is not a directory")
-        return cfg
-
-
-_global_config: Optional[Config] = None
-
-
-def get_config() -> Config:
-    global _global_config
-    if _global_config is None:
-        _global_config = Config()
-    return _global_config
-
-
-def set_config(cfg: Config) -> None:
-    global _global_config
-    _global_config = cfg

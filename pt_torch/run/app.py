@@ -1,14 +1,14 @@
 """Application shell: lifecycle and the offline-render entry point.
 
 Port of `pt.run.app` (≙ the reference's Application, Application.{h,cpp}):
-ordered init of config → scene manager → renderer
-(Application.cpp:193-249), background-task progress counters
-(Application.h:15-36), and the offline-rendering entry point
-(BeginOfflineRendering, Application.cpp:412-439).
+ordered init of scene manager → renderer (Application.cpp:193-249), the
+scene-import and rendering progress counters (Application.h:15-36), and
+the offline-rendering entry point (BeginOfflineRendering,
+Application.cpp:412-439).
 
-The progressive loop (`run`), the shader hot-reload and the debug-frame
-switch are queue 1, item 8 of the port (the app shell and the viewer):
-they raise.
+The progressive loop (`run`), the config it reads (the refresh-rate
+controller's limits), the shader hot-reload and the debug-frame switch
+come with queue 1, item 8 of the port (the app shell and the viewer).
 """
 
 from __future__ import annotations
@@ -16,21 +16,18 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
-from pt_torch.core.config import Config, set_config
 from pt_torch.post.pipeline import PostProcessSettings
 from pt_torch.render.integrator import PathTracingSettings
 from pt_torch.run.offline import OfflineRenderer, RenderSettings
 from pt_torch.run.renderer import Renderer
 from pt_torch.scene.manager import SceneManager
 
-_APP_SHELL = "comes with queue 1, item 8 of the port (app shell and viewer)"
-
 
 class BackgroundTasks:
     """Atomic {total, done} progress counters per task type
-    (≙ BackgroundTask, Application.h:15-36)."""
+    (≙ BackgroundTask, Application.h:15-36): the two this shell advances."""
 
-    TYPES = ("ShaderCompilation", "TextureUpload", "SceneImport", "Rendering")
+    TYPES = ("SceneImport", "Rendering")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -57,29 +54,14 @@ class BackgroundTasks:
 class Application:
     """≙ Application::Init/Shutdown and the offline entry point."""
 
-    def __init__(self, config: Optional[Config] = None, device=None):
+    def __init__(self, device=None):
         """`device`: the renderer's (None → `cuda:0`, raising without a
         card; "cpu" runs the kernels' plain versions)."""
-        self.config = config or Config()
-        set_config(self.config)
         self.tasks = BackgroundTasks()
         self.scene_manager = SceneManager()
         self.scene_manager.on_scene_loaded(
             lambda _scene: self.tasks.advance("SceneImport"))
-        self.renderer = Renderer(
-            min_refresh_rate=self.config.min_refresh_rate,
-            max_samples_per_frame=self.config.max_samples_per_frame,
-            device=device)
-
-    @property
-    def debug_mode(self):
-        """The debug-pipeline switch of `pt`'s run loop: always None."""
-        return None
-
-    @debug_mode.setter
-    def debug_mode(self, mode) -> None:
-        if mode is not None:
-            raise NotImplementedError(f"the debug-frame switch {_APP_SHELL}")
+        self.renderer = Renderer(device=device)
 
     # -- lifecycle -------------------------------------------------------
     def init(self, group: str = "Test Scenes", scene: str = "Default",
@@ -104,15 +86,6 @@ class Application:
         # async: the manager keeps the previous scene active until its
         # worker finishes; pt's run loop adopts the new one when it lands,
         # and the on_scene_loaded callback advances the task counter
-
-    def run(self, *args, **kwargs) -> int:
-        """The progressive loop (≙ Application::Run)."""
-        raise NotImplementedError(f"Application.run {_APP_SHELL}")
-
-    def reload_shaders(self) -> None:
-        """Dev hot-reload (≙ Renderer::ReloadShaders): a kernel rebuild in
-        the port."""
-        raise NotImplementedError(f"reload_shaders {_APP_SHELL}")
 
     # -- offline ----------------------------------------------------------
     def render_offline(self, settings: RenderSettings,

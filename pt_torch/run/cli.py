@@ -10,11 +10,14 @@ with `pt`'s flags and defaults, and `render --device` (default: the card,
 `--backend` the render runs the port's kernels. What later items of the
 port's queue bring exits non-zero with a message that names the item:
 
-  --backend (any value)                          queue 1, item 7
+  --backend (any value)                           queue 1, item 7
   --adaptive, --adaptive-mse, --hdr, debug, stats queue 1, item 4
-  mp4, jpg and tga output                        queue 1, item 5
-  a .gltf/.glb/.obj/.fbx scene path              queue 1, item 6
-  view                                           queue 1, item 8
+  mp4, jpg and tga output                         queue 1, item 5
+  -A/-S, a .gltf/.glb/.obj/.fbx scene path        queue 1, item 6
+  view                                            queue 1, item 8
+
+`debug`, `stats` and `view` are bare commands until then: whatever
+follows them is not parsed.
 """
 
 from __future__ import annotations
@@ -22,9 +25,14 @@ from __future__ import annotations
 import argparse
 import sys
 
-from pt_torch.core.config import Config, set_config
-
 SCENE_FILES = (".gltf", ".glb", ".obj", ".fbx")
+
+# the commands of later items: command → (what it does, its queue item)
+DEFERRED_COMMANDS = {
+    "debug": ("debug visualization render", 4),
+    "stats": ("render one frame and dump the stat board", 4),
+    "view": ("live browser viewer with fly camera", 8),
+}
 
 
 def _parse_size(s: str):
@@ -36,8 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pt_torch",
                                 description="path tracer on PyTorch and "
                                 "CUDA")
-    p.add_argument("-A", "--assets", default=None)
-    p.add_argument("-S", "--scenes", default=None)
+    p.add_argument("-A", "--assets", default=None,
+                   help="assets directory (queue 1, item 6)")
+    p.add_argument("-S", "--scenes", default=None,
+                   help="scenes directory (queue 1, item 6)")
     sub = p.add_subparsers(dest="command", required=True)
 
     sub.add_parser("list-scenes", help="list the scene catalog")
@@ -87,48 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: the card, cuda:0; 'cpu' "
                         "runs the kernels' plain versions)")
 
-    d = sub.add_parser("debug", help="debug visualization render (queue 1, "
-                                     "item 4)")
-    d.add_argument("--scene", default="Test Scenes/Default")
-    d.add_argument("--mode", default="normal",
-                   choices=["color", "world-position", "normal", "tex-coords",
-                            "mips", "geometry", "primitive", "instance"])
-    d.add_argument("--out", default="debug.png")
-    d.add_argument("--size", type=_parse_size, default=(640, 480),
-                   metavar="WxH")
-    d.add_argument("--force-opaque", action="store_true")
-    d.add_argument("--cull-backfaces", action="store_true")
-    d.add_argument("--disable-color-texture", action="store_true")
-    d.add_argument("--disable-shadows", action="store_true")
-
-    sub.add_parser("stats", help="render one frame and dump the stat board "
-                                 "(queue 1, item 4)")
-
-    v = sub.add_parser("view", help="live browser viewer with fly camera "
-                                    "(queue 1, item 8)")
-    v.add_argument("--scene", default="Test Scenes/Default")
-    v.add_argument("--size", type=_parse_size, default=(640, 480),
-                   metavar="WxH")
-    v.add_argument("--bounces", type=int, default=5)
-    v.add_argument("--backend", default="pallas",
-                   choices=["pallas", "bvh", "brute"])
-    v.add_argument("--host", default="127.0.0.1")
-    v.add_argument("--port", type=int, default=8000)
-    v.add_argument("--duration", type=float, default=1e30,
-                   help="stop after this many seconds (default: run forever)")
-    v.add_argument("--adaptive", type=float, default=None, metavar="TOL")
+    for name, (text, item) in DEFERRED_COMMANDS.items():
+        sub.add_parser(name, help=f"{text} (queue 1, item {item})")
     return p
 
 
 def _error(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 2
-
-
-def _config(args) -> Config:
-    return Config.create(
-        (["-A", args.assets] if args.assets else [])
-        + (["-S", args.scenes] if args.scenes else []))
 
 
 def _deferred_render_option(args, fmt: str):
@@ -156,7 +132,6 @@ def _deferred_render_option(args, fmt: str):
 
 def cmd_list_scenes(args) -> int:
     from pt_torch.scene.manager import SceneManager
-    set_config(_config(args))
     mgr = SceneManager()
     for group, scenes in mgr.groups.items():
         print(group)
@@ -188,7 +163,7 @@ def cmd_render(args) -> int:
     except RuntimeError as exc:
         return _error(f"{exc} (on the command line: --device cpu)")
 
-    app = Application(_config(args), device=device)
+    app = Application(device=device)
     app.init(group, name, width, height)
     settings = PathTracingSettings(
         sample_count=1, bounce_count=args.bounces,
@@ -214,22 +189,20 @@ def cmd_render(args) -> int:
     return 0 if frames else 1
 
 
-def cmd_debug(args) -> int:
-    return _error("debug views come with queue 1, item 4 of the port")
-
-
-def cmd_stats(args) -> int:
-    return _error("the stats command comes with queue 1, item 4 of the port")
-
-
-def cmd_view(args) -> int:
-    return _error("the live viewer comes with queue 1, item 8 of the port")
-
-
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    handlers = {"list-scenes": cmd_list_scenes, "render": cmd_render,
-                "debug": cmd_debug, "stats": cmd_stats, "view": cmd_view}
+    parser = build_parser()
+    args, extra = parser.parse_known_args(argv)
+    if args.assets is not None or args.scenes is not None:
+        return _error("-A/-S: the Assets and Scenes directories feed the "
+                      "scene-file loaders, which come with queue 1, item 6 "
+                      "of the port")
+    if args.command in DEFERRED_COMMANDS:
+        text, item = DEFERRED_COMMANDS[args.command]
+        return _error(f"{args.command} ({text}) comes with queue 1, item "
+                      f"{item} of the port")
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    handlers = {"list-scenes": cmd_list_scenes, "render": cmd_render}
     return handlers[args.command](args)
 
 

@@ -27,7 +27,6 @@ import time
 from typing import Callable, Optional
 
 from pt_torch.core.camera import InputCamera
-from pt_torch.core.stats import Stats
 from pt_torch.out.saver import OutputInfo, OutputSaver
 from pt_torch.run.renderer import Renderer
 
@@ -73,7 +72,6 @@ class OfflineRenderer:
             return
         try:
             r.load_checkpoint(ckpt)
-            Stats.add_stat("Rendering", f"resumed at {r.total_samples} spp")
         except Exception as exc:
             log.warning("checkpoint %s unusable (%s); starting fresh",
                         ckpt, exc)
@@ -134,8 +132,6 @@ class OfflineRenderer:
                          else r.snapshot())
                 self.saver.submit_frame(image)
                 frames_written += 1
-                Stats.add_stat("Rendering",
-                               f"{frames_written}/{settings.frame_count}")
 
                 # deterministic fixed-dt animation stepping between frames
                 if settings.frame_count > 1 and r.scene is not None:

@@ -24,22 +24,19 @@ in a render step reads a device value back: the ray counts stay on the
 device until `rays_traced` is read.
 
 For the offline path and the app: `set_settings` (a change resets the
-film), the adaptive samples-per-frame controller behind `on_update`, and
-`save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys. Each sample
-seeds its RNG from (pixel, total samples so far), so a resumed render
-continues the exact RNG stream.
+film) and `save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys.
+Each sample seeds its RNG from (pixel, total samples so far), so a
+resumed render continues the exact RNG stream.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from pt_torch import default_device
-from pt_torch.core.stats import Stats, Timer
 from pt_torch.accel.bvh8 import build_bf8, build_packet_bvh_sah
 from pt_torch.post.pipeline import PostProcessSettings, postprocess
 from pt_torch.render.integrator import (Accel, AlphaSplit,
@@ -48,7 +45,6 @@ from pt_torch.render.integrator import (Accel, AlphaSplit,
                                         prepare_accel, prepare_attribs,
                                         raygen, start_carry)
 from pt_torch.render.textures import DeviceTextures, default_texture_pool
-from pt_torch.run.adaptive import AdaptiveSampleController
 from pt_torch.scene.builder import Scene
 from pt_torch.accel.instanced import (build_instanced_bf8,
                                       build_instanced_split)
@@ -75,13 +71,9 @@ class Renderer:
 
     def __init__(self, settings: Optional[PathTracingSettings] = None,
                  post: Optional[PostProcessSettings] = None,
-                 min_refresh_rate: float = 60.0,
-                 max_samples_per_frame: int = 64,
                  device=None, mesh=None, instancing: str = "auto"):
         """`device`: None → `cuda:0` (raises without a card); "cpu" runs
-        the kernels' plain versions. `min_refresh_rate` and
-        `max_samples_per_frame` drive the adaptive samples-per-frame
-        controller (`on_update`). `instancing`: the shared-BLAS policy
+        the kernels' plain versions. `instancing`: the shared-BLAS policy
         for static scenes: "auto" switches to the instanced structure when
         geometry reuse is heavy (see `_want_instanced`), "shared" forces it
         where it is feasible, "flatten" disables it. `mesh` (multi-device
@@ -103,8 +95,6 @@ class Renderer:
         # int only when read
         self._rays_chunks: list = []
         self._rays_host = 0
-        self.adaptive = AdaptiveSampleController(min_refresh_rate,
-                                                 max_samples_per_frame)
         self.camera_index = 0
         self._px = self._py = self._film_perm = None
         self._accel_dirty = True
@@ -115,13 +105,11 @@ class Renderer:
         """Upload a new scene (≙ Renderer::UpdateSceneData). Without `tex`
         the pool is built from the scene's textures (in-memory pixels)."""
         self.scene = scene
-        with Timer("Mesh Upload"):
-            self.ds = flatten_scene(scene, device=self.device)
+        self.ds = flatten_scene(scene, device=self.device)
         if tex is not None:
             self.tex = tex
         elif scene.textures:
-            with Timer("Texture Upload"):
-                self.tex = build_scene_textures(scene, device=self.device)
+            self.tex = build_scene_textures(scene, device=self.device)
         else:
             self.tex = default_texture_pool(device=self.device)
         self._accel_dirty = True
@@ -162,16 +150,6 @@ class Renderer:
             self.reset_accumulation()
         if post is not None:
             self.post = post
-
-    def on_update(self, dt: float) -> None:
-        """Feed one frame time to the adaptive controller (≙
-        Renderer::OnUpdate); its samples per frame become
-        settings.sample_count."""
-        spf = self.adaptive.on_update(dt)
-        if spf != self.settings.sample_count:
-            self.settings = dataclasses.replace(self.settings,
-                                                sample_count=spf)
-        Stats.add_stat("Samples Per Frame", spf)
 
     def reset_accumulation(self) -> None:
         """≙ ResetAccumulationImage (Renderer.cpp:801-808)."""

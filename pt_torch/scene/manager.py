@@ -6,11 +6,10 @@ on a worker thread with keep-previous-scene-on-failure semantics
 (SceneManager.cpp:120-157), and the built-in boot catalog
 (SceneManager.cpp:100-105 boots "Test Scenes"/"Default").
 
-The file loaders (glTF/OBJ/FBX import, the Khronos sample directories and
-the curated catalog) are queue 1, item 6 of the port: until then
-`CombinedSceneLoader` and `SceneDescription.to_loader` raise, and the
-discovery registers nothing. With no Scenes or Assets directory `pt`
-registers none of them either.
+The file loaders (glTF/OBJ/FBX import, `CombinedSceneLoader`,
+`SceneDescription`, the Khronos sample directories and the curated
+catalog) come with queue 1, item 6 of the port. With no Scenes or Assets
+directory `pt` registers none of them either.
 """
 
 from __future__ import annotations
@@ -19,11 +18,7 @@ import logging
 import threading
 from typing import Callable, Dict, List, Optional
 
-from pt_torch.core.stats import Timer
 from pt_torch.scene.builder import Scene, SceneBuilder
-
-_FILE_LOADERS = ("scene files (glTF/OBJ/FBX) load in queue 1, item 6 of "
-                 "the port")
 
 
 class SceneLoader:
@@ -41,30 +36,6 @@ class CustomSceneLoader(SceneLoader):
 
     def load(self, builder: SceneBuilder) -> None:
         self._fn(builder)
-
-
-class CombinedSceneLoader(SceneLoader):
-    """Merges component files + skybox + per-scene flags (≙
-    CombinedSceneLoader, SceneManager.cpp:47-64): not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_FILE_LOADERS)
-
-
-class SceneDescription:
-    """File-based scene description (≙ SceneDescription::ToLoader,
-    SceneManager.cpp:66-94); its loader is not ported yet."""
-
-    def __init__(self, name: str, paths: List, skybox: Optional[str] = None,
-                 texture_mapping=None, dx_normals: bool = False):
-        self.name = name
-        self.paths = paths
-        self.skybox = skybox
-        self.texture_mapping = texture_mapping
-        self.dx_normals = dx_normals
-
-    def to_loader(self):
-        raise NotImplementedError(_FILE_LOADERS)
 
 
 class SceneManager:
@@ -102,12 +73,6 @@ class SceneManager:
                 create_courtyard_flythrough_scene
             create_courtyard_flythrough_scene(builder)
         group["Courtyard Flythrough"] = CustomSceneLoader(_courtyard_flythrough)
-        self.discover_khronos_scenes()
-
-    def discover_khronos_scenes(self) -> None:
-        """Scan the configured scenes directory for glTF sample directories
-        (≙ AddKhronosScenes, ExampleScenes.cpp:39-69). The glTF importer is
-        not ported yet, so nothing is registered."""
 
     def register(self, group: str, name: str, loader: SceneLoader) -> None:
         self.groups.setdefault(group, {})[name] = loader
@@ -123,10 +88,9 @@ class SceneManager:
 
         def work() -> None:
             try:
-                with Timer("Scene Load"):
-                    builder = SceneBuilder(name)
-                    loader.load(builder)
-                    scene = builder.create_scene()
+                builder = SceneBuilder(name)
+                loader.load(builder)
+                scene = builder.create_scene()
             except Exception as exc:     # keep previous scene on failure
                 logging.getLogger("pt_torch").error(
                     "scene load %s/%s failed: %s", group, name, exc)

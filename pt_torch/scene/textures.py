@@ -24,7 +24,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from pt_torch.core.config import Config, get_config
+from pt_torch.core.config import Config
 from pt_torch.render.textures import (DeviceTextures, TexturePoolBuilder,
                                       _downsample2x, add_default_textures)
 from pt_torch.scene.types import TextureInfo
@@ -341,7 +341,7 @@ def build_texture_pool(infos: List[TextureInfo],
     0..8, then `infos` in order. `paired`/`quad`/`dtype` override the pool's
     row format as in `TexturePoolBuilder`; as there, `paired=True` alone
     still gives quad rows (pass `quad=False` with it)."""
-    cfg = cfg or get_config()
+    cfg = cfg or Config()
     infos = [get_texture_info(i) for i in infos]
     max_dim = _budget_max_dim(infos, cfg)
     builder = TexturePoolBuilder(paired=paired, quad=quad)

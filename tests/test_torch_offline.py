@@ -14,10 +14,9 @@ host-side core modules on the CPU, after the offline and saver cases of
   deletes the partial file on cancel, and hands its errors back to the
   caller.
 * `SceneManager`: the built-in groups in `pt`'s order, async loading, a
-  failed load keeps the previous scene; the file loaders raise, naming
-  queue 1, item 6.
-* `Config`, `Stats`/`Timer`/`MaxTimer`, `AdaptiveSampleController` and the
-  `Renderer`'s `set_settings` / `on_update` behave as `pt`'s.
+  failed load keeps the previous scene.
+* `Config` keeps `pt`'s names and defaults, and the `Renderer`'s
+  `set_settings` behaves as `pt`'s.
 """
 
 import dataclasses
@@ -28,11 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from pt_torch.core.config import Config, get_config, set_config
-from pt_torch.core.stats import MaxTimer, Stats, Timer
+from pt_torch.core.config import Config
 from pt_torch.out.saver import OutputInfo, OutputSaver, frame_path
 from pt_torch.render.integrator import PathTracingSettings
-from pt_torch.run.adaptive import AdaptiveSampleController
 from pt_torch.run.offline import OfflineRenderer, RenderSettings
 from pt_torch.run.renderer import Renderer
 from pt_torch.scene.examples import make_default_scene
@@ -297,8 +294,7 @@ def test_scene_manager_groups_match_pt():
 
 
 def test_scene_manager_async_and_failure():
-    from pt_torch.scene.manager import (CombinedSceneLoader,
-                                        SceneDescription, SceneManager)
+    from pt_torch.scene.manager import SceneManager
     mgr = SceneManager()
     loaded = []
     mgr.on_scene_loaded(loaded.append)
@@ -316,62 +312,23 @@ def test_scene_manager_async_and_failure():
     assert mgr.get_active_scene() is scene          # previous scene kept
     assert loaded == [scene]
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        SceneDescription("x", ["missing.gltf"]).to_loader()
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        CombinedSceneLoader(["scene.gltf"])
 
+# ------------------------------------------------- config and settings
 
-# --------------------------------------------- config, stats, controller
-
-def test_config_matches_pt(tmp_path, monkeypatch):
+def test_config_matches_pt():
+    """The port's `Config` holds the fields of `pt`'s that its modules
+    read, under `pt`'s names and with `pt`'s defaults."""
     from pt.core.config import Config as JConfig
-    fields = [(f.name, f.default) for f in dataclasses.fields(Config)]
-    assert fields == [(f.name, f.default)
-                      for f in dataclasses.fields(JConfig)]
-    (tmp_path / "Assets").mkdir()
-    (tmp_path / "sub").mkdir()
-    monkeypatch.chdir(tmp_path / "sub")
-    cfg = Config.create(["-S", str(tmp_path)])
-    assert cfg.assets_path == tmp_path / "Assets"   # found one level up
-    assert cfg.scenes_path == tmp_path
-    with pytest.raises(ValueError, match="not a directory"):
-        Config.create(["-A", str(tmp_path / "none")])
-    saved = get_config()
-    try:
-        set_config(cfg)
-        assert get_config() is cfg
-    finally:
-        set_config(saved)
-
-
-def test_stats_timers():
-    Stats.clear()
-    with Timer("a"):
-        pass
-    with MaxTimer("b"):
-        time.sleep(0.002)
-    Stats.add_stat("n", 3)
-    Stats.flush_timers()
-    stats = Stats.get_stats()
-    assert stats["n"] == 3 and stats["a"].endswith(" ms")
-    assert stats["Max: b"].endswith(" ms") and float(stats["b"][:-3]) >= 2.0
-    Stats.clear()
-    assert Stats.get_stats() == {}
-
-
-def test_adaptive_controller_matches_pt():
-    from pt.run.adaptive import AdaptiveSampleController as JController
-    ours, theirs = (AdaptiveSampleController(30.0, 6),
-                    JController(30.0, 6))
-    # fast frames for 30 s, slow ones for 30 s, then fast again
-    dts = [0.005] * 6000 + [0.08] * 375 + [0.01] * 3000
-    got = [ours.on_update(dt) for dt in dts]
-    assert got == [theirs.on_update(dt) for dt in dts]
-    assert got[5999] == 6 and got[6374] < 6 and got[-1] == 6
+    theirs = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    fields = {f.name: f.default for f in dataclasses.fields(Config)}
+    assert fields == {"texture_memory_budget": 2 << 30,
+                      "max_texture_size": 4096}
+    assert all(theirs[name] == default for name, default in fields.items())
 
 
 def test_renderer_settings_and_controller():
+    """`set_settings` resets the film only when the path-tracing settings
+    change, and swaps the post settings in place."""
     r = _renderer(spp=1)
     r.on_resize(8, 8)
     r.render(1)
@@ -382,9 +339,4 @@ def test_renderer_settings_and_controller():
     from pt_torch.post.pipeline import PostProcessSettings
     post = PostProcessSettings(exposure=2.0)
     r.set_settings(post=post)
-    assert r.post is post
-    Stats.clear()
-    for _ in range(5):
-        r.on_update(0.001)
-    assert r.settings.sample_count == r.adaptive.samples_per_frame > 1
-    assert Stats.get_stats()["Samples Per Frame"] == r.settings.sample_count
+    assert r.post is post and r.total_samples == 0
