@@ -11,7 +11,7 @@ with `pt`'s flags and defaults, and `render --device` (default: the card,
 port's queue bring exits non-zero with a message that names the item:
 
   --backend (any value)                           queue 1, item 7
-  --adaptive, --adaptive-mse, --hdr, debug, stats queue 1, item 4
+  --hdr, debug, stats                             queue 1, item 4
   mp4, jpg and tga output                         queue 1, item 5
   -A/-S, a .gltf/.glb/.obj/.fbx scene path        queue 1, item 6
   view                                            queue 1, item 8
@@ -90,9 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--hdr", action="store_true",
                    help="HDR10 PQ output encoding (queue 1, item 4)")
     r.add_argument("--adaptive", type=float, default=None, metavar="TOL",
-                   help="noise-driven per-pixel stopping (queue 1, item 4)")
+                   help="noise-driven per-pixel stopping: pixels stop "
+                        "sampling once their 95%% CI (tonemapped) is below "
+                        "TOL; --spp becomes the per-pixel cap")
     r.add_argument("--adaptive-mse", type=float, default=None, metavar="MSE",
-                   help="global tonemapped-MSE stopping (queue 1, item 4)")
+                   help="stop at an estimated global tonemapped-MSE "
+                        "target instead of per-pixel CIs; overrides "
+                        "--adaptive")
     r.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda:0; 'cpu' "
                         "runs the kernels' plain versions)")
@@ -115,12 +119,9 @@ def _deferred_render_option(args, fmt: str):
         return (f"--backend {args.backend}: pt's other backends come with "
                 "queue 1, item 7 of the port; leave it out to run the "
                 "port's kernels")
-    for flag, value in (("--adaptive", args.adaptive),
-                        ("--adaptive-mse", args.adaptive_mse),
-                        ("--hdr", args.hdr or None)):
-        if value is not None:
-            return (f"{flag}: the adaptive film and HDR10 output come with "
-                    "queue 1, item 4 of the port")
+    if args.hdr:
+        return ("--hdr: HDR10 output comes with queue 1, item 4 of the "
+                "port")
     if fmt in LATER_FORMATS:
         return (f"format {fmt}: video and the jpg/tga writers come with "
                 "queue 1, item 5 of the port; use png or hdr")
@@ -175,7 +176,8 @@ def cmd_render(args) -> int:
     rs = RenderSettings(
         output=OutputInfo(args.out, width, height, args.framerate, fmt),
         frame_count=args.frames, max_sample_count=args.spp,
-        max_time_seconds=args.max_time, checkpoint_path=args.checkpoint)
+        max_time_seconds=args.max_time, checkpoint_path=args.checkpoint,
+        adaptive_tol=args.adaptive, adaptive_target_mse=args.adaptive_mse)
 
     def progress(frame, total, samples):
         print(f"\rframe {frame + 1}/{total}  {samples}/{args.spp} spp",

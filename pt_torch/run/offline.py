@@ -12,9 +12,14 @@ Application.cpp:333-335), and finishes after FrameCount frames
 
 As in `pt`, a single-frame render can resume from a film checkpoint and
 save one periodically; a render that is cancelled or raises deletes its
-partial output and keeps the checkpoint. HDR10 encoding (`hdr`) and the
-adaptive film (`adaptive_tol`, `adaptive_target_mse`) are queue 1, item 4
-of the port: setting any of them raises.
+partial output and keeps the checkpoint. With `adaptive_tol` or
+`adaptive_target_mse` each frame is one `render_adaptive` call (`pt`'s
+rules: at least min(16, max_sample_count) samples a pixel, the time
+budget at allocation-round granularity), and a checkpoint of the other
+kind of film is not resumed. Unlike `pt`, the render first waits for the
+renderer's streamed textures, so no frame is shaded with the placeholder
+pool. HDR10 encoding (`hdr`) is queue 1, item 4 of the port: setting it
+raises.
 """
 
 from __future__ import annotations
@@ -47,9 +52,18 @@ class RenderSettings:
     # success
     checkpoint_path: Optional[str] = None     # frame_count == 1 only
     checkpoint_interval_seconds: float = 300.0
-    # noise-driven stopping (pt's render_adaptive): queue 1, item 4
+    # noise-driven per-pixel stopping (render_adaptive): pixels stop at a
+    # 95% CI below this tonemapped tolerance instead of running the full
+    # max_sample_count everywhere. None = uniform accumulation. One call
+    # per frame; checkpoints and cancel() cannot interrupt it
     adaptive_tol: Optional[float] = None
+    # global-MSE stopping instead; wins over adaptive_tol when both are set
     adaptive_target_mse: Optional[float] = None
+
+    @property
+    def adaptive(self) -> bool:
+        return (self.adaptive_tol is not None
+                or self.adaptive_target_mse is not None)
 
 
 class OfflineRenderer:
@@ -64,9 +78,11 @@ class OfflineRenderer:
         """≙ CancelRendering (Renderer.cpp:810-823)."""
         self._cancelled = True
 
-    def _resume(self, ckpt: str) -> None:
-        """Load the checkpoint at `ckpt` if there is one; an unusable file
-        is logged and the render starts fresh."""
+    def _resume(self, ckpt: str, adaptive: bool) -> None:
+        """Load the checkpoint at `ckpt` if there is one; an unusable file,
+        or one of the other kind of film than `adaptive` asks for (an
+        adaptive resume needs the per-pixel counts and moments), is logged
+        and the render starts fresh."""
         r = self.renderer
         if not os.path.exists(ckpt):
             return
@@ -76,15 +92,22 @@ class OfflineRenderer:
             log.warning("checkpoint %s unusable (%s); starting fresh",
                         ckpt, exc)
             r.reset_accumulation()
+            return
+        have = r._spp_map is not None
+        if r.total_samples and have != adaptive:
+            log.warning("checkpoint %s holds a%s film but --adaptive is%s "
+                        "set: cannot resume, starting fresh", ckpt,
+                        "n adaptive" if have else " uniform",
+                        "" if adaptive else " not")
+            r.reset_accumulation()
 
     def render(self, settings: RenderSettings,
                progress: Optional[Callable[[int, int, int], None]] = None) -> int:
         """Run to completion (or cancellation). Returns frames written.
         progress(frame, total_frames, samples) is called per step."""
-        if (settings.hdr or settings.adaptive_tol is not None
-                or settings.adaptive_target_mse is not None):
-            raise NotImplementedError("HDR10 output and the adaptive film "
-                                      "come with queue 1, item 4 of the port")
+        if settings.hdr:
+            raise NotImplementedError("HDR10 output comes with queue 1, "
+                                      "item 4 of the port")
         r = self.renderer
         out = settings.output
         if settings.frame_count > 1:
@@ -94,6 +117,9 @@ class OfflineRenderer:
         ckpt = settings.checkpoint_path if settings.frame_count == 1 else None
         InputCamera.disable_input()
         r.on_resize(out.width, out.height)
+        # the first sample sees the scene's own textures, and a swap can no
+        # longer reset a film resumed from its checkpoint
+        r.wait_for_textures()
         self.saver.register_output(out)
         frames_written = 0
         completed = False
@@ -101,29 +127,43 @@ class OfflineRenderer:
             for frame in range(settings.frame_count):
                 r.reset_accumulation()
                 if ckpt and frame == 0:
-                    self._resume(ckpt)
+                    self._resume(ckpt, settings.adaptive)
                 start = time.perf_counter()
                 last_ckpt = start
-                while (not self._cancelled
-                       and r.total_samples < settings.max_sample_count):
-                    # clamp the last step so a resume never overshoots the
-                    # requested budget
-                    step = min(settings.samples_per_step,
-                               settings.max_sample_count - r.total_samples)
-                    r.render(step)
+                if settings.adaptive:
+                    r.render_adaptive(
+                        tol=(5e-3 if settings.adaptive_tol is None
+                             else settings.adaptive_tol),
+                        target_mse=settings.adaptive_target_mse,
+                        max_spp=settings.max_sample_count,
+                        min_spp=min(16, settings.max_sample_count),
+                        max_seconds=settings.max_time_seconds)
                     if progress:
                         progress(frame, settings.frame_count,
                                  r.total_samples)
-                    if r.total_samples >= settings.max_sample_count:
-                        break
-                    now = time.perf_counter()
-                    if (settings.max_time_seconds is not None
-                            and now - start >= settings.max_time_seconds):
-                        break
-                    if ckpt and (now - last_ckpt
-                                 >= settings.checkpoint_interval_seconds):
-                        r.save_checkpoint(ckpt)
-                        last_ckpt = now
+                else:
+                    while (not self._cancelled
+                           and r.total_samples < settings.max_sample_count):
+                        # clamp the last step so a resume never overshoots
+                        # the requested budget
+                        step = min(settings.samples_per_step,
+                                   settings.max_sample_count
+                                   - r.total_samples)
+                        r.render(step)
+                        if progress:
+                            progress(frame, settings.frame_count,
+                                     r.total_samples)
+                        if r.total_samples >= settings.max_sample_count:
+                            break
+                        now = time.perf_counter()
+                        if (settings.max_time_seconds is not None
+                                and now - start
+                                >= settings.max_time_seconds):
+                            break
+                        if ckpt and (now - last_ckpt
+                                     >= settings.checkpoint_interval_seconds):
+                            r.save_checkpoint(ckpt)
+                            last_ckpt = now
                 if self._cancelled:
                     break
                 # HDR files keep linear radiance; the rest goes through the

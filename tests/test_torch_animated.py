@@ -326,7 +326,7 @@ def test_split_alpha_loops_match_pt_brute_split():
     o, d = _camera_rays(ts)
     n = o.shape[0]
     r = Renderer(device="cpu")
-    r.set_scene(ts)
+    r.set_scene(ts, stream_textures=False)
     r._ensure_accel()
     tacc = r.accel
     sp = tacc.alpha_split
@@ -381,7 +381,7 @@ def test_alpha_film_matches_pt_renderer(animate):
     js = chip_smoke.build_animated_scene(_ns("pt"), 12, 40, animate)
     r = Renderer(tint.PathTracingSettings(sample_count=1, bounce_count=3),
                  device="cpu")
-    r.set_scene(ts)
+    r.set_scene(ts, stream_textures=False)
     r.on_resize(32, 32)
     jr = JRenderer(jint.PathTracingSettings(sample_count=1, bounce_count=3,
                                             backend="brute"))
@@ -416,7 +416,7 @@ def test_alpha_film_matches_pt_renderer(animate):
 def test_animated_rebuild_changes_the_tree_and_resets_the_film():
     ts = chip_smoke.build_animated_scene(_ns("pt_torch"), 16, 0, True)
     r = Renderer(tint.PathTracingSettings(bounce_count=2), device="cpu")
-    r.set_scene(ts)
+    r.set_scene(ts, stream_textures=False)
     r.on_resize(16, 16)
     r.render(2)
     first = r.accel.bvh
@@ -445,7 +445,7 @@ def test_static_scene_without_bf8_falls_back_to_v4():
         ns.create_heightfield_scene(b, 4)           # 18 triangles
         return b.create_scene()
     r = Renderer(tint.PathTracingSettings(bounce_count=3), device="cpu")
-    r.set_scene(tiny(_ns("pt_torch")))
+    r.set_scene(tiny(_ns("pt_torch")), stream_textures=False)
     r.on_resize(16, 16)
     r.render(1)
     assert isinstance(r.accel.bvh, tbvh.PacketBVH) and r.accel.bvh.n_top == 1

@@ -9,7 +9,8 @@
 * `list-scenes` prints what `pt`'s prints.
 * Without `--device` the render takes the card: on a host without one it
   exits non-zero and writes nothing. Every option that a later item of the
-  port's queue brings exits non-zero and names that item.
+  port's queue brings exits non-zero and names that item. `--adaptive` and
+  `--adaptive-mse` render the adaptive film with `pt`'s arguments.
 * `Application`: the boot scene, the device it hands its `Renderer`, and
   the scene-import and rendering counters.
 """
@@ -127,8 +128,6 @@ def test_cli_without_device_needs_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv, item", [
     (["render", "--backend", "brute", "--device", "cpu"], 7),
     (["render", "--backend", "pallas", "--device", "cpu"], 7),
-    (["render", "--adaptive", "0.01", "--device", "cpu"], 4),
-    (["render", "--adaptive-mse", "1e-4", "--device", "cpu"], 4),
     (["render", "--hdr", "--device", "cpu"], 4),
     (["render", "--format", "mp4", "--device", "cpu"], 5),
     (["render", "--format", "tga", "--device", "cpu"], 5),
@@ -151,6 +150,35 @@ def test_cli_deferred_options_name_their_queue_item(tmp_path, monkeypatch,
     assert rc != 0
     assert f"queue 1, item {item}" in err, err
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("flag, value, tol, target_mse", [
+    ("--adaptive", "0.05", 0.05, None),
+    ("--adaptive-mse", "1e-3", 5e-3, 1e-3),
+])
+def test_cli_adaptive_flags_render_the_adaptive_film(tmp_path, monkeypatch,
+                                                      flag, value, tol,
+                                                      target_mse):
+    """`pt`'s rules (`pt/run/offline.py:111-118`): the flag's stopping
+    rule, --spp as the per-pixel cap, min_spp = min(16, --spp), --max-time
+    as the time budget; the PNG is written from the adaptive film."""
+    from pt_torch.run.renderer import Renderer
+    calls = []
+    real = Renderer.render_adaptive
+
+    def spy(self, **kw):
+        calls.append(kw)
+        return real(self, **kw)
+    monkeypatch.setattr(Renderer, "render_adaptive", spy)
+    png = tmp_path / "a.png"
+    rc, _, err = _main(["render", "--size", "16x16", "--spp", "8",
+                        "--bounces", "2", "--max-time", "600", flag, value,
+                        "--device", "cpu", "--out", str(png)])
+    assert rc == 0, err
+    assert calls == [dict(tol=tol, target_mse=target_mse, max_spp=8,
+                          min_spp=8, max_seconds=600.0)]
+    image = decode_png(png.read_bytes())
+    assert image.shape == (16, 16, 4) and image[..., :3].max() > 0
 
 
 def test_cli_rejects_unknown_format_and_scene_name(tmp_path):

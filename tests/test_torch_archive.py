@@ -479,7 +479,7 @@ def test_dispatch_routes_bf8_v6_and_film_matches_pt():
     from pt_torch.scene.examples import make_heightfield_scene
     r = Renderer(tint.PathTracingSettings(sample_count=1, bounce_count=3),
                  device="cpu")
-    r.set_scene(make_heightfield_scene(16))
+    r.set_scene(make_heightfield_scene(16), stream_textures=False)
     r.on_resize(32, 32)
     v6, fine = archive.swap_in_bf8_v6(r)
     assert r.accel.bvh is v6

@@ -327,7 +327,7 @@ def test_bf8_builders_give_stageable_pages():
     for what, make in scenes.items():
         r = Renderer(PathTracingSettings(), device="cpu",
                      instancing="flatten")
-        r.set_scene(make())
+        r.set_scene(make(), stream_textures=False)
         r._ensure_accel()
         sp = r.accel.alpha_split
         assert sp is not None, what
@@ -342,7 +342,7 @@ def test_bf8_builders_give_stageable_pages():
     _stageable(tbvh.build_bf8(pb), "block doubling")
     _stageable(archive.build_bf8_v6(pb), "block doubling, BF8V6")
     r = Renderer(PathTracingSettings(), device="cpu")
-    r.set_scene(make_heightfield_scene(16))
+    r.set_scene(make_heightfield_scene(16), stream_textures=False)
     r._ensure_accel()
     assert r.accel.bvh.block == 32
     _stageable(r.accel.bvh, "static SBVH")

@@ -163,7 +163,7 @@ def test_new_scene_film_matches_pt_renderer(which):
     t_fn, j_fn = NEW_SCENES[which]
     r = Renderer(tint.PathTracingSettings(sample_count=1, bounce_count=3),
                  device="cpu")
-    r.set_scene(t_fn())
+    r.set_scene(t_fn(), stream_textures=False)
     r.on_resize(32, 32)
     r.render()
     # Reuse Mesh: 16 instances of 12 triangles, far below "auto"'s
@@ -196,7 +196,7 @@ def test_metallic_roughness_light_follows_its_node():
     scene = tex_.make_metallic_roughness_cubes_scene()
     r = Renderer(tint.PathTracingSettings(sample_count=1, bounce_count=2),
                  device="cpu")
-    r.set_scene(scene)
+    r.set_scene(scene, stream_textures=False)
     r.on_resize(24, 24)
     r.render(1)
     img0 = r.snapshot()

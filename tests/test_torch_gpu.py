@@ -251,7 +251,7 @@ def test_cuda_animated_alpha_film_matches_cpu_film(cuda_device):
             scene = chip_smoke.build_animated_scene(
                 chip_smoke.port_namespace(), 12, 40, animate)
             r = Renderer(PathTracingSettings(bounce_count=3), device=dev)
-            r.set_scene(scene)
+            r.set_scene(scene, stream_textures=False)
             r.on_resize(32, 32)
             kernels.reset_launch_counts()
             for _ in range(2):
@@ -297,7 +297,7 @@ def test_cuda_film_matches_cpu_film(cuda_device):
     films = []
     for dev in (cuda_device, "cpu"):
         r = Renderer(PathTracingSettings(bounce_count=3), device=dev)
-        r.set_scene(make_heightfield_scene(16))
+        r.set_scene(make_heightfield_scene(16), stream_textures=False)
         r.on_resize(32, 32)
         kernels.reset_launch_counts()
         r.render(1)
@@ -522,7 +522,7 @@ def test_cuda_instanced_film_matches_cpu_film(cuda_device):
             chip_smoke.port_namespace(), 6, 12, alpha=True)
         r = Renderer(PathTracingSettings(bounce_count=3), device=dev,
                      instancing="shared")
-        r.set_scene(scene)
+        r.set_scene(scene, stream_textures=False)
         r.on_resize(32, 32)
         kernels.reset_launch_counts()
         r.render(1)
@@ -669,7 +669,7 @@ def test_cuda_bf8_v6_film_matches_cpu_film(cuda_device):
     films = []
     for dev in (cuda_device, "cpu"):
         r = Renderer(PathTracingSettings(bounce_count=3), device=dev)
-        r.set_scene(make_heightfield_scene(16))
+        r.set_scene(make_heightfield_scene(16), stream_textures=False)
         r.on_resize(32, 32)
         archive.swap_in_bf8_v6(r)
         kernels.reset_launch_counts()

@@ -133,7 +133,7 @@ def test_instanced_and_default_scenes_render_without_jax_pt_or_pillow():
         "for scene, mode, kind in scenes:\n"
         "    r = Renderer(PathTracingSettings(bounce_count=2), device='cpu',"
         " instancing=mode)\n"
-        "    r.set_scene(scene)\n"
+        "    r.set_scene(scene, stream_textures=False)\n"
         "    r.on_resize(8, 8)\n"
         "    r.render(1)\n"
         "    assert type(r.accel.bvh).__name__ == kind, type(r.accel.bvh)\n"

@@ -632,7 +632,7 @@ def test_host_traversal_matches_plain(host_traversal, case):
 def _render(scene, instancing, samples=1):
     r = Renderer(tint.PathTracingSettings(sample_count=1, bounce_count=3),
                  device="cpu", instancing=instancing)
-    r.set_scene(scene)
+    r.set_scene(scene, stream_textures=False)
     r.on_resize(32, 32)
     r.render(samples)
     return r
@@ -728,7 +728,8 @@ def test_renderer_structures_equal_pt_build_instanced(alpha):
     from pt.core.cache import LRUCache
     from pt.run.renderer import _prepare_attribs_jit
     r = Renderer(device="cpu", instancing="shared")
-    r.set_scene(_small_scene(_ns("pt_torch"), alpha=alpha))
+    r.set_scene(_small_scene(_ns("pt_torch"), alpha=alpha),
+                stream_textures=False)
     r._ensure_accel()
     jr = JRenderer(jint.PathTracingSettings(backend="pallas"),
                    instancing="shared")
@@ -765,7 +766,7 @@ def test_renderer_decision_table():
     ns = _ns("pt_torch")
     # one alpha cross in all: the alpha subset is a single leaf
     r = Renderer(device="cpu", instancing="shared")
-    r.set_scene(_small_scene(ns, n_inst=1, alpha=True))
+    r.set_scene(_small_scene(ns, n_inst=1, alpha=True), stream_textures=False)
     r._ensure_accel()
     sp = r.accel.alpha_split
     assert isinstance(r.accel.bvh, tinst.BF8Instanced)
@@ -778,7 +779,7 @@ def test_renderer_decision_table():
     for i, g in enumerate(scene.geometries):
         scene.geometries[i] = dataclasses.replace(g, is_opaque=False)
     r = Renderer(device="cpu", instancing="shared")
-    r.set_scene(scene)
+    r.set_scene(scene, stream_textures=False)
     r._ensure_accel()
     assert isinstance(r.accel.bvh, tinst.BF8Instanced)
     assert r.ds.has_alpha and r.accel.alpha_split is None
@@ -788,6 +789,6 @@ def test_renderer_decision_table():
     scene = _small_scene(ns, n_inst=3)
     scene.instance_transforms[1][:3, :3] = 0.0
     r = Renderer(device="cpu", instancing="shared")
-    r.set_scene(scene)
+    r.set_scene(scene, stream_textures=False)
     r._ensure_accel()
     assert isinstance(r.accel.bvh, tbvh.BF8BVH)

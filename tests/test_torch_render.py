@@ -44,7 +44,7 @@ def test_bounce0_carry_matches_pt_brute():
     w = h = 32
     px, py = _pixels(w, h)
     r = Renderer(tint.PathTracingSettings(bounce_count=1), device="cpu")
-    r.set_scene(t_heightfield(16))
+    r.set_scene(t_heightfield(16), stream_textures=False)
     r.on_resize(w, h)
     r._ensure_accel()
     iv, ip = r._camera_mats()
@@ -89,7 +89,7 @@ def test_bounce0_carry_matches_pt_brute():
 def test_film_matches_pt_renderer():
     r = Renderer(tint.PathTracingSettings(sample_count=1, bounce_count=3),
                  device="cpu")
-    r.set_scene(t_heightfield(16))
+    r.set_scene(t_heightfield(16), stream_textures=False)
     r.on_resize(32, 32)
     assert r.render() == 1
     film = r.film_mean()
@@ -192,17 +192,17 @@ def test_unported_paths_raise():
     scene = t_heightfield(8)
     with pytest.raises(NotImplementedError, match="sharding"):
         r = Renderer(device="cpu", mesh=object())
-        r.set_scene(scene)
+        r.set_scene(scene, stream_textures=False)
         r.on_resize(8, 8)
         r.render(1)
     # shared-BLAS instancing renders now, through the instanced structure
     r = Renderer(device="cpu", instancing="shared")
-    r.set_scene(scene)
+    r.set_scene(scene, stream_textures=False)
     r.on_resize(8, 8)
     assert r.render(1) == 1 and np.isfinite(r.film_mean()).all()
     assert type(r.accel.bvh).__name__ == "BF8Instanced"
     flat = Renderer(device="cpu", instancing="flatten")
-    flat.set_scene(t_heightfield(8))
+    flat.set_scene(t_heightfield(8), stream_textures=False)
     flat.on_resize(8, 8)
     flat.render(1)
     assert float(np.mean((r.film_mean() - flat.film_mean()) ** 2)) < 1e-3
@@ -212,11 +212,11 @@ def test_unported_paths_raise():
     alpha.geometries[0] = dataclasses.replace(alpha.geometries[0],
                                               is_opaque=False)
     r = Renderer(device="cpu")
-    r.set_scene(alpha)
+    r.set_scene(alpha, stream_textures=False)
     r.on_resize(8, 8)
     assert r.render(1) == 1 and np.isfinite(r.film_mean()).all()
     from pt_torch.scene.types import TextureInfo, TextureType
     alpha.textures.append(TextureInfo("a.dds", TextureType.COLOR,
                                       data=b"DDS " + bytes(124)))
     with pytest.raises(NotImplementedError, match="importers' slice"):
-        Renderer(device="cpu").set_scene(alpha)
+        Renderer(device="cpu").set_scene(alpha, stream_textures=False)

@@ -388,7 +388,7 @@ def test_default_film_matches_pt_renderer():
     versions here)."""
     r = Renderer(tint.PathTracingSettings(sample_count=1, bounce_count=3),
                  device="cpu")
-    r.set_scene(tex_.make_default_scene())
+    r.set_scene(tex_.make_default_scene(), stream_textures=False)
     r.on_resize(32, 32)
     assert r.render() == 1
     assert r.ds.num_triangles == 36 and not r.tex.all_constant
