@@ -157,6 +157,29 @@ Phases, each fatal on failure (nothing is caught and passed over):
     (film MSE < 1e-3); an OfflineRenderer render of 2 spp, checkpointed
     and resumed to 4, bit-equal to an uninterrupted 4-spp render; and
     `list-scenes`, `pt`'s seven "Test Scenes" in `pt`'s order;
+10c. debug, HDR10 and stats (`[debug]` lines), launch counters set to 0
+    just before each call and read just after: `render_debug_image` with
+    the kernel backend on the Heightfield (n=224, its Morton tree) at
+    640x480, `pt`'s `debug` size, in each of the 8 modes and in COLOR mode
+    without shadows: exactly 1 closest_v4 launch a frame, 1 occluded_v4
+    more in COLOR mode with shadows, no brute-force call, ms per frame (CUDA
+    events; the frame's Morton build included); at 128x96 the kernel frames
+    against brute force on the card, and on the Heightfield n=32 the card
+    against the CPU (the CPU's brute-force plain versions take minutes per
+    frame at n=224), each at most 0.5% of the pixels off by more than 1e-4;
+    the static alpha variant at 256²: the see-through frame traces K3 in
+    the single-tree alpha loop (ALPHA_ROUNDS launches, as many as the CPU
+    run's plain calls on a small variant, whose frames also agree card
+    against CPU), force-opaque once, and force-opaque, cull-backfaces and
+    disable-color-texture each change the frame; `python -m
+    pt_torch.run.cli debug --mode normal` in this process (the Default,
+    640x480, brute force as in `pt`: no launch; the PNG decoded); HDR10:
+    the Default at 512², 5 bounces, 4 spp through `Renderer` (17
+    closest_bf8 + 17 occluded_bf8 a step) with `snapshot(hdr=True)`, the
+    PQ image card against CPU at 256² (MSE < 1e-3), and `render --hdr`
+    through the CLI (the PNG decoded, 17 + 17 launches); the `stats`
+    command in this process (brute: no launch; the board holds `pt`'s
+    keys);
 11. budget and drain: `pt`'s last two Pallas entry points through K1's
     pops launch (`closest_bf8(..., pops=)`, the warp kernel's pops
     instance: each lane's walk iterations; a warp's rounds are its lanes'
@@ -188,7 +211,10 @@ occluded_bf8i_per_ray) on every lane of the same sets.
 
 Prints the kernels' JSON line (K1-K6, each with its per-ray arm's time
 from the A/B, and for K1-K4 `launches_entry`, their launches in phase
-10b's CLI render (K1/K2) or in one `render_image_stats` call (K3/K4), then one row per archive entry point, with the kernel it
+10b's CLI render (K1/K2) or in one `render_image_stats` call (K3/K4), and
+from phase 10c `launches_hdr` (K1/K2: a 4-spp HDR10 step) and
+`launches_debug` (K3: a debug frame, and `launches_debug_alpha` in the
+alpha loop; K4: a COLOR frame with shadows), then one row per archive entry point, with the kernel it
 runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
 time on the same rays; A3-A6 their A/B at both bounces; A1, A7 and
 A10 their per-ray arm's time and the A/B over the fine SBVH and the
@@ -2777,6 +2803,10 @@ def phase_cross_device():
 TEST_SCENE_NAMES = ("Default", "MetallicRoughness Cubes",
                     "Roughness Test Cubes", "Heightfield", "Reuse Mesh",
                     "Courtyard", "Courtyard Flythrough")
+# the keys `pt`'s `stats` command prints on the Default (pt/run/cli.py:212-222)
+PT_STATS_KEYS = ("Acceleration Structure Build", "Frame total",
+                 "Mesh Upload", "Render", "Samples Per Frame", "Scene Load",
+                 "Total Samples", "Update")
 # the plain versions of the kernels the two entry points reach
 ENTRY_PLAIN = ("closest_bf8_plain", "occluded_bf8_plain", "closest_v4_plain",
                "occluded_v4_plain")
@@ -3034,6 +3064,241 @@ def phase_entry():
     return dict(stats_ms=ms, stats_mrays=mrays, stats_peak_mib=peak,
                 turns_ms=turns, cli_s=cli_s,
                 launches={**got, **cli_launches})
+
+
+def _debug_state(scene, size, dev):
+    """What `render_debug_image` takes for `scene` on `dev` at a `size` (w,
+    h) film: (scene, texture pool, inverse view, inverse projection)."""
+    from pt_torch.render.textures import default_texture_pool
+    from pt_torch.scene.flatten import flatten_scene
+    from pt_torch.scene.textures import build_scene_textures
+    cam = scene.cameras[0]
+    cam.on_resize(*size)
+    tex = (build_scene_textures(scene, device=dev) if scene.textures
+           else default_texture_pool(device=dev))
+    return (flatten_scene(scene, device=dev), tex, cam.inv_view,
+            cam.inv_proj)
+
+
+def _debug_frame(state, size, mode, backend="pallas", dev="cuda", **flags):
+    """One `render_debug_image` frame on `dev`, as a host array."""
+    from pt_torch.render.debug import DebugFlags, render_debug_image
+    from pt_torch.render.integrator import PathTracingSettings
+    return render_debug_image(*state, size[0], size[1], mode,
+                              PathTracingSettings(backend=backend),
+                              DebugFlags(**flags), device=dev)
+
+
+def _off_share(a, b) -> float:
+    """The share of pixels whose channels differ by more than 1e-4."""
+    a = a.cpu().numpy() if hasattr(a, "cpu") else a
+    b = b.cpu().numpy() if hasattr(b, "cpu") else b
+    return float(np.mean(np.abs(a - b).max(axis=-1) > 1e-4))
+
+
+class _BruteCalls:
+    """Within the block, count the integrator's brute-force calls."""
+
+    def __enter__(self):
+        from pt_torch.render import integrator
+        self.calls, self._real = 0, integrator.intersect_brute
+
+        def counting(*args, **kwargs):
+            self.calls += 1
+            return self._real(*args, **kwargs)
+        integrator.intersect_brute = counting
+        return self
+
+    def __exit__(self, *exc):
+        from pt_torch.render import integrator
+        integrator.intersect_brute = self._real
+
+
+def phase_debug():
+    """Phase 10c (`[debug]` lines): the debug renderer on the kernels and
+    by brute force, the alpha loop in a debug frame, the `debug` and
+    `stats` commands, and HDR10 output. Returns the launches a debug frame
+    and an HDR10 step make, and the ms per debug frame."""
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.out.saver import write_image
+    from pt_torch.render.debug import DebugRenderMode
+    from pt_torch.render.integrator import ALPHA_ROUNDS
+    from pt_torch.scene.examples import (make_default_scene,
+                                         make_heightfield_scene)
+    from pt_torch.scene.textures import decode_png
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    size, small = (640, 480), (128, 96)
+    color = DebugRenderMode.COLOR
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: v for k, v in kernels.launches.items() if v}
+
+    # (a) the kernels at pt's debug size: launches and ms per frame
+    hf = make_heightfield_scene(224)
+    state = _debug_state(hf, size, "cuda")
+    cases = [(m.name, m, {}) for m in DebugRenderMode]
+    cases.append(("COLOR without shadows", color, {"disable_shadows": True}))
+    times, frame_launches = {}, {}
+    with _BruteCalls() as brute:
+        for name, mode, flags in cases:
+            _debug_frame(state, size, mode, **flags)           # warm
+            kernels.reset_launch_counts()
+            img = _debug_frame(state, size, mode, **flags)
+            got = frame_launches[name] = launched()
+            want = {"closest_v4": 1}
+            if mode == color and not flags:
+                want["occluded_v4"] = 1
+            check(got == want, f"[debug] {name}: launches {got}, want {want}")
+            check(tuple(img.shape) == (480, 640, 3)
+                  and bool(torch.isfinite(img).all()),
+                  f"[debug] {name}: frame {tuple(img.shape)}")
+            times[name] = cuda_ms(lambda: _debug_frame(state, size, mode,
+                                                       **flags))
+    check(brute.calls == 0, f"[debug] {brute.calls} brute-force calls")
+    log(f"[debug] render_debug_image, Heightfield n=224 "
+        f"({state[0].num_triangles} triangles, Morton tree built in each "
+        f"frame), 640x480, backend pallas: launches a frame closest_v4 1 "
+        f"(+ occluded_v4 1 in COLOR with shadows), no brute-force call; ms "
+        f"per frame " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+
+    # (b) 128x96: kernels against brute force on the card, and the card
+    # against the CPU on a smaller Heightfield
+    shares = {}
+    state = _debug_state(hf, small, "cuda")
+    small_hf = {dev: _debug_state(make_heightfield_scene(32), small, dev)
+                for dev in ("cuda", "cpu")}
+    for mode in DebugRenderMode:
+        kern = _debug_frame(state, small, mode)
+        kernels.reset_launch_counts()
+        brute_img = _debug_frame(state, small, mode, backend="brute")
+        check(not launched(), f"[debug] brute {mode.name}: {launched()}")
+        card = _debug_frame(small_hf["cuda"], small, mode)
+        cpu = _debug_frame(small_hf["cpu"], small, mode, dev="cpu")
+        shares[mode.name] = (_off_share(kern, brute_img),
+                             _off_share(card, cpu))
+    worst = max(max(v) for v in shares.values())
+    log(f"[debug] 128x96, per mode the share of pixels off by more than "
+        f"1e-4 (kernels against brute force on the card, Heightfield n=224; "
+        f"card against CPU, Heightfield n=32, backend pallas): "
+        + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in shares.items())
+        + " (limit 0.005)")
+    check(worst <= 0.005, f"[debug] 128x96 frames differ: {shares}")
+
+    # (c) the static alpha variant: the single-tree alpha loop
+    ns = port_namespace()
+    alpha = _debug_state(build_animated_scene(ns, 224, N_CARDS,
+                                              animate=False), (256, 256),
+                         "cuda")
+    frames, alpha_launches = {}, {}
+    for name, flags in (("see-through", {}), ("force-opaque",
+                                              {"force_opaque": True}),
+                        ("cull-backfaces", {"cull_backfaces": True}),
+                        ("no color texture",
+                         {"disable_color_texture": True})):
+        kernels.reset_launch_counts()
+        frames[name] = _debug_frame(alpha, (256, 256), color, **flags)
+        alpha_launches[name] = launched()
+    seen = alpha_launches["see-through"]
+    check(seen == {"closest_v4": ALPHA_ROUNDS, "occluded_v4": 1}
+          and alpha_launches["force-opaque"] == {"closest_v4": 1,
+                                                 "occluded_v4": 1},
+          f"[debug] alpha launches {alpha_launches}")
+    changed = {k: _off_share(v, frames["see-through"])
+               for k, v in frames.items() if k != "see-through"}
+    check(min(changed.values()) > 0.001, f"[debug] alpha flags: {changed}")
+    tiny = {dev: _debug_state(build_animated_scene(ns, 16, 40, animate=False),
+                              (32, 32), dev) for dev in ("cuda", "cpu")}
+    kernels.reset_launch_counts()
+    card = _debug_frame(tiny["cuda"], (32, 32), color)
+    tiny_launches = launched()
+    with _PlainCalls() as plain:
+        cpu = _debug_frame(tiny["cpu"], (32, 32), color, dev="cpu")
+    # (closest_v4_plain calls closest_bf8_plain: only the v4 names count)
+    cpu_calls = {k: plain.calls[f"{k}_plain"]
+                 for k in ("closest_v4", "occluded_v4")
+                 if plain.calls[f"{k}_plain"]}
+    tiny_share = _off_share(card, cpu)
+    log(f"[debug] static alpha variant ({alpha[0].num_triangles} triangles), "
+        f"256x256, COLOR: launches {alpha_launches}; share of pixels changed "
+        f"against the see-through frame {changed}; the small variant (n=16, "
+        f"40 cards) at 32x32: card launches {tiny_launches}, CPU plain calls "
+        f"{cpu_calls}, frames off on {tiny_share:.4f} of the pixels")
+    check(tiny_launches == seen and cpu_calls == seen and tiny_share <= 0.005,
+          f"[debug] small alpha variant: {tiny_launches}, {cpu_calls}, "
+          f"{tiny_share}")
+
+    # (d) the debug command (the Default, 640x480, brute as in pt)
+    png = OUT_DIR / "debug_normal_640x480.png"
+    rc, _, cli_s, cli_launches = _cli(["debug", "--mode", "normal", "--out",
+                                       str(png)])
+    check(rc == 0, f"[debug] cli debug returned {rc}")
+    decoded = decode_png(png.read_bytes())
+    check(decoded.shape[:2] == (480, 640) and not cli_launches,
+          f"[debug] cli debug: {decoded.shape}, launches {cli_launches}")
+    log(f"[debug] python -m pt_torch.run.cli debug --mode normal (the "
+        f"Default, 640x480, brute force, no --device): rc 0, {cli_s:.2f} s "
+        f"wall, launches {cli_launches}, wrote {png.relative_to(ROOT)} "
+        f"(decodes to {decoded.shape[0]}x{decoded.shape[1]})")
+
+    # (e) HDR10
+    r = _renderer(make_default_scene(), 512, 4, 5, "cuda")
+    r.render()                                             # warm step
+    kernels.reset_launch_counts()
+    r.render()
+    hdr_launches = launched()
+    want_hdr = {"closest_bf8": 17, "occluded_bf8": 17}
+    check(hdr_launches == want_hdr,
+          f"[debug] HDR10 step: launches {hdr_launches}, want {want_hdr}")
+    pq = r.snapshot(hdr=True)
+    check(pq.shape == (512, 512, 3) and bool(np.isfinite(pq).all())
+          and 0.0 <= float(pq.min()) and float(pq.max()) <= 1.0,
+          "[debug] HDR10 snapshot")
+    write_image(str(OUT_DIR / "hdr10_default_512.png"), pq)
+    pqs = {}
+    for dev in ("cuda", "cpu"):
+        rr = _renderer(make_default_scene(), 256, 4, 5, dev)
+        rr.render()
+        pqs[dev] = rr.snapshot(hdr=True)
+    mse = float(np.mean((pqs["cuda"] - pqs["cpu"]) ** 2))
+    log(f"[debug] HDR10, the Default at 512x512, 5 bounces, 4 spp through "
+        f"Renderer: launches a step {hdr_launches}, PQ image mean "
+        f"{float(pq.mean()):.4f} (SDR {float(r.snapshot().mean()):.4f}); "
+        f"the PQ image card against CPU at 256x256, 4 spp: MSE {mse:.3e} "
+        f"(limit 1e-3)")
+    check(mse < 1e-3, f"[debug] HDR10 card against CPU: MSE {mse}")
+    png = OUT_DIR / "cli_default_512_hdr10.png"
+    rc, _, hdr_s, cli_launches = _cli(
+        ["render", "--scene", "Test Scenes/Default", "--size", "512x512",
+         "--spp", "4", "--bounces", "5", "--hdr", "--out", str(png)])
+    decoded = decode_png(png.read_bytes())
+    check(rc == 0 and decoded.shape[:2] == (512, 512)
+          and cli_launches == want_hdr,
+          f"[debug] cli render --hdr: rc {rc}, {decoded.shape}, launches "
+          f"{cli_launches}")
+    log(f"[debug] python -m pt_torch.run.cli render --hdr (the Default, "
+        f"512x512, 4 spp, 5 bounces, no --device): rc 0, {hdr_s:.2f} s "
+        f"wall, launches {cli_launches}, wrote {png.relative_to(ROOT)}")
+
+    # (f) the stats command (brute force, as pt's)
+    rc, text, stats_s, cli_launches = _cli(["stats"])
+    keys = {line.split(": ", 1)[0] for line in text.splitlines()}
+    missing = set(PT_STATS_KEYS) - keys
+    log(f"[debug] python -m pt_torch.run.cli stats (no --device): rc {rc}, "
+        f"{stats_s:.2f} s wall, launches {cli_launches}, board: "
+        + "; ".join(line for line in text.splitlines()
+                    if line.split(": ", 1)[0] in PT_STATS_KEYS))
+    check(rc == 0 and not missing and not cli_launches,
+          f"[debug] stats: rc {rc}, missing {missing}, launches "
+          f"{cli_launches}")
+    log(f"[debug] phase: {time.perf_counter() - t0:.1f} s")
+    # the kernels line's count a debug frame: the COLOR frame with shadows,
+    # the one frame that launches both K3 and K4
+    return dict(debug_ms=times, launches_hdr=hdr_launches,
+                launches_debug=frame_launches[color.name],
+                launches_debug_alpha=seen["closest_v4"])
 
 
 def _pops_checks(tag, bvh8, rows, rng):
@@ -3294,6 +3559,7 @@ def main() -> None:
     fresh(phase_default)
     fresh(phase_cross_device)
     entry = fresh(phase_entry)
+    debug = fresh(phase_debug)
     b_rows = fresh(phase_budget)
     counts.update(a_counts)
     counts.update(i_counts)
@@ -3315,6 +3581,12 @@ def main() -> None:
                      "bound_ms_bounce2": times[(k, 2)]["bound_ms"]})
         if k in entry["launches"]:   # the [entry] phase's two callers
             rows[-1]["launches_entry"] = entry["launches"][k]
+        if k in debug["launches_hdr"]:       # phase 10c: an HDR10 step
+            rows[-1]["launches_hdr"] = debug["launches_hdr"][k]
+        if k in debug["launches_debug"]:     # phase 10c: a debug frame
+            rows[-1]["launches_debug"] = debug["launches_debug"][k]
+        if k == "closest_v4":
+            rows[-1]["launches_debug_alpha"] = debug["launches_debug_alpha"]
         if k in PER_RAY:        # the in-call A/B against the first design
             rows[-1].update(per_ray_ms=tm["per_ray_ms"], ab_ms=tm["ab_ms"],
                             per_ray_ms_bounce2=times[(k, 2)]["per_ray_ms"],
@@ -3361,7 +3633,8 @@ def main() -> None:
         f"{json.dumps(anim_stats)}; instanced main path "
         f"{json.dumps(inst_stats)}; archive path (b) "
         f"{json.dumps(ar_stats)}; entry points (render_image_stats per "
-        f"call, the CLI's 512² render) {json.dumps(entry)}")
+        f"call, the CLI's 512² render) {json.dumps(entry)}; debug frames "
+        f"and HDR10 {json.dumps(debug)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

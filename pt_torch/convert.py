@@ -3,8 +3,10 @@
 In a path tracer the scene and accel arrays play the part of weights: to
 hold the port against `pt` on identical state, `pt`'s DeviceScene,
 DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH, BF8Instanced,
-BF8V6 and AlphaSplit are read out as mappings of field name → numpy array (or Python scalar for
-static metadata) and converted here.
+BF8V6 and AlphaSplit are read out as mappings of field name → numpy array
+(or Python scalar for static metadata) and converted here; so are the
+settings that select what runs: PathTracingSettings (with its backend),
+DebugFlags and DebugRenderMode.
 Arrays keep their bits: bf16 texel rows arrive as numpy `bfloat16` (or raw
 uint16) and are reinterpreted, and the f32 page id rows are copied as raw
 bits. This module imports neither JAX nor `pt`.
@@ -22,7 +24,8 @@ from pt_torch import default_device
 from pt_torch.accel.archive import BF8V6
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, bf8_depth
 from pt_torch.accel.instanced import BF8Instanced
-from pt_torch.render.integrator import AlphaSplit
+from pt_torch.render.debug import DebugFlags, DebugRenderMode
+from pt_torch.render.integrator import AlphaSplit, PathTracingSettings
 from pt_torch.render.textures import DeviceTextures
 from pt_torch.scene.flatten import DeviceScene
 
@@ -85,7 +88,9 @@ def alpha_split(bvh_opaque, sel_opaque, bvh_alpha, sel_alpha,
     as already converted structures (`bf8_bvh` / `packet_bvh` /
     `bf8_instanced`), the
     selections as numpy arrays of global triangle ids. `pt`'s `tri_opaque` /
-    `tri_alpha` rows serve its brute backend only and are not carried."""
+    `tri_alpha` rows serve its brute backend only and are not carried: the
+    port's brute split (`make_alpha_split_brute`) keeps its rows in its
+    `BruteTriangles`."""
     return AlphaSplit(bvh_opaque, to_tensor(np.asarray(sel_opaque, np.int32),
                                             device),
                       bvh_alpha, to_tensor(np.asarray(sel_alpha, np.int32),
@@ -98,3 +103,33 @@ def bf8_v6(fields: Mapping, device=None) -> BF8V6:
     out = _convert(BF8V6, fields, device)
     out.depth = bf8_depth(np.asarray(fields["c_ent"]))
     return out
+
+
+# `pt`'s PathTracingSettings fields of queue 1, item 7, with `pt`'s defaults
+_LATER_SETTINGS = {"bvh_leaf_size": 4, "sort_rays": False,
+                   "shade_sorted": False}
+
+
+def path_tracing_settings(fields: Mapping) -> PathTracingSettings:
+    """`pt.render.integrator.PathTracingSettings` fields (as
+    `dataclasses.asdict` gives them) → PathTracingSettings, backend
+    included. A field of a later item set off `pt`'s default raises: the
+    port would not honour it."""
+    for name, default in _LATER_SETTINGS.items():
+        if fields.get(name, default) != default:
+            raise NotImplementedError(f"{name}={fields[name]!r} comes with "
+                                      "queue 1, item 7 of the port")
+    names = {f.name for f in dataclasses.fields(PathTracingSettings)}
+    return PathTracingSettings(**{k: v for k, v in fields.items()
+                                  if k in names})
+
+
+def debug_flags(fields: Mapping) -> DebugFlags:
+    """`pt.render.debug.DebugFlags` fields → DebugFlags."""
+    return DebugFlags(**fields)
+
+
+def debug_mode(value) -> DebugRenderMode:
+    """A `pt.render.debug.DebugRenderMode` (or its int value) →
+    DebugRenderMode."""
+    return DebugRenderMode(int(value))

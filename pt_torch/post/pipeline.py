@@ -10,8 +10,10 @@ Renderer::RecordPostProcessCommands):
   levels (bloomDownsample.comp / bloomUpsample.comp)
 * composition: post += BloomIntensity * 0.1 * bloom (composition.comp:22-24)
 * tone mapping: SDR 1−exp(−c), HDR passthrough (toneMapping.comp:20-22)
-
-The UI overlay and the HDR10 PQ encode come with the viewer/output slice.
+* UI composition: an sRGB RGBA overlay blended over the image
+  (uiComposition.comp:55-60)
+* HDR10: BT.709 → BT.2020 primaries and the ST.2084 PQ encode
+  (uiComposition.comp:14-43)
 """
 
 from __future__ import annotations
@@ -143,11 +145,61 @@ def tonemap_sdr(color):
     return 1.0 - torch.exp(-color)
 
 
-def postprocess(accum, total_samples, settings: PostProcessSettings):
-    """Post chain on an (H, W, 3) accumulation image → display-ready SDR
-    float image in [0,1]."""
+def _srgb_to_linear(color):
+    """Piecewise sRGB EOTF (≙ uiComposition.comp:41-48)."""
+    low = color / 12.92
+    high = ((color + 0.055) / 1.055) ** 2.4
+    return torch.where(color >= 0.0404482362771082, high, low)
+
+
+def compose_ui(screen_color, ui_rgba):
+    """Blend a UI overlay over the screen image (≙ uiComposition.comp:55-60:
+    where ui.a > 0 the pixel becomes srgb_to_linear(ui.rgb) * 0.99 +
+    screen.rgb * 0.01; the PQ encode, when HDR, comes after this blend).
+    `ui_rgba` is (H, W, 4) sRGB-encoded, float in [0, 1] or uint8, a tensor
+    or a numpy array; it is moved to the screen image's device."""
+    ui = torch.as_tensor(ui_rgba, device=screen_color.device)
+    ui = ui.to(torch.float32) / 255.0 if ui.dtype == torch.uint8 else ui
+    blended = _srgb_to_linear(ui[..., :3]) * 0.99 + screen_color * 0.01
+    return torch.where(ui[..., 3:4] > 0.0, blended, screen_color)
+
+
+# BT.709 → BT.2020 primaries (uiComposition.comp:14-18)
+_M709_TO_2020 = ((0.6274040, 0.3292820, 0.0433136),
+                 (0.0690970, 0.9195400, 0.0113612),
+                 (0.0163916, 0.0880132, 0.8955950))
+
+
+def linear_to_hdr10(color, white_point: float = 203.0):
+    """BT.2020 + ST.2084 PQ encode (≙ uiComposition.comp:14-43) of a linear
+    (..., 3) image, `white_point` nits at 1.0."""
+    m = torch.tensor(_M709_TO_2020, dtype=torch.float32, device=color.device)
+    c = (color[..., None, :] * m).sum(-1)
+    c = c * (white_point / 10000.0)
+    m1 = 2610.0 / 4096.0 / 4
+    m2 = 2523.0 / 4096.0 * 128
+    c1 = 3424.0 / 4096.0
+    c2 = 2413.0 / 4096.0 * 32
+    c3 = 2392.0 / 4096.0 * 32
+    cp = torch.abs(c) ** m1
+    return ((c1 + c2 * cp) / (1 + c3 * cp)) ** m2
+
+
+def postprocess(accum, total_samples, settings: PostProcessSettings,
+                hdr: bool = False, ui=None):
+    """Post chain on an (H, W, 3) accumulation image → display-ready float
+    image: in [0, 1] (SDR) or PQ-encoded (`hdr`). `ui`, when given, is an
+    (H, W, 4) sRGB RGBA overlay composed after tone mapping and before the
+    PQ encode, `pt`'s order (≙ toneMapping → uiComposition,
+    Renderer.cpp:1766-1776)."""
     color = resolve_accumulation(accum, total_samples, settings.exposure)
     if settings.enable_bloom:
         bloom = bloom_pyramid(color, settings.bloom_threshold)
         color = color + (settings.bloom_intensity * 0.1) * bloom
-    return tonemap_sdr(color)
+    if not hdr:
+        color = tonemap_sdr(color)           # HDR passes through
+    if ui is not None:
+        color = compose_ui(color, ui)
+    if hdr:
+        color = linear_to_hdr10(color)
+    return color

@@ -8,7 +8,9 @@ Morton tree of an animated scene, or a static tree whose BF8 collapse did
 not fit) to K3/K4, and a structure that carries its own `closest` /
 `occluded` methods through them: a `BF8Instanced` (static scenes with
 shared-BLAS instancing) to K5/K6, the archive's `BF8V6` (A/B work) to its
-kernels. The host drives the sample and bounce loops
+kernels, and the brute backend's `BruteTriangles` (`settings.backend =
+"brute"`: every ray against every triangle, no tree) to `intersect_brute`.
+The host drives the sample and bounce loops
 (`pt_torch.run.renderer`, and `render_flat` / `render_image_stats` here,
 the single-call render over the Morton tree); every stage is plain tensor
 code plus the kernel launches, with no host sync inside a bounce.
@@ -35,7 +37,7 @@ import torch
 from pt_torch import default_device
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, build_packet_bvh
 from pt_torch.accel.lbvh import _expand_bits_10
-from pt_torch.accel.intersect import Hit
+from pt_torch.accel.intersect import Hit, intersect_brute
 from pt_torch.accel.kernels import (closest_bf8, closest_v4, occluded_bf8,
                                     occluded_v4)
 from pt_torch.render import rng as prng
@@ -67,6 +69,11 @@ class PathTracingSettings:
     bounce_count: int = 5
     lens_radius: float = 0.0
     focal_distance: float = 1.0
+    # traversal backend: "pallas" (the port's kernels: on the card the CUDA
+    # kernels, on the CPU their plain versions) or "brute" (every ray
+    # against every triangle, no tree; cheapest for tiny scenes). `pt`'s
+    # "bvh" (its threaded LBVH) is queue 1, item 7 of the port
+    backend: str = "pallas"
     # NEE shadow rays toward point lights are traced reversed (origin at
     # the sampled light point): occlusion is segment-symmetric; film-equal
     # up to a TMIN sliver at the segment ends
@@ -86,6 +93,45 @@ class PathTracingSettings:
         overrides.setdefault("reverse_point_shadows", False)
         overrides.setdefault("tex_nearest_tail", False)
         return cls(**overrides)
+
+
+BACKENDS = ("pallas", "brute")
+
+
+def resolve_backend(settings: PathTracingSettings) -> str:
+    """The backend `settings` names, "pallas" or "brute". Unlike `pt`, which
+    swaps "pallas" for brute force or its LBVH off the TPU, nothing is
+    swapped: "pallas" runs the kernels' plain versions on the CPU. "bvh"
+    and unknown names raise."""
+    backend = settings.backend
+    if backend == "bvh":
+        raise NotImplementedError(
+            "backend 'bvh' (pt's threaded LBVH) comes with queue 1, item 7 "
+            "of the port; use 'pallas' or 'brute'")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (pallas or brute)")
+    return backend
+
+
+class BruteTriangles:
+    """The brute backend's structure, `pt`'s `bvh=None`: every ray against
+    every listed triangle (`intersect_brute`, Möller–Trumbore in f32). It
+    carries the world positions and the triangle rows (the whole scene's, or
+    an alpha split's subset), and reaches `trace_closest`/`trace_occluded`
+    through their duck dispatch. As in `pt`, no lane is pointed out of the
+    scene (`_degenerate_masked`) and no shadow distance is clamped to a root
+    box: there is none."""
+
+    def __init__(self, wpos: torch.Tensor, tri_idx: torch.Tensor):
+        self.wpos = wpos
+        self.tri_idx = tri_idx
+
+    def closest(self, origins, dirs, tmax, tmin) -> Hit:
+        return intersect_brute(self.wpos, self.tri_idx, origins, dirs, tmin,
+                               tmax)
+
+    def occluded(self, origins, dirs, dist, tmin) -> torch.Tensor:
+        return self.closest(origins, dirs, dist, tmin).is_hit
 
 
 class AlphaSplit(NamedTuple):
@@ -110,8 +156,8 @@ class Accel(NamedTuple):
     tri_tan: torch.Tensor        # (T, 9)
     tri_bit: torch.Tensor        # (T, 9)
     tri_uv: torch.Tensor         # (T, 6) uv0|uv1|uv2
-    bvh: Optional[object]        # BF8BVH | PacketBVH | BF8Instanced | BF8V6 (None:
-                                 # not built yet)
+    bvh: Optional[object]        # BF8BVH | PacketBVH | BF8Instanced | BF8V6 |
+                                 # BruteTriangles (None: not built yet)
     alpha_split: Optional[AlphaSplit] = None
 
 
@@ -142,14 +188,33 @@ def prepare_attribs(ds: DeviceScene) -> Accel:
                  tri_uv=pack3(ds.tex_coords), bvh=None)
 
 
-def prepare_accel(ds: DeviceScene) -> Accel:
-    """World-space flatten, per-triangle attribute packing and the Morton
-    `PacketBVH` build, all on the scene's device (≙ the BLAS/TLAS update of
-    an animated frame: rebuilt every frame, since all of it is dense tensor
-    code)."""
+def prepare_accel(ds: DeviceScene,
+                  settings: Optional[PathTracingSettings] = None) -> Accel:
+    """World-space flatten, per-triangle attribute packing and, for the
+    "pallas" backend (the default), the Morton `PacketBVH` build, all on the
+    scene's device (≙ the BLAS/TLAS update of an animated frame: rebuilt
+    every frame, since all of it is dense tensor code). The "brute" backend
+    builds no tree."""
     base = prepare_attribs(ds)
+    if resolve_backend(settings or PathTracingSettings()) == "brute":
+        return base._replace(bvh=BruteTriangles(base.wpos, ds.tri_idx))
     return base._replace(bvh=build_packet_bvh(base.wpos, ds.tri_idx,
                                               tri_opaque=ds.tri_opaque))
+
+
+def make_alpha_split_brute(ds: DeviceScene,
+                           wpos: torch.Tensor) -> Optional[AlphaSplit]:
+    """`pt`'s AlphaSplit over the brute backend: the opaque and the
+    non-opaque triangles, each traced by brute force, with the split loops'
+    semantics. None when the scene is wholly opaque or wholly alpha.
+    `wpos`: the world positions the subsets index (the accel's)."""
+    opq = ds.tri_opaque
+    if not (bool(opq.any()) and bool((~opq).any())):
+        return None
+    sel_o = torch.nonzero(opq).flatten().to(torch.int32)
+    sel_a = torch.nonzero(~opq).flatten().to(torch.int32)
+    return AlphaSplit(BruteTriangles(wpos, ds.tri_idx[sel_o.long()]), sel_o,
+                      BruteTriangles(wpos, ds.tri_idx[sel_a.long()]), sel_a)
 
 
 def _aabb_exit_t(lo, hi, origin, direction):
@@ -233,13 +298,16 @@ def _degenerate_masked(bvh, origins, dirs, tmax, live):
     """Point dead lanes at a ray that exits the scene at once: origin
     outside the root AABB, +x direction, tmax = TMIN. They leave the
     traversal at the root node; their hits are never read. `tmax` is (N,)
-    or a Python scalar."""
+    or a Python scalar. Brute force has no root box and gets the rays
+    unchanged, as in `pt`."""
+    if not isinstance(tmax, torch.Tensor):
+        tmax = torch.full_like(origins[:, 0], tmax)
+    if isinstance(bvh, BruteTriangles):
+        return origins, dirs, tmax
     outside = bvh.root_hi + 1.0e6
     live_c = live[:, None]
     o = torch.where(live_c, origins, outside)
     d = torch.where(live_c, dirs, _axis(0, dirs))
-    if not isinstance(tmax, torch.Tensor):
-        tmax = torch.full_like(origins[:, 0], tmax)
     t = torch.where(live, tmax, TMIN)
     return o, d, t
 
@@ -462,9 +530,10 @@ def trace_closest(bvh, origins, dirs, tmax):
     a BF8BVH, K3 over a PacketBVH (their plain versions on the CPU), and any
     structure that carries its own `closest` method through it, as `pt`'s
     duck dispatch does: K5 over a BF8Instanced, `closest_v6` over the
-    archive's BF8V6. tmax is (N,) f32. A BF8Instanced strips ALPHA_TRI_BIT
-    and, when it carries `seg_tri_base`, remaps (segment, mesh-local) ids
-    to global flattened ids."""
+    archive's BF8V6, `intersect_brute` over BruteTriangles. tmax is (N,)
+    f32. A BF8Instanced strips ALPHA_TRI_BIT and, when it carries
+    `seg_tri_base`, remaps (segment, mesh-local) ids to global flattened
+    ids."""
     args = (origins.contiguous(), dirs.contiguous(), tmax.contiguous(), TMIN)
     if isinstance(bvh, BF8BVH):
         return closest_bf8(bvh, *args)
@@ -479,7 +548,8 @@ def trace_closest(bvh, origins, dirs, tmax):
 def trace_occluded(bvh, origins, dirs, dist):
     """Shadow query (≙ checkOccluded, raygen.rgen:22-33): K2 over a BF8BVH,
     K4 over a PacketBVH, a structure's own `occluded` method otherwise (K6
-    over a BF8Instanced, `occluded_v6` over a BF8V6)."""
+    over a BF8Instanced, `occluded_v6` over a BF8V6, brute force over
+    BruteTriangles)."""
     args = (origins.contiguous(), dirs.contiguous(), dist.contiguous(), TMIN)
     if isinstance(bvh, BF8BVH):
         return occluded_bf8(bvh, *args)
@@ -739,15 +809,18 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
                                  throughput * payload["emissive"], 0.0)
 
     # NEE (raygen.rgen:81-83). Shadow distances are clamped to the scene
-    # AABB exit: no occluder exists outside the scene. Shadow rays whose
-    # contribution is identically zero are not traced (film-exact).
+    # AABB exit (a tree's root box; brute force has none, as in `pt`): no
+    # occluder exists outside the scene. Shadow rays whose contribution is
+    # identically zero are not traced (film-exact).
     shadow_dir = -_normalize(payload["light_dir"])
     shadow_live = (active & (payload["light_pdf"] > 0.0)
                    & torch.any(payload["direct_light"] != 0.0, dim=-1))
-    light_dist = torch.minimum(
-        payload["light_dist"],
-        _aabb_exit_t(accel.bvh.root_lo, accel.bvh.root_hi,
-                     payload["next_origin"], shadow_dir) + 1e-3)
+    light_dist = payload["light_dist"]
+    if not isinstance(accel.bvh, BruteTriangles):
+        light_dist = torch.minimum(
+            light_dist,
+            _aabb_exit_t(accel.bvh.root_lo, accel.bvh.root_hi,
+                         payload["next_origin"], shadow_dir) + 1e-3)
     reverse = (~payload["light_is_dir"] if settings.reverse_point_shadows
                else None)
     if ds.has_alpha:
@@ -818,15 +891,16 @@ def render_flat(ds: DeviceScene, tex: DeviceTextures, inv_view, inv_proj,
     """`settings.sample_count` full paths for each listed pixel, in one
     call (≙ `pt`'s single-program render; here a host loop).
 
-    As in `pt`: the accel is the Morton `PacketBVH` (`prepare_accel`, so
-    K3/K4 on the card); the RNG is seeded once from `frame` and carried
+    As in `pt`: the accel is `prepare_accel`'s for `settings.backend`
+    (the Morton `PacketBVH`, so K3/K4 on the card, or brute force); the
+    RNG is seeded once from `frame` and carried
     from sample to sample; one ray counter runs across the samples; every
     bounce samples textures with full trilinear filtering (no nearest-mip
     tail), while Russian roulette still reads the bounce index.
 
     Returns (radiance (N, 3) summed over the samples, rays () int64).
     """
-    accel = prepare_accel(ds)
+    accel = prepare_accel(ds, settings)
     trilinear = dataclasses.replace(settings, tex_nearest_tail=False)
     state = init_rng_state(px, py, width, frame)
     radiance_sum = torch.zeros((px.shape[0], 3), dtype=torch.float32,
@@ -845,21 +919,29 @@ def render_flat(ds: DeviceScene, tex: DeviceTextures, inv_view, inv_proj,
     return radiance_sum, ray_count
 
 
-def render_image_stats(ds: DeviceScene, tex: DeviceTextures, inv_view,
-                       inv_proj, width: int, height: int, frame,
-                       settings: PathTracingSettings, device=None):
-    """Full-frame render through `render_flat`, pixels in row-major order.
-    Returns ((H, W, 3) radiance summed over the samples, rays traced: a
-    0-d int64 tensor).
-
-    `device`: None means the card (`default_device`); the scene and the
-    texture pool must already be on it, or this raises."""
+def scene_device(ds: DeviceScene, tex: DeviceTextures,
+                 device=None) -> torch.device:
+    """The device a single-call render runs on (`default_device(device)`),
+    after checking that the scene and the texture pool lie on it."""
     device = default_device(device)
     for what, t in (("scene", ds.tri_idx), ("texture pool", tex.data)):
         if t.device.type != device.type or (
                 device.index is not None and t.device.index != device.index):
             raise ValueError(f"the {what} is on {t.device}, the render on "
                              f"{device}")
+    return device
+
+
+def render_image_stats(ds: DeviceScene, tex: DeviceTextures, inv_view,
+                       inv_proj, width: int, height: int, frame,
+                       settings: PathTracingSettings, device=None):
+    """Full-frame render through `render_flat`, pixels in row-major order,
+    over `settings.backend`'s accel. Returns ((H, W, 3) radiance summed over
+    the samples, rays traced: a 0-d int64 tensor).
+
+    `device`: None means the card (`default_device`); the scene and the
+    texture pool must already be on it, or this raises."""
+    device = scene_device(ds, tex, device)
     ys, xs = torch.meshgrid(torch.arange(height, device=device),
                             torch.arange(width, device=device), indexing="ij")
     mat = lambda m: torch.as_tensor(m, dtype=torch.float32,  # noqa: E731

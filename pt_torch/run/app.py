@@ -1,21 +1,28 @@
-"""Application shell: lifecycle and the offline-render entry point.
+"""Application shell: lifecycle, the frame loop (headless) and the
+offline-render entry point.
 
 Port of `pt.run.app` (≙ the reference's Application, Application.{h,cpp}):
-ordered init of scene manager → renderer (Application.cpp:193-249), the
-scene-import and rendering progress counters (Application.h:15-36), and
-the offline-rendering entry point (BeginOfflineRendering,
+ordered init of config → scene manager → renderer
+(Application.cpp:193-249), the main loop (scene update → UpdateSceneData →
+OnUpdate → Render, Application.cpp:251-365) with its debug-frame switch,
+the scene-import and rendering progress counters (Application.h:15-36),
+and the offline-rendering entry point (BeginOfflineRendering,
 Application.cpp:412-439).
 
-The progressive loop (`run`), the config it reads (the refresh-rate
-controller's limits), the shader hot-reload and the debug-frame switch
-come with queue 1, item 8 of the port (the app shell and the viewer).
+The shader hot-reload, and the shader-compilation and texture-upload
+counters, come with queue 1, item 8 of the port (the viewer).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
+
+from pt_torch.core.config import Config
+from pt_torch.core.stats import Stats, Timer
 from pt_torch.post.pipeline import PostProcessSettings
 from pt_torch.render.integrator import PathTracingSettings
 from pt_torch.run.offline import OfflineRenderer, RenderSettings
@@ -52,16 +59,28 @@ class BackgroundTasks:
 
 
 class Application:
-    """≙ Application::Init/Shutdown and the offline entry point."""
+    """≙ Application::Init/Run/Shutdown and the offline entry point."""
 
-    def __init__(self, device=None):
-        """`device`: the renderer's (None → `cuda:0`, raising without a
-        card; "cpu" runs the kernels' plain versions)."""
+    def __init__(self, config: Optional[Config] = None, device=None):
+        """`config`: the renderer's samples-per-frame limits (`pt`'s
+        defaults without one). `device`: the renderer's (None → `cuda:0`,
+        raising without a card; "cpu" runs the kernels' plain versions)."""
+        self.config = config or Config()
         self.tasks = BackgroundTasks()
         self.scene_manager = SceneManager()
         self.scene_manager.on_scene_loaded(
             lambda _scene: self.tasks.advance("SceneImport"))
-        self.renderer = Renderer(device=device)
+        self.renderer = Renderer(
+            device=device, min_refresh_rate=self.config.min_refresh_rate,
+            max_samples_per_frame=self.config.max_samples_per_frame)
+        self._running = False
+        self._idle_published = False
+        # the debug-pipeline switch (≙ SetDebugRaytracingPipeline and the
+        # Debug tab's mode/flag buttons, UserInterface.cpp:1700-1764): when
+        # set, run() presents single-trace debug frames instead of
+        # accumulating path-traced samples
+        self.debug_mode = None            # DebugRenderMode | None
+        self.debug_flags = None           # DebugFlags | None
 
     # -- lifecycle -------------------------------------------------------
     def init(self, group: str = "Test Scenes", scene: str = "Default",
@@ -84,8 +103,107 @@ class Application:
                 self.renderer.set_scene(sc)
             self.tasks.advance("SceneImport")
         # async: the manager keeps the previous scene active until its
-        # worker finishes; pt's run loop adopts the new one when it lands,
-        # and the on_scene_loaded callback advances the task counter
+        # worker finishes; the run loop's update step adopts the new one
+        # when it lands, and the on_scene_loaded callback advances the
+        # task counter
+
+    # -- the frame loop ----------------------------------------------------
+    def run(self, duration_seconds: float = 1.0,
+            on_frame: Optional[Callable[[np.ndarray, int], None]] = None,
+            target_frames: Optional[int] = None,
+            adaptive_tol: Optional[float] = None,
+            adaptive_frame_seconds: float = 0.25) -> int:
+        """Progressive loop (≙ Application::Run): scene update → renderer
+        update → one accumulation step; `on_frame(snapshot, total_samples)`
+        stands in for the swapchain present. Returns the frames looped.
+
+        `adaptive_tol` makes the step the adaptive film (`render_adaptive`)
+        with `adaptive_frame_seconds` of refinement a frame: a fully
+        converged view idles instead of sampling. With `debug_mode` set,
+        each frame is one debug frame (`_render_debug_frame`) handed to
+        `on_frame`, and nothing accumulates."""
+        self._running = True
+        frames = 0
+        start = time.perf_counter()
+        last = start
+        while self._running:
+            now = time.perf_counter()
+            dt = now - last
+            last = now
+            with Timer("Frame total"):
+                idle = False
+                with Timer("Update"):
+                    self._update_scene(dt)
+                self.renderer.on_update(dt)
+                # render()/render_adaptive() time themselves under the
+                # "Render" stat
+                if self.debug_mode is not None:
+                    # the debug pipeline is active: a single-trace debug
+                    # frame, no accumulation (≙ the reference swapping the
+                    # active RT pipeline while the Debug tab is enabled)
+                    if on_frame is not None:
+                        on_frame(self._render_debug_frame(),
+                                 self.renderer.total_samples)
+                    idle = True      # no film to publish
+                elif adaptive_tol is not None:
+                    stats = self.renderer.render_adaptive(
+                        tol=adaptive_tol, max_seconds=adaptive_frame_seconds,
+                        min_spp=4, check_every=1)
+                    if stats["steps"] == 0:
+                        # a converged still view: idle, and after its first
+                        # publish skip the postprocess and the copy too
+                        time.sleep(0.05)
+                        idle = self._idle_published
+                        self._idle_published = True
+                    else:
+                        self._idle_published = False
+                else:
+                    self.renderer.render()
+                if on_frame is not None and not idle:
+                    on_frame(self.renderer.snapshot(),
+                             self.renderer.total_samples)
+            Stats.flush_timers()
+            frames += 1
+            if target_frames is not None:
+                if frames >= target_frames:
+                    break
+            elif time.perf_counter() - start >= duration_seconds:
+                break
+        self._running = False
+        return frames
+
+    def _update_scene(self, dt: float) -> None:
+        """The loop's update step: adopt a scene an async switch finished
+        loading, advance the scene's animation by `dt`, and reset the film
+        on a camera-only move (a moved instance also rebuilds the accel)."""
+        r = self.renderer
+        sc = self.scene_manager.get_active_scene()
+        if sc is not None and sc is not r.scene:
+            r.set_scene(sc)
+        cam_changed = anim_changed = False
+        if r.scene:
+            cam_changed, anim_changed = r.scene.update_split(dt)
+        r.update_scene_data(scene_changed=anim_changed)
+        if cam_changed:
+            r.reset_accumulation()
+        if cam_changed or anim_changed:
+            self._idle_published = False
+
+    def stop(self) -> None:
+        self._running = False
+
+    def _render_debug_frame(self) -> np.ndarray:
+        """One frame of the debug renderer at the film size with the active
+        camera (≙ RecordPathTracingCommands with the debug pipeline bound),
+        clipped to [0, 1] on the host."""
+        from pt_torch.render.debug import DebugFlags, render_debug_image
+        r = self.renderer
+        inv_view, inv_proj = r._camera_mats()
+        img = render_debug_image(r.ds, r.tex, inv_view, inv_proj, r.width,
+                                 r.height, self.debug_mode,
+                                 flags=self.debug_flags or DebugFlags(),
+                                 device=r.device)
+        return np.clip(img.cpu().numpy(), 0.0, 1.0)
 
     # -- offline ----------------------------------------------------------
     def render_offline(self, settings: RenderSettings,

@@ -4,20 +4,22 @@ Port of `pt.run.cli`, run as `python -m pt_torch.run.cli <command>`:
 
   list-scenes                      scene catalog (≙ Scenes tab)
   render ...                       offline render (≙ Offline Render modal)
+  debug ...                        debug view modes (≙ Debug tab)
+  stats                            stat board dump (≙ Statistics tab)
 
-with `pt`'s flags and defaults, and `render --device` (default: the card,
-`cuda:0`; `--device cpu` runs the kernels' plain versions). Without
-`--backend` the render runs the port's kernels. What later items of the
-port's queue bring exits non-zero with a message that names the item:
+with `pt`'s flags and defaults, and `--device` on `render`, `debug` and
+`stats` (default: the card, `cuda:0`; `--device cpu` runs the kernels'
+plain versions). `render --backend pallas` (the default) runs the port's
+kernels, `--backend brute` brute force; `debug` and `stats` trace by brute
+force, as in `pt`. What later items of the port's queue bring exits
+non-zero with a message that names the item:
 
-  --backend (any value)                           queue 1, item 7
-  --hdr, debug, stats                             queue 1, item 4
+  --backend bvh                                   queue 1, item 7
   mp4, jpg and tga output                         queue 1, item 5
   -A/-S, a .gltf/.glb/.obj/.fbx scene path        queue 1, item 6
   view                                            queue 1, item 8
 
-`debug`, `stats` and `view` are bare commands until then: whatever
-follows them is not parsed.
+`view` is a bare command until then: whatever follows it is not parsed.
 """
 
 from __future__ import annotations
@@ -29,15 +31,22 @@ SCENE_FILES = (".gltf", ".glb", ".obj", ".fbx")
 
 # the commands of later items: command → (what it does, its queue item)
 DEFERRED_COMMANDS = {
-    "debug": ("debug visualization render", 4),
-    "stats": ("render one frame and dump the stat board", 4),
     "view": ("live browser viewer with fly camera", 8),
 }
+
+DEBUG_MODES = ["color", "world-position", "normal", "tex-coords", "mips",
+               "geometry", "primitive", "instance"]
 
 
 def _parse_size(s: str):
     w, _, h = s.partition("x")
     return int(w), int(h or w)
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card, cuda:0; 'cpu' "
+                        "runs the kernels' plain versions)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,16 +88,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--no-bloom", action="store_true")
     r.add_argument("--lens-radius", type=float, default=0.0)
     r.add_argument("--focal-distance", type=float, default=1.0)
-    r.add_argument("--backend", default=None,
+    r.add_argument("--backend", default="pallas",
                    choices=["pallas", "bvh", "brute"],
-                   help="pt's traversal backends: queue 1, item 7 (without "
-                        "it the port runs its kernels)")
+                   help="pallas: the port's kernels; brute: every ray "
+                        "against every triangle (bvh: queue 1, item 7)")
     r.add_argument("--checkpoint", default=None,
                    help="film checkpoint file for long single-frame "
                         "renders: resumed if present, saved every 5 min, "
                         "deleted on success")
     r.add_argument("--hdr", action="store_true",
-                   help="HDR10 PQ output encoding (queue 1, item 4)")
+                   help="HDR10 PQ output encoding")
     r.add_argument("--adaptive", type=float, default=None, metavar="TOL",
                    help="noise-driven per-pixel stopping: pixels stop "
                         "sampling once their 95%% CI (tonemapped) is below "
@@ -97,9 +106,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop at an estimated global tonemapped-MSE "
                         "target instead of per-pixel CIs; overrides "
                         "--adaptive")
-    r.add_argument("--device", default=None,
-                   help="torch device (default: the card, cuda:0; 'cpu' "
-                        "runs the kernels' plain versions)")
+    _add_device(r)
+
+    d = sub.add_parser("debug", help="debug visualization render")
+    d.add_argument("--scene", default="Test Scenes/Default")
+    d.add_argument("--mode", default="normal", choices=DEBUG_MODES)
+    d.add_argument("--out", default="debug.png")
+    d.add_argument("--size", type=_parse_size, default=(640, 480),
+                   metavar="WxH")
+    # ≙ the Debug tab's raygen/hit flag checkboxes (UserInterface.cpp:1700+)
+    d.add_argument("--force-opaque", action="store_true")
+    d.add_argument("--cull-backfaces", action="store_true")
+    d.add_argument("--disable-color-texture", action="store_true")
+    d.add_argument("--disable-shadows", action="store_true")
+    _add_device(d)
+
+    s = sub.add_parser("stats", help="render one frame and dump the stat "
+                                     "board")
+    _add_device(s)
 
     for name, (text, item) in DEFERRED_COMMANDS.items():
         sub.add_parser(name, help=f"{text} (queue 1, item {item})")
@@ -111,24 +135,50 @@ def _error(msg: str) -> int:
     return 2
 
 
-def _deferred_render_option(args, fmt: str):
-    """The message for the first option of `args` that a later item of the
-    port's queue brings, or None."""
+def _deferred_option(args, fmt: str, scene: str):
+    """The message for the first option of `args` (output format `fmt`,
+    scene `scene`) that a later item of the port's queue brings, or None."""
     from pt_torch.out.saver import LATER_FORMATS
-    if args.backend is not None:
-        return (f"--backend {args.backend}: pt's other backends come with "
-                "queue 1, item 7 of the port; leave it out to run the "
-                "port's kernels")
-    if args.hdr:
-        return ("--hdr: HDR10 output comes with queue 1, item 4 of the "
-                "port")
+    if getattr(args, "backend", None) == "bvh":
+        return ("--backend bvh: pt's threaded LBVH comes with queue 1, item "
+                "7 of the port; use pallas (the port's kernels) or brute")
     if fmt in LATER_FORMATS:
         return (f"format {fmt}: video and the jpg/tga writers come with "
                 "queue 1, item 5 of the port; use png or hdr")
-    if args.scene.endswith(SCENE_FILES):
-        return (f"scene file {args.scene}: the glTF/OBJ/FBX importers come "
+    if scene.endswith(SCENE_FILES):
+        return (f"scene file {scene}: the glTF/OBJ/FBX importers come "
                 "with queue 1, item 6 of the port")
     return None
+
+
+def _load_app(args, width: int, height: int, fmt: str = "png"):
+    """(Application on `--device` with `--scene` active and a width x height
+    film, None), or (None, exit code) after printing why not."""
+    from pt_torch import default_device
+    from pt_torch.out.saver import FORMATS
+    from pt_torch.run.app import Application
+    scene = getattr(args, "scene", "Test Scenes/Default")   # stats: none
+    deferred = _deferred_option(args, fmt, scene)
+    if deferred:
+        return None, _error(deferred)
+    if fmt not in FORMATS:
+        return None, _error(f"unsupported output format '{fmt}' (png or "
+                            "hdr)")
+    group, _, name = scene.partition("/")
+    if not name:
+        return None, _error('--scene must be "Group/Name"')
+    try:
+        device = default_device(args.device)
+    except RuntimeError as exc:
+        return None, _error(f"{exc} (on the command line: --device cpu)")
+    app = Application(device=device)
+    app.init(group, name, width, height)
+    return app, None
+
+
+def _out_format(args) -> str:
+    return (getattr(args, "format", None)
+            or args.out.rsplit(".", 1)[-1]).lower()
 
 
 def cmd_list_scenes(args) -> int:
@@ -142,33 +192,20 @@ def cmd_list_scenes(args) -> int:
 
 
 def cmd_render(args) -> int:
-    from pt_torch import default_device
-    from pt_torch.out.saver import FORMATS, OutputInfo
+    from pt_torch.out.saver import OutputInfo
     from pt_torch.post.pipeline import PostProcessSettings
     from pt_torch.render.integrator import PathTracingSettings
-    from pt_torch.run.app import Application
     from pt_torch.run.offline import RenderSettings
 
     width, height = args.size
-    fmt = (args.format or args.out.rsplit(".", 1)[-1]).lower()
-    deferred = _deferred_render_option(args, fmt)
-    if deferred:
-        return _error(deferred)
-    if fmt not in FORMATS:
-        return _error(f"unsupported output format '{fmt}' (png or hdr)")
-    group, _, name = args.scene.partition("/")
-    if not name:
-        return _error('--scene must be "Group/Name"')
-    try:
-        device = default_device(args.device)
-    except RuntimeError as exc:
-        return _error(f"{exc} (on the command line: --device cpu)")
-
-    app = Application(device=device)
-    app.init(group, name, width, height)
+    fmt = _out_format(args)
+    app, rc = _load_app(args, width, height, fmt)
+    if app is None:
+        return rc
     settings = PathTracingSettings(
         sample_count=1, bounce_count=args.bounces,
-        lens_radius=args.lens_radius, focal_distance=args.focal_distance)
+        lens_radius=args.lens_radius, focal_distance=args.focal_distance,
+        backend=args.backend)
     post = PostProcessSettings(exposure=args.exposure,
                                bloom_threshold=args.bloom_threshold,
                                bloom_intensity=args.bloom_intensity,
@@ -176,8 +213,9 @@ def cmd_render(args) -> int:
     rs = RenderSettings(
         output=OutputInfo(args.out, width, height, args.framerate, fmt),
         frame_count=args.frames, max_sample_count=args.spp,
-        max_time_seconds=args.max_time, checkpoint_path=args.checkpoint,
-        adaptive_tol=args.adaptive, adaptive_target_mse=args.adaptive_mse)
+        max_time_seconds=args.max_time, hdr=args.hdr,
+        checkpoint_path=args.checkpoint, adaptive_tol=args.adaptive,
+        adaptive_target_mse=args.adaptive_mse)
 
     def progress(frame, total, samples):
         print(f"\rframe {frame + 1}/{total}  {samples}/{args.spp} spp",
@@ -185,10 +223,58 @@ def cmd_render(args) -> int:
 
     app.renderer.camera_index = args.camera
     frames = app.render_offline(rs, settings, post, progress)
-    print(f"\nwrote {frames} frame(s) to {args.out} on {device}",
-          file=sys.stderr)
+    print(f"\nwrote {frames} frame(s) to {args.out} on "
+          f"{app.renderer.device}", file=sys.stderr)
     app.shutdown()
     return 0 if frames else 1
+
+
+def cmd_debug(args) -> int:
+    """One debug frame of the scene's first camera to `--out`, by brute
+    force (`render_debug_image`'s default, as `pt`'s command). Unlike
+    `pt`'s, it first waits for the streamed texture pool."""
+    from pt_torch.out.saver import write_image
+    from pt_torch.render.debug import (DebugFlags, DebugRenderMode,
+                                       render_debug_image)
+
+    width, height = args.size
+    app, rc = _load_app(args, width, height, _out_format(args))
+    if app is None:
+        return rc
+    mode = DebugRenderMode[args.mode.upper().replace("-", "_")]
+    flags = DebugFlags(force_opaque=args.force_opaque,
+                       cull_backfaces=args.cull_backfaces,
+                       disable_color_texture=args.disable_color_texture,
+                       disable_shadows=args.disable_shadows)
+    r = app.renderer
+    r.wait_for_textures()
+    cam = r.scene.cameras[0]
+    cam.on_resize(width, height)
+    img = render_debug_image(r.ds, r.tex, cam.inv_view, cam.inv_proj,
+                             width, height, mode, flags=flags,
+                             device=r.device)
+    write_image(args.out, img.cpu().numpy())
+    print(f"wrote {args.out} on {r.device}", file=sys.stderr)
+    app.shutdown()
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """`pt`'s `stats`: the Default at 256², brute force, 3 bounces, two
+    frames of `Application.run`, then the stat board, sorted."""
+    from pt_torch.core.stats import Stats
+    from pt_torch.render.integrator import PathTracingSettings
+    app, rc = _load_app(args, 256, 256)
+    if app is None:
+        return rc
+    # a diagnostic command: fast start-up over kernel throughput
+    app.renderer.set_settings(PathTracingSettings(
+        sample_count=1, bounce_count=3, backend="brute"))
+    app.run(target_frames=2)
+    for key, value in sorted(Stats.get_stats().items()):
+        print(f"{key}: {value}")
+    app.shutdown()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -204,7 +290,8 @@ def main(argv=None) -> int:
                       f"{item} of the port")
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    handlers = {"list-scenes": cmd_list_scenes, "render": cmd_render}
+    handlers = {"list-scenes": cmd_list_scenes, "render": cmd_render,
+                "debug": cmd_debug, "stats": cmd_stats}
     return handlers[args.command](args)
 
 

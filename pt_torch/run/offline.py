@@ -16,10 +16,12 @@ partial output and keeps the checkpoint. With `adaptive_tol` or
 `adaptive_target_mse` each frame is one `render_adaptive` call (`pt`'s
 rules: at least min(16, max_sample_count) samples a pixel, the time
 budget at allocation-round granularity), and a checkpoint of the other
-kind of film is not resumed. Unlike `pt`, the render first waits for the
-renderer's streamed textures, so no frame is shaded with the placeholder
-pool. HDR10 encoding (`hdr`) is queue 1, item 4 of the port: setting it
-raises.
+kind of film is not resumed. With `hdr` the PNG frames hold the HDR10 PQ
+encoding (`Renderer.snapshot(hdr=True)`); an `.hdr` file keeps the linear
+film either way. The "Rendering" stat counts the frames written (and says
+where a resumed render started). Unlike `pt`, the render first waits for
+the renderer's streamed textures, so no frame is shaded with the
+placeholder pool.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import time
 from typing import Callable, Optional
 
 from pt_torch.core.camera import InputCamera
+from pt_torch.core.stats import Stats
 from pt_torch.out.saver import OutputInfo, OutputSaver
 from pt_torch.run.renderer import Renderer
 
@@ -46,7 +49,7 @@ class RenderSettings:
     max_sample_count: int = 256          # ≤10000 in the reference UI
     max_time_seconds: Optional[float] = None
     samples_per_step: int = 8            # accumulation granularity
-    hdr: bool = False                    # HDR10 encoding: queue 1, item 4
+    hdr: bool = False                    # HDR10 PQ encoding of the frames
     # periodic film checkpointing for long single-frame renders: an
     # existing checkpoint is resumed with the exact RNG stream, deleted on
     # success
@@ -100,14 +103,13 @@ class OfflineRenderer:
                         "n adaptive" if have else " uniform",
                         "" if adaptive else " not")
             r.reset_accumulation()
+        else:
+            Stats.add_stat("Rendering", f"resumed at {r.total_samples} spp")
 
     def render(self, settings: RenderSettings,
                progress: Optional[Callable[[int, int, int], None]] = None) -> int:
         """Run to completion (or cancellation). Returns frames written.
         progress(frame, total_frames, samples) is called per step."""
-        if settings.hdr:
-            raise NotImplementedError("HDR10 output comes with queue 1, "
-                                      "item 4 of the port")
         r = self.renderer
         out = settings.output
         if settings.frame_count > 1:
@@ -169,9 +171,11 @@ class OfflineRenderer:
                 # HDR files keep linear radiance; the rest goes through the
                 # post stack
                 image = (r.film_mean() if out.format == "hdr"
-                         else r.snapshot())
+                         else r.snapshot(hdr=settings.hdr))
                 self.saver.submit_frame(image)
                 frames_written += 1
+                Stats.add_stat("Rendering",
+                               f"{frames_written}/{settings.frame_count}")
 
                 # deterministic fixed-dt animation stepping between frames
                 if settings.frame_count > 1 and r.scene is not None:

@@ -35,17 +35,30 @@ dispatches to the pixels with the largest deficit. A pixel that holds
 several lanes of one dispatch is accumulated in as many ordered passes,
 so its film is the same on the card and the CPU from run to run.
 
+With `settings.backend = "brute"` no tree is built: every trace tests
+every triangle (`BruteTriangles`), and a static alpha scene gets `pt`'s
+brute opaque/alpha split.
+
 `set_scene` streams textures by default: the placeholder pool first, the
 real pool from a loader thread, swapped in (and the film restarted) by the
 next `render` that finds it ready; `wait_for_textures` blocks for it.
 
 For the offline path and the app: `set_settings` (a change resets the
-film) and `save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys; a
-resumed render continues the exact RNG stream.
+film, a change of backend also the accel), `on_update` (the run loop's
+samples-per-frame controller), `snapshot(hdr=)` (HDR10 PQ output) and
+`save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys; a resumed
+render continues the exact RNG stream.
+
+`pt`'s timers and stats go to the process-wide board
+(`pt_torch.core.stats`): "Mesh Upload", "Texture Upload", "Acceleration
+Structure Build" and "Render" (host seconds: on the card a step's kernels
+are queued, not waited for, so "Render" is the time to queue them), and
+"Total Samples", "Adaptive Mean SPP" and "Samples Per Frame".
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Optional
@@ -58,13 +71,17 @@ from pt_torch.accel.bvh8 import build_bf8, build_packet_bvh_sah
 from pt_torch.accel.instanced import (build_instanced_bf8,
                                       build_instanced_split)
 from pt_torch.core.cache import LRUCache, fnv1a
+from pt_torch.core.stats import Stats, Timer
 from pt_torch.post.pipeline import PostProcessSettings, postprocess
 from pt_torch.render.integrator import (Accel, AlphaSplit, BounceCarry,
-                                        PathTracingSettings, _finite_or_zero,
-                                        bounce_once, init_rng_state,
+                                        BruteTriangles, PathTracingSettings,
+                                        _finite_or_zero, bounce_once,
+                                        init_rng_state,
+                                        make_alpha_split_brute,
                                         prepare_accel, prepare_attribs,
-                                        raygen, start_carry)
+                                        raygen, resolve_backend, start_carry)
 from pt_torch.render.textures import DeviceTextures, default_texture_pool
+from pt_torch.run.adaptive import AdaptiveSampleController
 from pt_torch.scene.builder import Scene
 from pt_torch.scene.flatten import (DeviceScene, flatten_scene,
                                     shared_dup_ratio, shared_mesh_layout,
@@ -217,13 +234,17 @@ class Renderer:
 
     def __init__(self, settings: Optional[PathTracingSettings] = None,
                  post: Optional[PostProcessSettings] = None,
-                 device=None, mesh=None, instancing: str = "auto"):
+                 device=None, mesh=None, instancing: str = "auto",
+                 min_refresh_rate: float = 60.0,
+                 max_samples_per_frame: int = 64):
         """`device`: None → `cuda:0` (raises without a card); "cpu" runs
         the kernels' plain versions. `instancing`: the shared-BLAS policy
         for static scenes: "auto" switches to the instanced structure when
         geometry reuse is heavy (see `_want_instanced`), "shared" forces it
         where it is feasible, "flatten" disables it. `mesh` (multi-device
-        film sharding) is a later slice of the port: a mesh raises."""
+        film sharding) is a later slice of the port: a mesh raises.
+        `min_refresh_rate` / `max_samples_per_frame`: the limits of the
+        samples-per-frame controller that `on_update` feeds."""
         self.device = default_device(device)
         self.mesh = mesh
         self.instancing = instancing
@@ -260,6 +281,8 @@ class Renderer:
         self._tex_gen = 0
         self._pending_tex = None
         self._tex_thread: Optional[threading.Thread] = None
+        self.adaptive = AdaptiveSampleController(min_refresh_rate,
+                                                 max_samples_per_frame)
 
     # -- scene management --------------------------------------------------
     def set_scene(self, scene: Scene, tex: Optional[DeviceTextures] = None,
@@ -271,7 +294,8 @@ class Renderer:
         render swaps in (restarting the film; ≙ the TextureUploader's
         placeholder-then-swap table, TextureUploader.cpp:272-383)."""
         self.scene = scene
-        self.ds = flatten_scene(scene, device=self.device)
+        with Timer("Mesh Upload"):
+            self.ds = flatten_scene(scene, device=self.device)
         # a loader of an earlier scene that finishes after this call must
         # not install its pool: its generation no longer matches
         self._tex_gen += 1
@@ -292,7 +316,8 @@ class Renderer:
             self._tex_thread = threading.Thread(target=load, daemon=True)
             self._tex_thread.start()
         elif scene.textures:
-            self.tex = build_scene_textures(scene, device=self.device)
+            with Timer("Texture Upload"):
+                self.tex = build_scene_textures(scene, device=self.device)
         else:
             self.tex = default_texture_pool(device=self.device)
         self._accel_dirty = True
@@ -350,10 +375,13 @@ class Renderer:
     def set_settings(self, settings: Optional[PathTracingSettings] = None,
                      post: Optional[PostProcessSettings] = None) -> None:
         """≙ Renderer::SetSettings (Renderer.cpp:825-852): a change of the
-        path-tracing settings resets the accumulation. (`pt` also rebuilds
-        its accel when its backend or leaf size changes; the port's
-        settings have neither.)"""
+        path-tracing settings resets the accumulation, and a change of
+        backend also rebuilds the accel. (`pt` rebuilds on a change of its
+        LBVH leaf size too, which is queue 1, item 7 of the port.)"""
         if settings is not None and settings != self.settings:
+            resolve_backend(settings)            # an unknown backend raises
+            if settings.backend != self.settings.backend:
+                self._accel_dirty = True
             self.settings = settings
             self.reset_accumulation()
         if post is not None:
@@ -373,6 +401,17 @@ class Renderer:
         self._plan_ages = {}
         self._spp_map = None
         self._accum_sq = None
+
+    def on_update(self, dt: float) -> None:
+        """Feed one frame time to the samples-per-frame controller (≙
+        Renderer::OnUpdate): its answer becomes `settings.sample_count`,
+        the samples of the next `render()`. No reset: the film keeps
+        accumulating."""
+        spf = self.adaptive.on_update(dt)
+        if spf != self.settings.sample_count:
+            self.settings = dataclasses.replace(self.settings,
+                                                sample_count=spf)
+        Stats.add_stat("Samples Per Frame", spf)
 
     @staticmethod
     def _want_instanced(mode: str, dup_ratio: float, n_tris: int) -> bool:
@@ -438,24 +477,38 @@ class Renderer:
 
     def _ensure_accel(self) -> None:
         """Build the acceleration structure when the scene changed
-        (≙ pt's `_ensure_accel`). Animated scenes: the Morton tree, on the
-        device. Static scenes: the shared-BLAS structure when the
-        instancing policy selects it and it is feasible, else the host SBVH
-        build, BF8 where it fits; either with opaque/alpha split trees on
-        an alpha scene, and either from the accel cache when this device
-        built it for the same geometry before."""
+        (≙ pt's `_ensure_accel`), under the "Acceleration Structure Build"
+        timer."""
         if not (self._accel_dirty or self.accel is None):
             return
         if self.mesh is not None:
             raise NotImplementedError(
                 "multi-device film sharding is a later slice of the port")
+        with Timer("Acceleration Structure Build"):
+            self._build_accel()
+        self._accel_dirty = False
+
+    def _build_accel(self) -> None:
+        """Animated scenes: `prepare_accel` for the backend (the Morton
+        tree, on the device, or brute force). Static scenes with the brute
+        backend: no tree, and on an alpha scene `pt`'s brute opaque/alpha
+        split. Static scenes with the kernels: the shared-BLAS structure
+        when the instancing policy selects it and it is feasible, else the
+        host SBVH build, BF8 where it fits; either with opaque/alpha split
+        trees on an alpha scene. Kernel-backend accels come from the cache
+        when this device built them for the same geometry before; brute
+        accels build nothing and are never cached (as in `pt`)."""
         if (self.scene.has_animated_instances
                 or self.scene.has_skinned_geometry):
-            self.accel = prepare_accel(self.ds)
-            self._accel_dirty = False
+            self.accel = prepare_accel(self.ds, self.settings)
+            return
+        base = prepare_attribs(self.ds)
+        if resolve_backend(self.settings) == "brute":
+            self.accel = base._replace(
+                bvh=BruteTriangles(base.wpos, self.ds.tri_idx),
+                alpha_split=make_alpha_split_brute(self.ds, base.wpos))
             return
         tri_np = self.ds.tri_idx.cpu().numpy()
-        base = prepare_attribs(self.ds)
         wpos_np = base.wpos.cpu().numpy()
         opq_np = self.ds.tri_opaque.cpu().numpy()
         if Renderer._accel_cache is None:
@@ -492,7 +545,6 @@ class Renderer:
                                                    build_static, base)
                 if inst_accel is not None:
                     self.accel = inst_accel
-                    self._accel_dirty = False
                     return
                 # infeasible (capacity or singular transform): flatten
 
@@ -519,10 +571,9 @@ class Renderer:
         bvh, split = cached
         if bvh is None:
             # no static tree fits pt's node budget: the Morton tree
-            self.accel = prepare_accel(self.ds)
+            self.accel = prepare_accel(self.ds, self.settings)
         else:
             self.accel = base._replace(bvh=bvh, alpha_split=split)
-        self._accel_dirty = False
 
     # -- rendering ---------------------------------------------------------
     def render(self, samples: Optional[int] = None) -> int:
@@ -543,15 +594,17 @@ class Renderer:
         n_full = self.width * self.height
         cap = (_MAX_GROUP_LANES // n_full if n_full <= _MAX_GROUP_LANES
                else 1)
-        done = 0
-        while done < samples:
-            g = min(cap, samples - done)
-            g = 1 << (g.bit_length() - 1)       # a power of two
-            # only the first group of a step may observe or age the plan
-            self._render_group(g, done, inv_view, inv_proj,
-                               observe_ok=(done == 0))
-            done += g
+        with Timer("Render"):     # host time: the kernels are not waited for
+            done = 0
+            while done < samples:
+                g = min(cap, samples - done)
+                g = 1 << (g.bit_length() - 1)       # a power of two
+                # only the first group of a step may observe or age the plan
+                self._render_group(g, done, inv_view, inv_proj,
+                                   observe_ok=(done == 0))
+                done += g
         self.total_samples += samples
+        Stats.add_stat("Total Samples", self.total_samples)
         return self.total_samples
 
     def _group_arrays(self, g: int):
@@ -746,42 +799,44 @@ class Renderer:
         expo = float(self.post.exposure)
         deadline = (time.perf_counter() + max_seconds
                     if max_seconds is not None else None)
-        while deadline is None or time.perf_counter() < deadline:
-            deficit = self._adaptive_deficit(tol, target_mse, pool, min_spp,
-                                             max_spp, expo)
-            if deficit is None:
-                break
-            total_deficit = int(deficit.sum())
-            if total_deficit == 0:
-                break
-            n_disp = int(min(check_every,
-                             max(1, -(-total_deficit // n_full))))
-            budget = min(total_deficit, n_disp * n_full)
-            alloc = _largest_remainder_alloc(deficit, budget)
-            pix, frm = _rep_major_stream(alloc, self._spp_map)
-            for off in range(0, len(pix), n_full):
-                cp = pix[off:off + n_full]
-                cf = frm[off:off + n_full]
-                real = np.arange(n_full) < len(cp)
-                padn = n_full - len(cp)
-                if padn:
-                    cp = np.concatenate([cp, np.zeros(padn, np.int64)])
-                    cf = np.concatenate([cf, np.zeros(padn, np.int64)])
-                lanes = lane_of_film[cp]
-                # lane order keeps 32x32 film tiles contiguous
-                order = np.argsort(lanes, kind="stable")
-                lanes, cp, cf, real = (lanes[order], cp[order], cf[order],
-                                       real[order])
-                # re-observe on every round's first dispatch: rounds
-                # concentrate the noisiest pixels, whose paths live longer
-                self._adaptive_dispatch(px_np[lanes], py_np[lanes], cf,
-                                        inv_view, inv_proj, observe=off == 0,
-                                        passes=_occurrence_passes(lanes,
-                                                                  real),
-                                        pixels=cp)
-                steps += 1
-            self._spp_map += alloc
+        with Timer("Render"):     # host time, as render()'s
+            while deadline is None or time.perf_counter() < deadline:
+                deficit = self._adaptive_deficit(tol, target_mse, pool,
+                                                 min_spp, max_spp, expo)
+                if deficit is None:
+                    break
+                total_deficit = int(deficit.sum())
+                if total_deficit == 0:
+                    break
+                n_disp = int(min(check_every,
+                                 max(1, -(-total_deficit // n_full))))
+                budget = min(total_deficit, n_disp * n_full)
+                alloc = _largest_remainder_alloc(deficit, budget)
+                pix, frm = _rep_major_stream(alloc, self._spp_map)
+                for off in range(0, len(pix), n_full):
+                    cp = pix[off:off + n_full]
+                    cf = frm[off:off + n_full]
+                    real = np.arange(n_full) < len(cp)
+                    padn = n_full - len(cp)
+                    if padn:
+                        cp = np.concatenate([cp, np.zeros(padn, np.int64)])
+                        cf = np.concatenate([cf, np.zeros(padn, np.int64)])
+                    lanes = lane_of_film[cp]
+                    # lane order keeps 32x32 film tiles contiguous
+                    order = np.argsort(lanes, kind="stable")
+                    lanes, cp, cf, real = (lanes[order], cp[order], cf[order],
+                                           real[order])
+                    # re-observe on every round's first dispatch: rounds
+                    # concentrate the noisiest pixels, whose paths live longer
+                    self._adaptive_dispatch(
+                        px_np[lanes], py_np[lanes], cf, inv_view, inv_proj,
+                        observe=off == 0,
+                        passes=_occurrence_passes(lanes, real), pixels=cp)
+                    steps += 1
+                self._spp_map += alloc
         self.total_samples = int(self._spp_map.max())
+        Stats.add_stat("Total Samples", self.total_samples)
+        Stats.add_stat("Adaptive Mean SPP", float(self._spp_map.mean()))
         return {"spp_min": int(self._spp_map.min()),
                 "spp_max": int(self._spp_map.max()),
                 "spp_mean": float(self._spp_map.mean()),
@@ -844,17 +899,14 @@ class Renderer:
         return self.accum.cpu().numpy() / max(self.total_samples, 1)
 
     def snapshot(self, hdr: bool = False) -> np.ndarray:
-        """Resolve the film through the post stack → float image (host).
-        `hdr=True` (HDR10 PQ encoding) is queue 1, item 4 of the port."""
-        if hdr:
-            raise NotImplementedError("HDR10 output comes with queue 1, "
-                                      "item 4 of the port")
+        """Resolve the film through the post stack → float image (host):
+        SDR in [0, 1], or with `hdr` the HDR10 PQ encoding."""
         if self._spp_map is not None:
             mean = self.accum / torch.as_tensor(self._counts_image(),
                                                 device=self.device)
-            return postprocess(mean, 1.0, self.post).cpu().numpy()
+            return postprocess(mean, 1.0, self.post, hdr).cpu().numpy()
         out = postprocess(self.accum, float(max(self.total_samples, 1)),
-                          self.post)
+                          self.post, hdr)
         return out.cpu().numpy()
 
     def _fold_rays(self, keep: int = 64, limit: int = 512) -> None:

@@ -18,6 +18,7 @@ import logging
 import threading
 from typing import Callable, Dict, List, Optional
 
+from pt_torch.core.stats import Timer
 from pt_torch.scene.builder import Scene, SceneBuilder
 
 
@@ -88,9 +89,10 @@ class SceneManager:
 
         def work() -> None:
             try:
-                builder = SceneBuilder(name)
-                loader.load(builder)
-                scene = builder.create_scene()
+                with Timer("Scene Load"):
+                    builder = SceneBuilder(name)
+                    loader.load(builder)
+                    scene = builder.create_scene()
             except Exception as exc:     # keep previous scene on failure
                 logging.getLogger("pt_torch").error(
                     "scene load %s/%s failed: %s", group, name, exc)

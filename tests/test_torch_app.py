@@ -11,6 +11,8 @@
   exits non-zero and writes nothing. Every option that a later item of the
   port's queue brings exits non-zero and names that item. `--adaptive` and
   `--adaptive-mse` render the adaptive film with `pt`'s arguments.
+  `render --backend brute|pallas`, `render --hdr`, `debug` and `stats` run
+  on `--device cpu` and write their file or print their board.
 * `Application`: the boot scene, the device it hands its `Renderer`, and
   the scene-import and rendering counters.
 """
@@ -96,10 +98,10 @@ def test_cli_list_scenes_matches_pt():
 
 
 def test_cli_parser_keeps_pts_flags_and_defaults():
-    """Every command of `pt`'s parser is there. `list-scenes` and `render`
-    have each of `pt`'s options with `pt`'s default, but `--backend`
-    (default None: the port's kernels), and `render` adds `--device`. The
-    commands of later items (`debug`, `stats`, `view`) are bare."""
+    """Every command of `pt`'s parser is there. `list-scenes`, `render`,
+    `debug` and `stats` have each of `pt`'s options with `pt`'s default;
+    `render`, `debug` and `stats` add `--device`. The command of a later
+    item (`view`) is bare."""
     def options(parser):
         sub = next(a for a in parser._actions
                    if a.dest == "command").choices
@@ -107,12 +109,13 @@ def test_cli_parser_keeps_pts_flags_and_defaults():
                        if a.dest != "help"} for name, p in sub.items()}
     got, want = options(cli.build_parser()), options(jcli.build_parser())
     assert got.keys() == want.keys()
+    assert list(cli.DEFERRED_COMMANDS) == ["view"]
     for name in cli.DEFERRED_COMMANDS:
         assert got.pop(name) == {}
         want.pop(name)
-    assert got["render"].pop("device") is None
-    assert got["render"].pop("backend") is None
-    want["render"].pop("backend")
+    for name in ("render", "debug", "stats"):
+        assert got[name].pop("device") is None
+    assert got["render"]["backend"] == "pallas"
     assert got == want
 
 
@@ -126,18 +129,15 @@ def test_cli_without_device_needs_the_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["render", "--backend", "brute", "--device", "cpu"], 7),
-    (["render", "--backend", "pallas", "--device", "cpu"], 7),
-    (["render", "--hdr", "--device", "cpu"], 4),
+    (["render", "--backend", "bvh", "--device", "cpu"], 7),
     (["render", "--format", "mp4", "--device", "cpu"], 5),
     (["render", "--format", "tga", "--device", "cpu"], 5),
     (["render", "--out", "frame.jpg", "--device", "cpu"], 5),
     (["render", "--scene", "scene.gltf", "--device", "cpu"], 6),
     (["render", "--scene", "scene.obj", "--device", "cpu"], 6),
     (["render", "--scene", "scene.fbx", "--device", "cpu"], 6),
-    (["debug"], 4),
-    (["debug", "--mode", "normal", "--size", "8x8"], 4),
-    (["stats"], 4),
+    (["debug", "--out", "d.jpg", "--device", "cpu"], 5),
+    (["debug", "--scene", "scene.glb", "--device", "cpu"], 6),
     (["view"], 8),
     (["view", "--port", "9000", "--duration", "1"], 8),
     (["-A", "Assets", "list-scenes"], 6),
@@ -150,6 +150,49 @@ def test_cli_deferred_options_name_their_queue_item(tmp_path, monkeypatch,
     assert rc != 0
     assert f"queue 1, item {item}" in err, err
     assert not list(tmp_path.iterdir())
+
+
+def _pixels(path):
+    image = decode_png(path.read_bytes())
+    assert image[..., :3].max() > 0
+    return image
+
+
+@pytest.mark.parametrize("argv, check", [
+    (["render", "--backend", "brute", "--size", "16x16", "--spp", "1",
+      "--bounces", "2", "--out", "b.png"],
+     lambda d, out: _pixels(d / "b.png").shape == (16, 16, 4)),
+    (["render", "--backend", "pallas", "--size", "16x16", "--spp", "1",
+      "--bounces", "2", "--out", "p.png"],
+     lambda d, out: _pixels(d / "p.png").shape == (16, 16, 4)),
+    (["render", "--hdr", "--size", "16x16", "--spp", "1", "--bounces", "2",
+      "--out", "h.png"],
+     lambda d, out: _pixels(d / "h.png").shape == (16, 16, 4)),
+    (["debug", "--size", "24x16"],
+     lambda d, out: _pixels(d / "debug.png").shape == (16, 24, 4)),
+    (["debug", "--mode", "geometry", "--size", "8x8", "--force-opaque",
+      "--cull-backfaces", "--disable-color-texture", "--disable-shadows",
+      "--out", "g.png"],
+     lambda d, out: _pixels(d / "g.png").shape == (8, 8, 4)),
+    (["stats"],
+     lambda d, out: {"Render", "Total Samples", "Samples Per Frame",
+                     "Frame total"} <= {line.split(": ")[0]
+                                        for line in out.splitlines()}),
+], ids=lambda v: "_".join(v[:3]) if isinstance(v, list) else "")
+def test_cli_item4_commands_run(tmp_path, monkeypatch, argv, check):
+    """`render --backend brute|pallas`, `render --hdr`, `debug` (with every
+    flag) and `stats` on the CPU: exit code 0 and the file or the board.
+    PyTorch runs on one thread here (`stats` renders 256², and the suite's
+    other test processes contend for the same cores)."""
+    monkeypatch.chdir(tmp_path)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc, out, err = _main(argv + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    assert rc == 0, err
+    assert check(tmp_path, out)
 
 
 @pytest.mark.parametrize("flag, value, tol, target_mse", [
@@ -236,10 +279,13 @@ def test_background_tasks_count_like_pt():
 
 
 def test_cli_rejects_unknown_options():
-    """Only the bare commands of later items take what follows them
-    unparsed: an unknown option of `render` or `list-scenes` is an error."""
+    """Only the bare command of a later item takes what follows it
+    unparsed: an unknown option of `render`, `list-scenes`, `debug` or
+    `stats` is an error."""
     for argv in (["render", "--bogus", "--device", "cpu"],
-                 ["list-scenes", "--mode", "normal"]):
+                 ["list-scenes", "--mode", "normal"],
+                 ["debug", "--bogus", "--device", "cpu"],
+                 ["stats", "--mode", "normal", "--device", "cpu"]):
         with pytest.raises(SystemExit) as exc:
             _main(argv)
         assert exc.value.code == 2

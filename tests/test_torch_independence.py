@@ -9,7 +9,8 @@ Heightfield, the Default scene, a small Courtyard and an instanced alpha
 scene on the CPU, runs the archive path (both
 harnesses, a frame through a BF8V6) and the frame budget and drain model
 (`pt_torch.benches.budget`, `.drain_sim`), and runs `python -m
-pt_torch.run.cli` (`list-scenes`, and a 16² `render --device cpu` to PNG);
+pt_torch.run.cli` (`list-scenes`, a 16² `render --device cpu` to PNG, and
+`debug`, `stats` and `render --hdr`);
 and with no device named, the entry points take the card and raise when
 there is none.
 """
@@ -253,6 +254,42 @@ def test_cli_runs_without_jax_pt_or_pillow(tmp_path):
     assert "  Test Scenes/Reuse Mesh" in lines
     from pt_torch.scene.textures import decode_png
     assert decode_png(png.read_bytes()).shape == (16, 16, 4)
+
+
+def test_debug_stats_and_hdr_run_without_jax_pt_or_pillow(tmp_path):
+    """`python -m pt_torch.run.cli debug` (every flag), `stats` and `render
+    --hdr`, on the CPU, in a process where `jax`, `pt`, `benches` and
+    Pillow cannot be imported."""
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.set_num_threads(1)   # beside the other test processes\n"
+        "for m in ('jax', 'pt', 'benches', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "for argv in (['debug', '--mode', 'color', '--size', '16x12',"
+        " '--force-opaque', '--cull-backfaces', '--disable-color-texture',"
+        " '--disable-shadows', '--out', 'd.png'],"
+        " ['stats'], ['render', '--hdr', '--size', '16x16', '--spp', '1',"
+        " '--bounces', '2', '--out', 'h.png']):\n"
+        "    sys.argv = ['pt_torch.run.cli'] + argv + ['--device', 'cpu']\n"
+        "    try:\n"
+        "        runpy.run_module('pt_torch.run.cli', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (argv, e.code)\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
+        " if v is not None}\n"
+        "assert not loaded & {'jax', 'pt', 'benches', 'PIL'}\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "OK" and any(line.startswith("Render: ")
+                                     for line in lines)
+    from pt_torch.scene.textures import decode_png
+    assert decode_png((tmp_path / "d.png").read_bytes()).shape == (12, 16, 4)
+    assert decode_png((tmp_path / "h.png").read_bytes()).shape == (16, 16, 4)
 
 
 def test_default_device_is_the_card():

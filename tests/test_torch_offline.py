@@ -147,14 +147,28 @@ def test_offline_exception_deletes_partial_output(tmp_path, monkeypatch):
 
 
 def test_offline_rejects_what_item_4_brings(tmp_path):
-    """HDR10 encoding is still item 4's; the adaptive film is not (it is
-    held in `tests/test_torch_adaptive.py`)."""
+    """Item 4 is done: what the offline path refused before, HDR10 output,
+    now renders. With `hdr` the PNG holds the PQ encoding of the film
+    (`snapshot(hdr=True)`, the 8-bit PNG of what `postprocess(hdr=True)`
+    gives), brighter than the SDR frame of the same film; an `.hdr` file
+    keeps the linear film either way."""
+    from pt_torch.post.pipeline import postprocess
     r = _renderer()
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        OfflineRenderer(r).render(_settings(tmp_path / "a.png", hdr=True))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        r.snapshot(hdr=True)
-    assert not list(tmp_path.iterdir())
+    png = tmp_path / "a.png"
+    assert OfflineRenderer(r).render(_settings(png, hdr=True,
+                                               max_sample_count=2)) == 1
+    pq = postprocess(r.accum, 2.0, r.post, hdr=True).numpy()
+    assert np.array_equal(r.snapshot(hdr=True), pq)
+    got = decode_png(png.read_bytes())[..., :3]
+    assert np.array_equal(
+        got, (np.clip(pq, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8))
+    sdr = r.snapshot()
+    assert pq.mean() > sdr.mean() and (pq >= 0).all() and (pq <= 1).all()
+    hdr = tmp_path / "a.hdr"
+    assert OfflineRenderer(r).render(_settings(hdr, fmt="hdr", hdr=True,
+                                               max_sample_count=2)) == 1
+    film = read_radiance_hdr(hdr.read_bytes())
+    assert np.abs(film - r.film_mean()).max() <= 0.01 * r.film_mean().max()
 
 
 # --------------------------------------------------------- checkpoints
@@ -322,7 +336,9 @@ def test_config_matches_pt():
     theirs = {f.name: f.default for f in dataclasses.fields(JConfig)}
     fields = {f.name: f.default for f in dataclasses.fields(Config)}
     assert fields == {"texture_memory_budget": 2 << 30,
-                      "max_texture_size": 4096}
+                      "max_texture_size": 4096,
+                      "min_refresh_rate": 60.0,
+                      "max_samples_per_frame": 64}
     assert all(theirs[name] == default for name, default in fields.items())
 
 
