@@ -180,6 +180,28 @@ Phases, each fatal on failure (nothing is caught and passed over):
     through the CLI (the PNG decoded, 17 + 17 launches); the `stats`
     command in this process (brute: no launch; the board holds `pt`'s
     keys);
+10d. scene import and file output (`[import]` lines), launch counters set
+    to 0 just before each call and read just after: the Courtyard at
+    detail 1.0 (COURT_TEX_SCALE) exported by the port's exporter with
+    Pillow unimportable and reimported (triangle and alpha-tested counts
+    equal to the built-in scene's, its lights, at least 40 textures and a
+    camera); `render --scene <that glb>` at 512², 2 spp, 5 bounces with no
+    --device (exit code 0, the PNG decoded, only K1/K2 launched, or K5/K6
+    where "auto" picks shared BLAS, no plain version called, wall
+    seconds); the accel build of the imported and the built-in scene; the
+    imported film against the built-in scene's as the file carries it
+    (MSE < 1e-3; the exporter, as `pt`'s, drops a roughness texture
+    separate from the metallic one, and glTF has no skybox: the film of
+    the unchanged scene is logged); a small Courtyard glb card against CPU
+    at 32² (MSE < 1e-3); a node-animated glb of the Heightfield n=224
+    through `Renderer`, 3 frames of 4 spp at 512² (17 closest_v4 + 17
+    occluded_v4 a step), and at n=16 card against CPU; every scene fixture
+    of `tests/data` through `render` at 32², 1 spp, card against CPU
+    (MSE < 1e-3); the DDS fixtures through `load_texture_mips` and the
+    pool (card equal to CPU); ffmpeg and Pillow logged, 3 frames at 64² to
+    numbered PNGs, and `--format mp4` through ffmpeg where present and the
+    MJPEG AVI where Pillow is (each frame within a mean 8 of 255 of the
+    PNG frame);
 11. budget and drain: `pt`'s last two Pallas entry points through K1's
     pops launch (`closest_bf8(..., pops=)`, the warp kernel's pops
     instance: each lane's walk iterations; a warp's rounds are its lanes'
@@ -214,7 +236,10 @@ from the A/B, and for K1-K4 `launches_entry`, their launches in phase
 10b's CLI render (K1/K2) or in one `render_image_stats` call (K3/K4), and
 from phase 10c `launches_hdr` (K1/K2: a 4-spp HDR10 step) and
 `launches_debug` (K3: a debug frame, and `launches_debug_alpha` in the
-alpha loop; K4: a COLOR frame with shadows), then one row per archive entry point, with the kernel it
+alpha loop; K4: a COLOR frame with shadows), from phase 10d
+`launches_import` (K1/K2, or K5/K6: the imported Courtyard's CLI render;
+K3/K4: a 4-spp step of the animated import), then one row per archive
+entry point, with the kernel it
 runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
 time on the same rays; A3-A6 their A/B at both bounces; A1, A7 and
 A10 their per-ray arm's time and the A/B over the fine SBVH and the
@@ -2813,14 +2838,17 @@ ENTRY_PLAIN = ("closest_bf8_plain", "occluded_bf8_plain", "closest_v4_plain",
 
 
 class _PlainCalls:
-    """Within the block, count the calls of the plain versions in
-    ENTRY_PLAIN (each wrapped in `pt_torch.accel.kernels`, the module the
-    wrappers call them through)."""
+    """Within the block, count the calls of the plain versions in `names`
+    (ENTRY_PLAIN by default; each wrapped in `pt_torch.accel.kernels`, the
+    module the wrappers call them through)."""
+
+    def __init__(self, names=ENTRY_PLAIN):
+        self.names = names
 
     def __enter__(self):
         from pt_torch.accel import kernels
-        self.calls = dict.fromkeys(ENTRY_PLAIN, 0)
-        self._saved = {k: getattr(kernels, k) for k in ENTRY_PLAIN}
+        self.calls = dict.fromkeys(self.names, 0)
+        self._saved = {k: getattr(kernels, k) for k in self.names}
 
         def counting(name, fn):
             def wrapped(*args, **kwargs):
@@ -3301,6 +3329,419 @@ def phase_debug():
                 launches_debug_alpha=seen["closest_v4"])
 
 
+# the plain versions the imported scenes' paths could reach: K1/K2 (flat),
+# K5/K6 (shared BLAS) and K3/K4 (an animated import)
+IMPORT_PLAIN = ENTRY_PLAIN + ("closest_bf8i_plain", "occluded_bf8i_plain")
+# the Heightfield n=224 mesh: 2 x 223² triangles
+HEIGHTFIELD_TRIS = 99_458
+
+
+def write_animated_glb(n: int, path) -> None:
+    """The Heightfield of grid size `n` exported by the port's exporter,
+    with a 2-second node animation (translation and rotation keys, linear)
+    added on the node that holds its mesh: a node-animated glTF that
+    imports as an animated instance (Morton rebuild, K3/K4)."""
+    from pt_torch.scene.examples import make_heightfield_scene
+    from pt_torch.scene.gltf import GLTFFile
+    from pt_torch.scene.gltf_export import export_glb, write_glb
+    export_glb(make_heightfield_scene(n), str(path))
+    g, blob = GLTFFile._parse_glb(pathlib.Path(path).read_bytes())
+    node = next(i for i, nd in enumerate(g["nodes"]) if "mesh" in nd)
+    times = np.asarray([0.0, 1.0, 2.0], np.float32)
+    moves = np.asarray([[0, 0, 0], [0, 0.3, 0.2], [0, 0, 0]], np.float32)
+    angle = np.asarray([0.0, 0.15, 0.0])
+    quats = np.stack([np.zeros(3), np.sin(angle / 2), np.zeros(3),
+                      np.cos(angle / 2)], -1).astype(np.float32)   # xyzw
+    accessors = []
+    for arr, kind in ((times, "SCALAR"), (moves, "VEC3"), (quats, "VEC4")):
+        blob += b"\0" * (-len(blob) % 4)
+        g["bufferViews"].append({"buffer": 0, "byteOffset": len(blob),
+                                 "byteLength": arr.nbytes})
+        blob += arr.tobytes()
+        acc = {"bufferView": len(g["bufferViews"]) - 1,
+               "componentType": 5126, "count": len(arr), "type": kind}
+        if kind == "SCALAR":
+            acc.update(min=[float(times.min())], max=[float(times.max())])
+        g["accessors"].append(acc)
+        accessors.append(len(g["accessors"]) - 1)
+    g["animations"] = [{"name": "sway", "samplers": [
+        {"input": accessors[0], "output": accessors[1],
+         "interpolation": "LINEAR"},
+        {"input": accessors[0], "output": accessors[2],
+         "interpolation": "LINEAR"}], "channels": [
+        {"sampler": 0, "target": {"node": node, "path": "translation"}},
+        {"sampler": 1, "target": {"node": node, "path": "rotation"}}]}]
+    g["buffers"][0]["byteLength"] = len(blob) + (-len(blob) % 4)
+    write_glb(str(path), g, blob)
+
+
+def _import_file(path):
+    """The scene the port's CombinedSceneLoader makes of `path` (by
+    suffix, as the CLI's "CLI/file")."""
+    from pt_torch.scene.builder import SceneBuilder
+    from pt_torch.scene.manager import SceneDescription
+    b = SceneBuilder(pathlib.Path(path).stem)
+    SceneDescription("file", [path]).to_loader().load(b)
+    return b.create_scene()
+
+
+def _cli_hdr_films(path, size: int, spp: int, bounces: int, tag: str):
+    """`render --scene path` to HDR with no --device (the card) and with
+    --device cpu: ({device: film}, the card run's launches)."""
+    from pt_torch.scene.textures import read_radiance_hdr
+    films, launches = {}, None
+    for dev in (None, "cpu"):
+        out = OUT_DIR / f"import_{tag}_{dev or 'card'}.hdr"
+        rc, _, _, got = _cli(["render", "--scene", str(path), "--size",
+                              f"{size}x{size}", "--spp", str(spp),
+                              "--bounces", str(bounces), "--format", "hdr",
+                              "--out", str(out)]
+                             + (["--device", dev] if dev else []))
+        check(rc == 0, f"[import] render {path} --device {dev}: rc {rc}")
+        films[dev] = read_radiance_hdr(out.read_bytes())
+        if dev is None:
+            launches = got
+    return films, launches
+
+
+def _as_carried(built, imported):
+    """(the built-in scene as a glTF file carries it, the built-in scene
+    with only the camera as exported), with `imported` made comparable.
+
+    The exporter, as `pt`'s, writes the metallic texture as the
+    metallicRoughnessTexture and drops a separate roughness texture
+    (carried: roughness textures at their default), and writes the camera
+    with its up negated, world +Y where the built-in camera's is -Y (both
+    copies: the camera rolled by 180 degrees, as the glb's). glTF has no
+    skybox: the imported scene is given the built-in one, as a
+    SceneDescription gives one. The imported camera hangs on a node and
+    takes its pose at the scene's first update, which a still render never
+    makes (as in `pt`): it is placed here, so the glb's own camera is the
+    one held to the film."""
+    import copy
+    import dataclasses
+    cam = copy.deepcopy(built.cameras[0])
+    cam.up_direction = -cam.up_direction
+    cam._update_inv_view()
+    rolled = copy.copy(built)
+    rolled.cameras = [cam]
+    carried = copy.copy(rolled)
+    carried.materials_mr = [dataclasses.replace(m, roughness_idx=2)
+                            for m in built.materials_mr]
+    imported.skybox = built.skybox
+    check(imported.cameras[0].on_update(0.0),
+          "[import] the imported camera did not take its node's pose")
+    return carried, rolled
+
+
+def _error_spread(a, b) -> str:
+    """Where the squared error of films `a` and `b` lies: the pixels that
+    differ, and the share of the error held by the worst 0.1%."""
+    err = ((a - b) ** 2).mean(-1).reshape(-1)
+    worst = np.sort(err)[::-1][:max(1, err.size // 1000)]
+    return (f"{int((err > 0).sum())} of {err.size} pixels differ, the worst"
+            f" 0.1% hold {worst.sum() / max(err.sum(), 1e-30):.3f} of the "
+            f"squared error, the largest pixel {float(err.max()):.3e}")
+
+
+def phase_import():
+    """Phase 10d (`[import]` lines): scene files in and files out. (a) The
+    Courtyard at detail 1.0 (COURT_TEX_SCALE) exported by the port's
+    exporter, with Pillow blocked, and reimported: its triangle and alpha
+    counts, lights, textures and camera; (b) the glb through `render` on
+    the card at 512², 2 spp: exit 0, the PNG decoded, only K1/K2 (or K5/K6
+    where "auto" picks shared BLAS) launched, no plain version called, the
+    wall seconds and the accel build against the built-in scene's; (c) the
+    imported film, through the glb's own camera, against the built-in
+    scene's film as the file carries it (`_as_carried`), and the card's
+    film against the CPU's (a small Courtyard glb at 32²); (d) a node-animated glb of the Heightfield n=224 through
+    `Renderer`, 3 frames of 4 spp at 512² (17 K3 + 17 K4 a step), and
+    its small version card against CPU; (e) every scene fixture of
+    `tests/data` through `render` card against CPU, and the DDS fixtures
+    through `load_texture_mips` and the pool; (f) video: ffmpeg and
+    Pillow logged, 3 frames to numbered PNGs, and mp4 through each arm
+    whose encoder is present. Returns the launches for the kernels line."""
+    import shutil
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.out import saver
+    from pt_torch.run.renderer import Renderer
+    from pt_torch.scene.flatten import flatten_scene
+    from pt_torch.scene.gltf_export import export_glb
+    from pt_torch.scene.standin import make_courtyard_scene
+    from pt_torch.scene.textures import (build_texture_pool, decode_png,
+                                         load_texture_mips)
+    from pt_torch.scene.types import TextureInfo, TextureType
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+
+    # (a) export, with Pillow unimportable, and reimport
+    ta = time.perf_counter()
+    built = make_courtyard_scene(1.0, COURT_TEX_SCALE)
+    glb = OUT_DIR / "courtyard_1.0.glb"
+    pil = sys.modules.get("PIL", "unset")
+    sys.modules["PIL"] = None
+    try:
+        export_glb(built, str(glb))
+    finally:
+        if pil == "unset":
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = pil
+    export_s = time.perf_counter() - ta
+    ta = time.perf_counter()
+    imported = _import_file(glb)
+    import_s = time.perf_counter() - ta
+    d_built = flatten_scene(built, device="cuda")
+    d_imp = flatten_scene(imported, device="cuda")
+    counts = [(d.num_triangles, int((~d.tri_opaque).sum()))
+              for d in (d_built, d_imp)]
+    log(f"[import] Courtyard detail 1.0, tex_scale {COURT_TEX_SCALE}: "
+        f"exported by the port ({glb.stat().st_size / 2**20:.1f} MiB, "
+        f"{export_s:.1f} s, Pillow blocked), reimported in {import_s:.1f} s:"
+        f" triangles (alpha-tested) built-in {counts[0]}, imported "
+        f"{counts[1]}; {len(imported.point_lights)} point lights, "
+        f"directional {imported.directional_light is not None}, "
+        f"{len(imported.textures)} textures, {len(imported.cameras)} "
+        f"camera(s)")
+    check(counts[0] == counts[1] and counts[0][1] > 0,
+          f"[import] triangle counts {counts}")
+    check(len(imported.point_lights) == len(built.point_lights)
+          and imported.directional_light is not None
+          and len(imported.textures) >= 40 and len(imported.cameras) >= 1,
+          "[import] lights, textures or camera lost in the round trip")
+    del d_built, d_imp
+
+    # (b) the glb through the CLI on the card
+    Renderer._accel_cache = None
+    png = OUT_DIR / "import_courtyard_512.png"
+    with _PlainCalls(IMPORT_PLAIN) as plain:
+        rc, _, cli_s, cli_launches = _cli(
+            ["render", "--scene", str(glb), "--size", "512x512", "--spp",
+             "2", "--bounces", "5", "--out", str(png)])
+    check(rc == 0, f"[import] render --scene {glb.name}: rc {rc}")
+    decoded = decode_png(png.read_bytes())
+    check(decoded.shape == (512, 512, 4) and int(decoded[..., :3].max()) > 0,
+          f"[import] the CLI's PNG decodes to {decoded.shape}")
+    check(not any(plain.calls.values()),
+          f"[import] plain versions ran on the card: {plain.calls}")
+    flat = {"closest_bf8", "occluded_bf8"}
+    shared = {"closest_bf8i", "occluded_bf8i"}
+    check(set(cli_launches) in (flat, shared),
+          f"[import] the glb render launched {cli_launches}")
+    route = "K1/K2 (flat)" if set(cli_launches) == flat else \
+        "K5/K6 (shared BLAS, picked by auto)"
+    log(f"[import] python -m pt_torch.run.cli render --scene {glb.name} "
+        f"--size 512x512 --spp 2 --bounces 5 (no --device): rc 0, "
+        f"{cli_s:.2f} s wall (import, texture pool, accel built), "
+        f"launches {cli_launches} ({route}), plain calls {plain.calls}, "
+        f"wrote {png.relative_to(ROOT)}")
+    out["launches_cli"] = cli_launches
+
+    # (c) films: imported against built-in, both on the card; accel builds
+    carried, rolled = _as_carried(built, imported)
+    films, builds, kinds = {}, {}, {}
+    for what, scene in (("built-in, camera as exported", rolled),
+                        ("as carried", carried), ("imported", imported)):
+        Renderer._accel_cache = None
+        r = _renderer(scene, 512, 2, 5, "cuda")
+        ta = time.perf_counter()
+        r._ensure_accel()
+        torch.cuda.synchronize()
+        builds[what] = time.perf_counter() - ta
+        kinds[what] = type(r.accel.bvh).__name__
+        r.render()
+        films[what] = _check_film(r, f"[import] {what}")
+        del r
+    mse = float(np.mean((films["imported"] - films["as carried"]) ** 2))
+    spread = _error_spread(films["imported"], films["as carried"])
+    mse_rough = float(np.mean(
+        (films["imported"] - films["built-in, camera as exported"]) ** 2))
+    log(f"[import] accel build (SBVH -> BF8 + split trees, cache emptied): "
+        f"built-in {builds['as carried']:.2f} s, imported "
+        f"{builds['imported']:.2f} s ({kinds['imported']}); film 512x512, 2 "
+        f"spp, 5 bounces on the card, the imported scene through the glb's "
+        f"camera against the built-in scene as the file carries it: MSE "
+        f"{mse:.3e} (limit 1e-3), {spread}; "
+        f"against the built-in scene with its separate roughness textures "
+        f"(camera as exported, both with the built-in skybox): "
+        f"{mse_rough:.3e} (not a gate)")
+    check(np.isfinite(mse) and mse < 1e-3, f"[import] film MSE {mse}")
+    out.update(cli_s=cli_s, accel_build_s=builds, film_mse=mse)
+    del films, built, carried, rolled, imported
+    Renderer._accel_cache = None
+
+    # a Courtyard glb, card against CPU, through the CLI: the small one the
+    # CPU tests use (detail 0.1, 26,906 triangles), at 32²; the CPU's
+    # plain versions trace by brute force, which at the full scene's
+    # 212,884 triangles takes minutes. The same gate as above at this
+    # size on the card (the CPU's films equal the card's, as the CLI's
+    # show) says whether the size sets the imported film's distance from
+    # the built-in one.
+    ta = time.perf_counter()
+    small_built = make_courtyard_scene(0.1, 0.05)
+    small_glb = OUT_DIR / "courtyard_0.1.glb"
+    export_glb(small_built, str(small_glb))
+    hdr, _ = _cli_hdr_films(small_glb, 32, 2, 3, "courtyard")
+    mse = float(np.mean((hdr[None] - hdr["cpu"]) ** 2))
+    small_imported = _import_file(small_glb)
+    small_carried, _ = _as_carried(small_built, small_imported)
+    pair = []
+    for scene in (small_imported, small_carried):
+        Renderer._accel_cache = None
+        r = _renderer(scene, 32, 2, 3, "cuda")
+        r.render()
+        pair.append(r.film_mean())
+        del r
+    Renderer._accel_cache = None
+    gate = float(np.mean((pair[0] - pair[1]) ** 2))
+    log(f"[import] render --scene {small_glb.name} 32x32, 2 spp, 3 bounces,"
+        f" --format hdr: no --device against --device cpu, film MSE "
+        f"{mse:.3e} (limit 1e-3); imported against the built-in scene as "
+        f"carried at this size, on the card: MSE {gate:.3e}; "
+        f"{time.perf_counter() - ta:.1f} s")
+    check(hdr[None].shape == (32, 32, 3) and mse < 1e-3,
+          f"[import] glb films card against CPU: MSE {mse}")
+    check(gate < 1e-3, f"[import] small imported films: MSE {gate}")
+
+    # (d) an animated import through Renderer
+    anim = OUT_DIR / "animated_heightfield_224.glb"
+    write_animated_glb(224, anim)
+    scene = _import_file(anim)
+    r = _renderer(scene, 512, 4, 5, "cuda")
+    check(r.ds.num_triangles >= HEIGHTFIELD_TRIS
+          and scene.has_animated_instances,
+          f"[import] animated glb: {r.ds.num_triangles} triangles")
+    frames, want = [], {"closest_v4": 17, "occluded_v4": 17}
+    with _PlainCalls(IMPORT_PLAIN) as plain:
+        for _ in range(3):
+            ta = time.perf_counter()
+            check(_step_frame(r), "[import] the animation did not move")
+            kernels.reset_launch_counts()
+            r.render()
+            torch.cuda.synchronize()
+            got = {k: v for k, v in kernels.launches.items() if v}
+            frames.append((time.perf_counter() - ta) * 1e3)
+            check(got == want, f"[import] animated step launched {got}, "
+                  f"want {want}")
+            check(type(r.accel.bvh).__name__ == "PacketBVH",
+                  "[import] animated import: no Morton tree")
+    check(not any(plain.calls.values()),
+          f"[import] plain versions ran on the card: {plain.calls}")
+    _check_film(r, "[import] animated")
+    log(f"[import] node-animated glb (Heightfield n=224, "
+        f"{r.ds.num_triangles} triangles): 3 frames of update, Morton "
+        f"rebuild and a 4-spp step at 512x512, 5 bounces: ms "
+        f"{', '.join(f'{m:.1f}' for m in frames)}, launches a step {got}")
+    out["launches_anim"] = got
+    del r
+    small = OUT_DIR / "animated_heightfield_16.glb"
+    write_animated_glb(16, small)
+    films = {}
+    for dev in ("cuda", "cpu"):
+        r = _renderer(_import_file(small), 32, 2, 3, dev)
+        _step_frame(r)
+        r.render()
+        films[dev] = r.film_mean()
+    mse = float(np.mean((films["cuda"] - films["cpu"]) ** 2))
+    log(f"[import] node-animated glb (Heightfield n=16), one frame at 32x32,"
+        f" 2 spp, 3 bounces: film MSE cuda vs cpu {mse:.3e} (limit 1e-3)")
+    check(mse < 1e-3, f"[import] animated glb films: MSE {mse}")
+
+    # (e) the repo's fixtures
+    data = ROOT / "tests" / "data"
+    for f in sorted(data.iterdir()):
+        if f.suffix not in (".gltf", ".obj", ".fbx"):
+            continue
+        hdr, got = _cli_hdr_films(f, 32, 1, 3, f.stem)
+        mse = float(np.mean((hdr[None] - hdr["cpu"]) ** 2))
+        log(f"[import] render --scene tests/data/{f.name} 32x32, 1 spp: "
+            f"card against CPU film MSE {mse:.3e} (limit 1e-3), launches "
+            f"{got}")
+        check(bool(np.isfinite(hdr[None]).all()) and mse < 1e-3,
+              f"[import] {f.name}: MSE {mse}")
+    infos, chains = [], []
+    for f in sorted(data.glob("*.dds")):
+        info = TextureInfo(f.name, TextureType.COLOR, path=str(f))
+        mips = load_texture_mips(info)
+        chains.append(f"{f.name}: "
+                      + (f"{len(mips)} authored levels" if mips else "none"))
+        infos.append(info)
+    pools = {dev: build_texture_pool(infos, device=dev)
+             for dev in ("cuda", "cpu")}
+    same = all(torch.equal(getattr(pools["cuda"], k).cpu(),
+                           getattr(pools["cpu"], k))
+               for k in ("data", "offsets", "sizes", "mip_counts"))
+    log(f"[import] DDS fixtures, load_texture_mips: {'; '.join(chains)}; "
+        f"pool on the card: {pools['cuda'].count} textures, mip counts "
+        f"{pools['cuda'].mip_counts[9:].tolist()}, equal to the CPU's: "
+        f"{same}")
+    # sorted: adv_cubemap (a placeholder, one level), adv_legacy_ati2 (4x4,
+    # its chain generated: 3 levels), adv_legacy_dxt1 (8x8, 4 authored)
+    check(same and pools["cuda"].mip_counts[9:].tolist() == [1, 3, 4],
+          "[import] DDS pool")
+
+    # (f) video
+    ffmpeg = shutil.which("ffmpeg")
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    log(f"[import] this machine: ffmpeg {ffmpeg or 'absent'}, Pillow "
+        f"{pillow or 'absent'}")
+    base = ["render", "--size", "64x64", "--spp", "1", "--bounces", "3",
+            "--frames", "3"]
+    rc, _, _, _ = _cli(base + ["--format", "png", "--out",
+                               str(OUT_DIR / "video_frame.png")])
+    pngs = [OUT_DIR / f"video_frame_{i:05d}.png" for i in range(3)]
+    check(rc == 0 and all(p.exists() for p in pngs),
+          f"[import] numbered PNG frames: rc {rc}")
+    frames = [decode_png(p.read_bytes())[..., :3] for p in pngs]
+    arms = []
+    if ffmpeg:
+        mp4 = OUT_DIR / "video.mp4"
+        rc, _, secs, _ = _cli(base + ["--format", "mp4", "--out", str(mp4)])
+        check(rc == 0 and mp4.exists() and mp4.stat().st_size > 0,
+              f"[import] mp4 through ffmpeg: rc {rc}")
+        arms.append(f"ffmpeg: {mp4.stat().st_size} bytes, {secs:.1f} s")
+    if pillow:
+        import io
+        import struct
+        from PIL import Image
+        real = saver.ffmpeg_available
+        saver.ffmpeg_available = lambda: False
+        try:
+            rc, _, secs, _ = _cli(base + ["--format", "mp4", "--out",
+                                          str(OUT_DIR / "video_mjpeg.mp4")])
+        finally:
+            saver.ffmpeg_available = real
+        data_avi = (OUT_DIR / "video_mjpeg.avi").read_bytes()
+        avih = data_avi.index(b"avih") + 8
+        n = struct.unpack("<10I", data_avi[avih:avih + 40])[4]
+        errs, pos = [], 0
+        for frame in frames:
+            pos = data_avi.index(b"00dc", pos)
+            size = struct.unpack("<I", data_avi[pos + 4:pos + 8])[0]
+            jpg = np.asarray(Image.open(io.BytesIO(
+                data_avi[pos + 8:pos + 8 + size])).convert("RGB"))
+            errs.append(float(np.abs(jpg.astype(np.int32)
+                                     - frame.astype(np.int32)).mean()))
+            pos += 8 + size
+        check(rc == 0 and n == 3 and max(errs) < 8.0,
+              f"[import] MJPEG AVI: rc {rc}, {n} frames, mean abs errors "
+              f"{errs}")
+        arms.append(f"MJPEG AVI (ffmpeg patched away): {n} frames, mean abs "
+                    f"error against the PNG frames "
+                    f"{', '.join(f'{e:.2f}' for e in errs)} (limit 8 of 255)"
+                    f", {secs:.1f} s")
+    log(f"[import] render --frames 3, 64x64: numbered PNGs written; mp4 "
+        f"arms run: {'; '.join(arms) or 'none (no ffmpeg, no Pillow)'}")
+    log(f"[import] phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _pops_checks(tag, bvh8, rows, rng):
     """Phase 11's checks on every bounce's wavefront of a bench run: K1's
     pops launch (the warp kernel's pops instance) and its per-ray arm give
@@ -3560,6 +4001,7 @@ def main() -> None:
     fresh(phase_cross_device)
     entry = fresh(phase_entry)
     debug = fresh(phase_debug)
+    imp = fresh(phase_import)
     b_rows = fresh(phase_budget)
     counts.update(a_counts)
     counts.update(i_counts)
@@ -3585,6 +4027,11 @@ def main() -> None:
             rows[-1]["launches_hdr"] = debug["launches_hdr"][k]
         if k in debug["launches_debug"]:     # phase 10c: a debug frame
             rows[-1]["launches_debug"] = debug["launches_debug"][k]
+        # phase 10d: the imported Courtyard's CLI render (K1/K2, or K5/K6)
+        # and a 4-spp step of the animated import (K3/K4)
+        imported = {**imp["launches_cli"], **imp["launches_anim"]}
+        if k in imported:
+            rows[-1]["launches_import"] = imported[k]
         if k == "closest_v4":
             rows[-1]["launches_debug_alpha"] = debug["launches_debug_alpha"]
         if k in PER_RAY:        # the in-call A/B against the first design
@@ -3634,7 +4081,8 @@ def main() -> None:
         f"{json.dumps(inst_stats)}; archive path (b) "
         f"{json.dumps(ar_stats)}; entry points (render_image_stats per "
         f"call, the CLI's 512² render) {json.dumps(entry)}; debug frames "
-        f"and HDR10 {json.dumps(debug)}")
+        f"and HDR10 {json.dumps(debug)}; scene import "
+        f"{json.dumps(imp)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,7 +6,10 @@ DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH, BF8Instanced,
 BF8V6 and AlphaSplit are read out as mappings of field name → numpy array
 (or Python scalar for static metadata) and converted here; so are the
 settings that select what runs: PathTracingSettings (with its backend),
-DebugFlags and DebugRenderMode.
+DebugFlags and DebugRenderMode. An imported scene (`Scene`: geometry,
+materials, textures, lights, cameras, skins, animation keys and the graph)
+is read out the same way by `scene_state`, which takes either package's
+objects.
 Arrays keep their bits: bf16 texel rows arrive as numpy `bfloat16` (or raw
 uint16) and are reinterpreted, and the f32 page id rows are copied as raw
 bits. This module imports neither JAX nor `pt`.
@@ -15,6 +18,7 @@ bits. This module imports neither JAX nor `pt`.
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Mapping
 
 import numpy as np
@@ -133,3 +137,37 @@ def debug_mode(value) -> DebugRenderMode:
     """A `pt.render.debug.DebugRenderMode` (or its int value) →
     DebugRenderMode."""
     return DebugRenderMode(int(value))
+
+
+def scene_state(obj, _depth: int = 0):
+    """A scene object of either package (a `Scene` and everything it
+    holds) → plain values: numpy arrays as they are, Python scalars,
+    strings and bytes, lists and dicts of those, an enum as its class
+    name and member name, and any other object as a dict of its
+    attributes under "__class__" and their names, private ones included.
+    Callables (an animated camera's transform provider) are left out. Two
+    scenes that compute the same give equal states, bit for bit."""
+    if _depth > 32:
+        raise RecursionError("scene_state: nesting deeper than 32")
+    if isinstance(obj, enum.Enum):
+        return f"{type(obj).__name__}.{obj.name}"
+    if obj is None or isinstance(obj, (bool, int, float, str, bytes)):
+        return obj
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return obj
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, (list, tuple)):
+        return [scene_state(v, _depth + 1) for v in obj]
+    if isinstance(obj, dict):
+        return {scene_state(k, _depth + 1): scene_state(v, _depth + 1)
+                for k, v in obj.items()}
+    fields = vars(obj) if hasattr(obj, "__dict__") else {
+        name: getattr(obj, name) for name in getattr(obj, "__slots__", ())}
+    out = {"__class__": type(obj).__name__}
+    for name, value in fields.items():
+        if not callable(value) or isinstance(value, (np.ndarray, enum.Enum)):
+            out[name] = scene_state(value, _depth + 1)
+    return out

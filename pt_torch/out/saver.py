@@ -1,15 +1,21 @@
-"""Offline frame sink: PNG and Radiance HDR image files.
+"""Offline frame sink: PNG/JPG/TGA/HDR images and MP4 video.
 
-Port of the still-image half of `pt.out.saver` (≙ the reference's
-OutputSaver, Renderer/OutputSaver.cpp): `OutputInfo`, and `OutputSaver`
-with its writer thread (frames are handed off and converted to host arrays
-there), numbered file names for a sequence, `end_output` (drain and close),
-`cancel_output` (delete the partial file), and errors of the writer thread
-raised on the caller's next `submit_frame` or `end_output`. PNG is written
-with the standard library alone (`zlib` + `struct`: 8 bits per sample,
-filter 0 per scanline), so the port needs no Pillow; HDR is the Radiance
-RGBE writer. Video (mp4 through ffmpeg, the MJPEG AVI fallback) and the JPG
-and TGA writers are queue 1, item 5 of the port: they raise.
+Port of `pt.out.saver` (≙ the reference's OutputSaver,
+Renderer/OutputSaver.cpp): `OutputInfo`, and `OutputSaver` with its writer
+thread (frames are handed off and converted to host arrays there),
+numbered file names for an image sequence, `end_output` (drain, flush and
+close), `cancel_output` (kill the encoder, delete the partial file), and
+errors of the writer thread raised on the caller's next `submit_frame` or
+`end_output`.
+
+PNG is written with the standard library alone (`zlib` + `struct`: 8 bits
+per sample, filter 0 per scanline) and HDR by the Radiance RGBE writer, so
+neither needs Pillow. JPG (quality 95) and TGA go through Pillow, imported
+only there, as in `pt`. mp4 pipes raw RGBA frames to an ffmpeg subprocess
+with `pt`'s arguments (`-vcodec libx264 -preset veryslow -crf 17`); where
+no `ffmpeg` is on the PATH it writes an MJPEG AVI beside the target path
+instead (`pt_torch.out.avi`, whose JPEG frames need Pillow) and sets the
+"Output" stat.
 """
 
 from __future__ import annotations
@@ -17,7 +23,9 @@ from __future__ import annotations
 import os
 import pathlib
 import queue
+import shutil
 import struct
+import subprocess
 import threading
 import zlib
 from typing import NamedTuple, Optional
@@ -25,8 +33,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-FORMATS = ("png", "hdr")
-LATER_FORMATS = ("jpg", "jpeg", "tga", "mp4")
+from pt_torch.core.stats import Stats
+
+FORMATS = ("png", "jpg", "jpeg", "tga", "hdr", "mp4")
 
 
 class OutputInfo(NamedTuple):
@@ -35,20 +44,17 @@ class OutputInfo(NamedTuple):
     width: int
     height: int
     framerate: float = 30.0
-    format: str = "png"          # png | hdr (jpg | tga | mp4: queue 1, item 5)
+    format: str = "png"          # png | jpg | tga | hdr | mp4
     sequence: bool = False       # image formats with >1 frame → numbered
 
 
 def check_format(fmt: str) -> str:
-    """`fmt` lower-cased if the port writes it; else ValueError, naming the
-    queue item that brings the format."""
+    """`fmt` lower-cased if the port writes it; else ValueError. (`pt`
+    writes a PNG under any other name.)"""
     fmt = fmt.lower()
-    if fmt in LATER_FORMATS:
-        raise ValueError(f"output format '{fmt}' comes with queue 1, item 5 "
-                         "of the port (video and the other image formats); "
-                         "use png or hdr")
     if fmt not in FORMATS:
-        raise ValueError(f"unsupported image format '{fmt}' (png or hdr)")
+        raise ValueError(f"unsupported image format '{fmt}' (png, jpg, tga, "
+                         "hdr or mp4)")
     return fmt
 
 
@@ -96,18 +102,31 @@ def encode_png(u8: np.ndarray) -> bytes:
 
 def write_image(path: str, image: np.ndarray, fmt: Optional[str] = None) -> None:
     """Write one frame. `image` is float (H, W, 3): display-encoded [0,1]
-    for PNG, linear radiance for HDR (≙ WriteImage, OutputSaver.cpp:227-257)."""
+    for the 8-bit formats, linear radiance for HDR (≙ WriteImage,
+    OutputSaver.cpp:227-257). JPG and TGA are Pillow's, as in `pt`."""
     fmt = check_format(fmt or pathlib.Path(path).suffix.lstrip("."))
     if fmt == "hdr":
         write_radiance_hdr(path, image)
         return
     u8 = (np.clip(image, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if fmt in ("jpg", "jpeg", "tga"):
+        from PIL import Image
+        img = Image.fromarray(u8)
+        if fmt == "tga":
+            img.save(path, format="TGA")
+        else:
+            img.save(path, quality=95)
+        return
     pathlib.Path(path).write_bytes(encode_png(u8))
 
 
+def ffmpeg_available() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
 def frame_path(info: OutputInfo, index: int) -> str:
-    """Where frame `index` of an output goes: the target path, or for a
-    sequence `<stem>_<index:05d><suffix>` beside it."""
+    """Where frame `index` of an image output goes: the target path, or for
+    a sequence `<stem>_<index:05d><suffix>` beside it."""
     if not info.sequence:
         return info.path
     base = pathlib.Path(info.path)
@@ -115,12 +134,13 @@ def frame_path(info: OutputInfo, index: int) -> str:
 
 
 class OutputSaver:
-    """Async frame sink with a writer thread (≙ OutputSaver), still images
-    only."""
+    """Async frame sink with a writer thread (≙ OutputSaver)."""
 
     def __init__(self):
         self._queue: "queue.Queue" = queue.Queue(maxsize=4)
         self._thread: Optional[threading.Thread] = None
+        self._ffmpeg: Optional[subprocess.Popen] = None
+        self._avi = None
         self._info: Optional[OutputInfo] = None
         self._frame_index = 0
         self._error: Optional[Exception] = None
@@ -130,13 +150,31 @@ class OutputSaver:
         return self._info is not None
 
     def register_output(self, info: OutputInfo) -> None:
-        """≙ RegisterOutput (OutputSaver.cpp:64-111)."""
+        """≙ RegisterOutput (OutputSaver.cpp:64-111): mp4 starts ffmpeg, or
+        without it the MJPEG AVI beside the target path."""
         if self.active:
             raise RuntimeError("output already registered")
         check_format(info.format)
         self._info = info
         self._frame_index = 0
         self._error = None
+        if info.format == "mp4":
+            if ffmpeg_available():
+                self._ffmpeg = subprocess.Popen(
+                    ["ffmpeg", "-y", "-f", "rawvideo", "-pix_fmt", "rgba",
+                     "-s", f"{info.width}x{info.height}",
+                     "-r", str(info.framerate), "-i", "-",
+                     "-vcodec", "libx264", "-preset", "veryslow",
+                     "-crf", "17", "-pix_fmt", "yuv420p", info.path],
+                    stdin=subprocess.PIPE,
+                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            else:
+                from pt_torch.out.avi import MjpegAviWriter
+                avi_path = str(pathlib.Path(info.path).with_suffix(".avi"))
+                self._avi = MjpegAviWriter(avi_path, info.width, info.height,
+                                           info.framerate)
+                Stats.add_stat("Output",
+                               "ffmpeg unavailable → native MJPEG AVI")
         self._thread = threading.Thread(target=self._writer, daemon=True)
         self._thread.start()
 
@@ -162,25 +200,44 @@ class OutputSaver:
         self._queue.put(None)
         if self._thread:
             self._thread.join()
+        if self._ffmpeg:
+            self._ffmpeg.stdin.close()
+            self._ffmpeg.wait()
+            self._ffmpeg = None
+        if self._avi:
+            self._avi.close()
+            self._avi = None
         self._info = None
         self._thread = None
         if self._error:
             raise self._error
 
     def cancel_output(self) -> None:
-        """≙ CancelOutput (OutputSaver.cpp:204-225): stop the writer and
-        delete the partial file."""
+        """≙ CancelOutput (OutputSaver.cpp:204-225): kill the encoder and
+        delete the partial file (the AVI too)."""
         if not self.active:
             return
         info = self._info
+        if self._ffmpeg:
+            self._ffmpeg.kill()   # unblocks a writer stuck in stdin.write
         self._queue.put(None)
         if self._thread:
             self._thread.join()
+        if self._ffmpeg:
+            self._ffmpeg.wait()
+            self._ffmpeg = None
+        avi_path = None
+        if self._avi:
+            avi_path = self._avi.path
+            self._avi.close()
+            self._avi = None
         self._info = None
         self._thread = None
         try:
-            if os.path.exists(info.path):
+            if info and os.path.exists(info.path):
                 os.remove(info.path)
+            if avi_path and os.path.exists(avi_path):
+                os.remove(avi_path)
         except OSError:
             pass
 
@@ -195,8 +252,11 @@ class OutputSaver:
                 frame = (item.detach().cpu().numpy()
                          if isinstance(item, torch.Tensor)
                          else np.asarray(item))      # off the caller
-                write_image(frame_path(info, self._frame_index), frame,
-                            info.format)
+                if info.format == "mp4":
+                    self._write_video_frame(info, frame)
+                else:
+                    write_image(frame_path(info, self._frame_index), frame,
+                                info.format)
                 self._frame_index += 1
             except Exception as exc:            # surfaced on next submit
                 self._error = exc
@@ -206,3 +266,18 @@ class OutputSaver:
                 while self._queue.get() is not None:
                     pass
                 return
+
+    def _write_video_frame(self, info: OutputInfo, frame: np.ndarray) -> None:
+        if frame.shape[:2] != (info.height, info.width):
+            # ffmpeg reads fixed-size rawvideo frames; a mismatched frame
+            # would silently shear the whole stream
+            raise ValueError(
+                f"frame {frame.shape[:2]} != registered "
+                f"{(info.height, info.width)}")
+        u8 = (np.clip(frame, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        if self._ffmpeg is not None:
+            rgba = np.concatenate(
+                [u8, np.full_like(u8[..., :1], 255)], axis=-1)
+            self._ffmpeg.stdin.write(rgba.tobytes())
+        else:
+            self._avi.write_frame(u8)

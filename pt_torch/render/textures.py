@@ -129,6 +129,38 @@ class TexturePoolBuilder:
         self._mip_counts.append(len(mips))
         return len(self._mip_counts) - 1
 
+    def add_mips(self, mips: List[np.ndarray], srgb: bool = False) -> int:
+        """Add a texture from a pre-built mip chain (≙ the pre-mipped BCn
+        upload path, Image::UploadWithMips / TextureUploader DDS ingest).
+        Each level (H, W, 4) float; levels beyond MAX_MIPS are dropped,
+        missing tail levels are box-generated down to 1x1."""
+        chain = []
+        for m in mips[:MAX_MIPS]:
+            m = np.asarray(m, np.float32)
+            if m.shape[-1] == 3:
+                m = np.concatenate([m, np.ones_like(m[..., :1])], -1)
+            if srgb:
+                m = np.concatenate([srgb_to_linear(m[..., :3]), m[..., 3:]],
+                                   -1)
+            self._note_range(m)
+            chain.append(m)
+        while (len(chain) < MAX_MIPS
+               and (chain[-1].shape[0] > 1 or chain[-1].shape[1] > 1)):
+            chain.append(_downsample2x(chain[-1]))
+        offsets = np.zeros(MAX_MIPS, np.int32)
+        sizes = np.zeros((MAX_MIPS, 2), np.int32)
+        for i, m in enumerate(chain):
+            offsets[i] = self._cursor
+            sizes[i] = (m.shape[1], m.shape[0])
+            self._push_level(m)
+        for i in range(len(chain), MAX_MIPS):
+            offsets[i] = offsets[len(chain) - 1]
+            sizes[i] = sizes[len(chain) - 1]
+        self._offsets.append(offsets)
+        self._sizes.append(sizes)
+        self._mip_counts.append(len(chain))
+        return len(self._mip_counts) - 1
+
     def build(self, dtype=None, device=None) -> DeviceTextures:
         """dtype None → bf16 rows, or f32 when any texture carried
         HDR-range texels. bf16 comes from `Tensor.to(torch.bfloat16)`,

@@ -62,12 +62,13 @@ class Application:
     """≙ Application::Init/Run/Shutdown and the offline entry point."""
 
     def __init__(self, config: Optional[Config] = None, device=None):
-        """`config`: the renderer's samples-per-frame limits (`pt`'s
-        defaults without one). `device`: the renderer's (None → `cuda:0`,
-        raising without a card; "cpu" runs the kernels' plain versions)."""
+        """`config`: the scene manager's Scenes and Assets directories and
+        the renderer's samples-per-frame limits (`pt`'s defaults without
+        one). `device`: the renderer's (None → `cuda:0`, raising without a
+        card; "cpu" runs the kernels' plain versions)."""
         self.config = config or Config()
         self.tasks = BackgroundTasks()
-        self.scene_manager = SceneManager()
+        self.scene_manager = SceneManager(self.config)
         self.scene_manager.on_scene_loaded(
             lambda _scene: self.tasks.advance("SceneImport"))
         self.renderer = Renderer(

@@ -9,14 +9,16 @@ Port of `pt.run.cli`, run as `python -m pt_torch.run.cli <command>`:
 
 with `pt`'s flags and defaults, and `--device` on `render`, `debug` and
 `stats` (default: the card, `cuda:0`; `--device cpu` runs the kernels'
-plain versions). `render --backend pallas` (the default) runs the port's
-kernels, `--backend brute` brute force; `debug` and `stats` trace by brute
-force, as in `pt`. What later items of the port's queue bring exits
-non-zero with a message that names the item:
+plain versions). `-A/-S` name the Assets and Scenes directories
+(`Config.create`); `--scene` takes "Group/Name" or a .gltf/.glb/.obj/.fbx
+file, registered as "CLI/file". `render --format` writes png, hdr, jpg or
+tga (jpg and tga need Pillow) or mp4 (through ffmpeg, or an MJPEG AVI,
+which needs Pillow, where there is no ffmpeg). `render --backend pallas`
+(the default) runs the port's kernels, `--backend brute` brute force;
+`debug` and `stats` trace by brute force, as in `pt`. What later items of
+the port's queue bring exits non-zero with a message that names the item:
 
   --backend bvh                                   queue 1, item 7
-  mp4, jpg and tga output                         queue 1, item 5
-  -A/-S, a .gltf/.glb/.obj/.fbx scene path        queue 1, item 6
   view                                            queue 1, item 8
 
 `view` is a bare command until then: whatever follows it is not parsed.
@@ -54,17 +56,17 @@ def build_parser() -> argparse.ArgumentParser:
                                 description="path tracer on PyTorch and "
                                 "CUDA")
     p.add_argument("-A", "--assets", default=None,
-                   help="assets directory (queue 1, item 6)")
+                   help="assets directory (the curated catalog's files)")
     p.add_argument("-S", "--scenes", default=None,
-                   help="scenes directory (queue 1, item 6)")
+                   help="scenes directory (glTF sample directories)")
     sub = p.add_subparsers(dest="command", required=True)
 
     sub.add_parser("list-scenes", help="list the scene catalog")
 
     r = sub.add_parser("render", help="offline render to image files")
     r.add_argument("--scene", default="Test Scenes/Default",
-                   help='"Group/Name" from list-scenes (scene files: queue '
-                        '1, item 6)')
+                   help='"Group/Name" from list-scenes, or a '
+                        '.gltf/.glb/.obj/.fbx path')
     r.add_argument("--out", default="render.png")
     r.add_argument("--size", type=_parse_size, default=(1280, 720),
                    metavar="WxH")
@@ -74,14 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-frame time budget in seconds")
     r.add_argument("--bounces", type=int, default=5)
     r.add_argument("--frames", type=int, default=1,
-                   help=">1 renders numbered animation frames")
+                   help=">1 renders an animation (mp4 or numbered frames)")
     r.add_argument("--camera", type=int, default=0,
                    help="scene camera index (≙ the Settings-tab camera "
                         "list)")
     r.add_argument("--framerate", type=float, default=30.0)
     r.add_argument("--format", default=None,
                    choices=[None, "png", "jpg", "tga", "hdr", "mp4"],
-                   help="png or hdr (jpg, tga, mp4: queue 1, item 5)")
+                   help="output format (default: the --out suffix)")
     r.add_argument("--exposure", type=float, default=1.0)
     r.add_argument("--bloom-threshold", type=float, default=1.0)
     r.add_argument("--bloom-intensity", type=float, default=0.1)
@@ -135,43 +137,63 @@ def _error(msg: str) -> int:
     return 2
 
 
-def _deferred_option(args, fmt: str, scene: str):
-    """The message for the first option of `args` (output format `fmt`,
-    scene `scene`) that a later item of the port's queue brings, or None."""
-    from pt_torch.out.saver import LATER_FORMATS
+def _deferred_option(args):
+    """The message for the option of `args` that a later item of the port's
+    queue brings, or None."""
     if getattr(args, "backend", None) == "bvh":
         return ("--backend bvh: pt's threaded LBVH comes with queue 1, item "
                 "7 of the port; use pallas (the port's kernels) or brute")
-    if fmt in LATER_FORMATS:
-        return (f"format {fmt}: video and the jpg/tga writers come with "
-                "queue 1, item 5 of the port; use png or hdr")
-    if scene.endswith(SCENE_FILES):
-        return (f"scene file {scene}: the glTF/OBJ/FBX importers come "
-                "with queue 1, item 6 of the port")
     return None
+
+
+def _config(args):
+    """(`Config.create` from `-A/-S`, None), or (None, exit code) after
+    printing why not."""
+    from pt_torch.core.config import Config
+    try:
+        return Config.create(
+            (["-A", args.assets] if args.assets else [])
+            + (["-S", args.scenes] if args.scenes else [])), None
+    except ValueError as exc:
+        return None, _error(str(exc))
 
 
 def _load_app(args, width: int, height: int, fmt: str = "png"):
     """(Application on `--device` with `--scene` active and a width x height
-    film, None), or (None, exit code) after printing why not."""
+    film, None), or (None, exit code) after printing why not. A scene file
+    is registered as "CLI/file" (exit 2 if it is missing)."""
     from pt_torch import default_device
     from pt_torch.out.saver import FORMATS
     from pt_torch.run.app import Application
-    scene = getattr(args, "scene", "Test Scenes/Default")   # stats: none
-    deferred = _deferred_option(args, fmt, scene)
+    from pt_torch.scene.manager import SceneDescription
+    deferred = _deferred_option(args)
     if deferred:
         return None, _error(deferred)
     if fmt not in FORMATS:
-        return None, _error(f"unsupported output format '{fmt}' (png or "
-                            "hdr)")
-    group, _, name = scene.partition("/")
-    if not name:
-        return None, _error('--scene must be "Group/Name"')
+        return None, _error(f"unsupported output format '{fmt}' (png, jpg, "
+                            "tga, hdr or mp4)")
+    scene = getattr(args, "scene", "Test Scenes/Default")   # stats: none
+    loader = None
+    if scene.endswith(SCENE_FILES):
+        loader = SceneDescription("cli", [scene]).to_loader()
+        if loader is None:
+            return None, _error(f"scene file not found: {scene}")
+        group, name = "CLI", "file"
+    else:
+        group, _, name = scene.partition("/")
+        if not name:
+            return None, _error('--scene must be "Group/Name" or a .gltf '
+                                'path')
+    cfg, rc = _config(args)
+    if cfg is None:
+        return None, rc
     try:
         device = default_device(args.device)
     except RuntimeError as exc:
         return None, _error(f"{exc} (on the command line: --device cpu)")
-    app = Application(device=device)
+    app = Application(cfg, device=device)
+    if loader is not None:
+        app.scene_manager.register(group, name, loader)
     app.init(group, name, width, height)
     return app, None
 
@@ -183,7 +205,10 @@ def _out_format(args) -> str:
 
 def cmd_list_scenes(args) -> int:
     from pt_torch.scene.manager import SceneManager
-    mgr = SceneManager()
+    cfg, rc = _config(args)
+    if cfg is None:
+        return rc
+    mgr = SceneManager(cfg)
     for group, scenes in mgr.groups.items():
         print(group)
         for name in scenes:
@@ -280,10 +305,6 @@ def cmd_stats(args) -> int:
 def main(argv=None) -> int:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
-    if args.assets is not None or args.scenes is not None:
-        return _error("-A/-S: the Assets and Scenes directories feed the "
-                      "scene-file loaders, which come with queue 1, item 6 "
-                      "of the port")
     if args.command in DEFERRED_COMMANDS:
         text, item = DEFERRED_COMMANDS[args.command]
         return _error(f"{args.command} ({text}) comes with queue 1, item "

@@ -112,7 +112,7 @@ class OfflineRenderer:
         progress(frame, total_frames, samples) is called per step."""
         r = self.renderer
         out = settings.output
-        if settings.frame_count > 1:
+        if settings.frame_count > 1 and out.format != "mp4":
             out = out._replace(sequence=True)   # numbered image frames
         self._cancelled = False
 

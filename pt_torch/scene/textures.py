@@ -2,17 +2,16 @@
 
 Port of `pt.scene.textures`: metadata without a pixel load
 (`get_texture_info`), the decoders for textures given as a file or as
-encoded bytes (`_decode_bytes`: PNG through `decode_png`, which needs no
-Pillow, and Radiance HDR through `read_radiance_hdr`), and
-`build_texture_pool` / `build_scene_textures` with the memory-budget policy
-(`_budget_max_dim`, `_downscale_to`). Slot order is `pt`'s: the defaults at
-0..8, then the scene's textures in registration order from
-SCENE_TEXTURE_OFFSET. A texture that cannot be decoded becomes a 1x1
-magenta placeholder, as in `pt`.
-
-DDS (block-compressed textures and their authored mip chains) belongs to
-the importers' slice of the port: no procedural scene produces one, and a
-DDS texture raises NotImplementedError here.
+encoded bytes (`_decode_bytes`: PNG through `decode_png` and Radiance HDR
+through `read_radiance_hdr`, both without Pillow; DDS through
+`pt_torch.scene.dds`; JPG, TGA, WEBP and the rest through Pillow, imported
+only there), a DDS file's authored mip chain (`load_texture_mips`), and
+`build_texture_pool` / `build_scene_textures`, which decode on a
+`ThreadDispatch` pool, with the memory-budget policy (`_budget_max_dim`,
+`_downscale_to`). Slot order is `pt`'s: the defaults at 0..8, then the
+scene's textures in registration order from SCENE_TEXTURE_OFFSET. A
+texture that cannot be decoded becomes a 1x1 magenta placeholder, as in
+`pt`.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from typing import List, Optional
 import numpy as np
 
 from pt_torch.core.config import Config
+from pt_torch.core.threads import ThreadDispatch
 from pt_torch.render.textures import (DeviceTextures, TexturePoolBuilder,
                                       _downsample2x, add_default_textures)
 from pt_torch.scene.types import TextureInfo
@@ -32,6 +32,12 @@ from pt_torch.scene.types import TextureInfo
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 # samples per pixel by PNG colour type: grey, RGB, palette, grey+alpha, RGBA
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# bit depths the standard allows for each colour type
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def read_radiance_hdr(data: bytes) -> np.ndarray:
@@ -127,14 +133,16 @@ def _png_chunks(data: bytes):
 
 
 def _png_header(ihdr: bytes):
-    """(width, height, colour type) of an IHDR body this decoder takes:
-    8 bits per sample, no interlace, colour types 0, 2, 3, 4 and 6."""
+    """(width, height, bit depth, colour type, interlace) of an IHDR body
+    this decoder takes: the bit depths the PNG standard allows for each of
+    colour types 0, 2, 3, 4 and 6, no interlace or Adam7."""
     w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB", ihdr)
-    if depth != 8 or ctype not in _PNG_CHANNELS or comp or filt or interlace:
+    if (ctype not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[ctype]
+            or comp or filt or interlace > 1 or not w or not h):
         raise ValueError(
             f"unsupported PNG (bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}): 8-bit non-interlaced only")
-    return w, h, ctype
+            f"interlace {interlace})")
+    return w, h, depth, ctype, interlace
 
 
 def _png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -177,14 +185,74 @@ def _png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _png_samples(rows: np.ndarray, w: int, depth: int,
+                 ch: int) -> np.ndarray:
+    """Unfiltered scanlines (h, stride) uint8 → (h, w, ch) samples: uint8
+    for depths up to 8 (sub-byte samples unpacked from the high bits
+    first), big-endian uint16 for depth 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    vals = (bits * weights).sum(axis=-1, dtype=np.uint8)
+    return vals[:, :w * ch].reshape(h, w, ch)
+
+
+def _png_image(raw: bytes, w: int, h: int, depth: int, ch: int,
+               interlace: int) -> np.ndarray:
+    """The decompressed IDAT stream → (h, w, ch) samples; an Adam7 image's
+    seven passes each unfiltered on their own and scattered into place."""
+    def sub_image(data, pw, ph):
+        stride = (pw * ch * depth + 7) // 8
+        rows = _png_unfilter(data, ph, stride, max(1, ch * depth // 8))
+        return _png_samples(rows, pw, depth, ch)
+
+    if not interlace:
+        return sub_image(raw, w, h)
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue               # an empty pass has no scanlines at all
+        size = ph * ((pw * ch * depth + 7) // 8 + 1)
+        out[y0::dy, x0::dx] = sub_image(raw[pos:pos + size], pw, ph)
+        pos += size
+    if pos != len(raw):
+        raise ValueError("PNG image data has the wrong length")
+    return out
+
+
+def _png_to_8bit(px: np.ndarray, depth: int, ctype: int) -> np.ndarray:
+    """Samples → the 8-bit values Pillow gives for them: grey of depth
+    1, 2 or 4 scaled to 0..255, 16-bit grey clamped to 255 (Pillow opens
+    it as mode I;16, whose RGBA conversion clamps), any other 16-bit
+    sample's high byte. Palette indices stay as they are."""
+    if ctype == 3:
+        return px
+    if depth == 16:
+        if ctype == 0:
+            return np.minimum(px, 255).astype(np.uint8)
+        return (px >> 8).astype(np.uint8)
+    if depth < 8:
+        return px * np.uint8(255 // ((1 << depth) - 1))
+    return px
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes → (H, W, 4) uint8 RGBA, with the standard library alone
-    (`zlib` and the five scanline filters). Grey expands to RGB, a palette
-    is looked up, a missing alpha is 255, and a tRNS chunk gives the alpha
-    of a palette entry or makes one grey level or RGB colour transparent:
-    what `PIL.Image.open(...).convert("RGBA")` gives. Takes 8-bit,
-    non-interlaced images of colour types 0, 2, 3, 4 and 6; anything else
-    raises ValueError."""
+    (`zlib` and the five scanline filters). Takes every colour type (0, 2,
+    3, 4, 6) at every bit depth the standard allows, interlaced (Adam7) or
+    not, and gives what `PIL.Image.open(...).convert("RGBA")` gives
+    (Pillow 12): grey expands to RGB, a palette is looked up, a missing
+    alpha is 255, and a tRNS chunk gives the alpha of a palette entry or
+    makes one grey level or RGB colour transparent. 16-bit samples keep
+    their high byte, except 16-bit grey, which clamps to 255; a tRNS key's
+    low byte is compared with the 8-bit value (for 1-bit grey, the key
+    times 255). Anything else raises ValueError."""
     header = palette = trns = None
     idat = []
     for tag, body in _png_chunks(data):
@@ -198,10 +266,10 @@ def decode_png(data: bytes) -> np.ndarray:
             idat.append(body)
     if header is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
-    w, h, ctype = header
+    w, h, depth, ctype, interlace = header
     ch = _PNG_CHANNELS[ctype]
-    px = _png_unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch) \
-        .reshape(h, w, ch)
+    px = _png_to_8bit(_png_image(zlib.decompress(b"".join(idat)), w, h,
+                                 depth, ch, interlace), depth, ctype)
     rgba = np.full((h, w, 4), 255, np.uint8)
     if ctype == 3:
         if palette is None:
@@ -217,14 +285,26 @@ def decode_png(data: bytes) -> np.ndarray:
         if ctype == 4:
             rgba[..., 3] = px[..., 1]
         elif trns is not None:
-            key = struct.unpack(">H", trns[:2])[0]
+            key = (struct.unpack(">H", trns[:2])[0]
+                   * (255 if depth == 1 else 1)) & 0xFF
             rgba[..., 3] = np.where(px[..., 0] == key, 0, 255)
     else:
         rgba[..., :ch] = px
         if ctype == 2 and trns is not None:
-            key = np.asarray(struct.unpack(">HHH", trns[:6]))
+            key = np.asarray(struct.unpack(">HHH", trns[:6])) & 0xFF
             rgba[..., 3] = np.where((px == key).all(axis=-1), 0, 255)
     return rgba
+
+
+def decode_image_u8(data: bytes) -> np.ndarray:
+    """Encoded 8-bit image bytes → (H, W, 4) uint8 RGBA: PNG through
+    `decode_png`; JPG, TGA, WEBP and the other formats Pillow reads
+    through Pillow, as `pt` decodes them (imported only for those)."""
+    if data[:8] == _PNG_MAGIC:
+        return decode_png(data)
+    from PIL import Image
+    with Image.open(io.BytesIO(data)) as img:
+        return np.asarray(img.convert("RGBA"))
 
 
 def _decode_bytes(data: bytes, name: str) -> np.ndarray:
@@ -233,14 +313,11 @@ def _decode_bytes(data: bytes, name: str) -> np.ndarray:
     if data[:2] == b"#?":
         rgb = read_radiance_hdr(data)
         return np.concatenate([rgb, np.ones_like(rgb[..., :1])], axis=-1)
-    if data[:4] == b"DDS ":
-        raise NotImplementedError(
-            f"texture '{name}' is a DDS file; the DDS decoder belongs to "
-            "the importers' slice of the port")
-    if data[:8] == _PNG_MAGIC:
-        return decode_png(data).astype(np.float32) / 255.0
-    raise ValueError(f"texture '{name}': unknown image format (PNG and "
-                     "Radiance HDR are decoded)")
+    from pt_torch.scene.dds import decode_dds, is_dds
+    if is_dds(data):
+        # native BC1/BC3/BC4/BC5 block decode (≙ TextureImporter.cpp:69-260)
+        return decode_dds(data, max_levels=1)[0]
+    return decode_image_u8(data).astype(np.float32) / 255.0
 
 
 def _read_head(info: TextureInfo, n: int) -> Optional[bytes]:
@@ -254,17 +331,35 @@ def _read_head(info: TextureInfo, n: int) -> Optional[bytes]:
 
 def get_texture_info(info: TextureInfo) -> TextureInfo:
     """Fill width/height metadata without decoding pixels
-    (≙ TextureImporter::GetTextureInfo): from `pixels`, or from a PNG's
-    IHDR chunk. Other sources keep what they carry."""
+    (≙ TextureImporter::GetTextureInfo): from `pixels`, a PNG's IHDR chunk,
+    a DDS header, or (other formats but Radiance HDR) Pillow. A source
+    that cannot be read keeps what it carries."""
     if info.pixels is not None:
         info.height, info.width = info.pixels.shape[:2]
         return info
     try:
-        head = _read_head(info, 33)
-        if head is not None and len(head) >= 24 \
-                and head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR":
-            info.width, info.height = struct.unpack(">II", head[16:24])
-    except OSError:
+        head = _read_head(info, 256)
+        if head is None or head[:2] == b"#?":
+            return info
+        if head[:8] == _PNG_MAGIC:
+            if len(head) >= 24 and head[12:16] == b"IHDR":
+                info.width, info.height = struct.unpack(">II", head[16:24])
+            return info
+        if head[:4] == b"DDS ":
+            # metadata without pixel load (≙ GetDDSTextureInfo,
+            # TextureImporter.cpp:69-130)
+            from pt_torch.scene.dds import parse_dds
+            dinfo = parse_dds(head + b"\0" * max(0, 148 - len(head)))
+            info.width, info.height = dinfo.width, dinfo.height
+            return info
+        from PIL import Image
+        if info.path is not None:
+            with Image.open(info.path) as im:
+                info.width, info.height = im.size
+        else:
+            with Image.open(io.BytesIO(info.data)) as im:
+                info.width, info.height = im.size
+    except Exception:
         pass
     return info
 
@@ -274,7 +369,7 @@ def load_texture_pixels(info: TextureInfo) -> Optional[np.ndarray]:
     holds the magenta placeholder, ≙ SceneImporter.cpp:89-98). In-memory
     `pixels`: gray and gray+alpha expand to RGB(A), RGB gains α = 1, and
     integer sources are normalised by their dtype (uint8 / 255,
-    uint16 / 65535). A DDS texture raises NotImplementedError."""
+    uint16 / 65535). A DDS file gives its top level."""
     try:
         if info.pixels is not None:
             raw = np.asarray(info.pixels)
@@ -300,8 +395,29 @@ def load_texture_pixels(info: TextureInfo) -> Optional[np.ndarray]:
         if data is None:
             return None
         return _decode_bytes(data, info.name)
-    except NotImplementedError:
-        raise
+    except Exception:
+        return None
+
+
+def load_texture_mips(info: TextureInfo) -> Optional[List[np.ndarray]]:
+    """For containers that carry a pre-built mip chain (DDS), decode the
+    whole chain so the pool keeps the authored mips instead of regenerating
+    (≙ the pre-mipped BCn upload, Image.cpp:226-256). None for all other
+    sources (the caller uses load_texture_pixels and generated mips)."""
+    try:
+        data = info.data
+        if data is None and info.path is not None:
+            if not str(info.path).lower().endswith(".dds"):
+                return None
+            with open(info.path, "rb") as f:
+                data = f.read()
+        if data is None or data[:4] != b"DDS ":
+            return None
+        from pt_torch.scene.dds import decode_dds, parse_dds
+        dinfo = parse_dds(data)
+        if dinfo.mip_count <= 1:
+            return None
+        return decode_dds(data, dinfo)
     except Exception:
         return None
 
@@ -337,25 +453,44 @@ def build_texture_pool(infos: List[TextureInfo],
                        paired: Optional[bool] = None, dtype=None,
                        quad: Optional[bool] = None,
                        device=None) -> DeviceTextures:
-    """Build the device pool from the scene's textures: defaults in slots
-    0..8, then `infos` in order. `paired`/`quad`/`dtype` override the pool's
-    row format as in `TexturePoolBuilder`; as there, `paired=True` alone
-    still gives quad rows (pass `quad=False` with it)."""
+    """Decode the scene's textures in parallel (`cfg.loader_thread_count`
+    threads) and build the device pool: defaults in slots 0..8, then
+    `infos` in order. A DDS file's authored mips are kept, dropping leading
+    levels to honour the size cap. `paired`/`quad`/`dtype` override the
+    pool's row format as in `TexturePoolBuilder`; as there, `paired=True`
+    alone still gives quad rows (pass `quad=False` with it)."""
     cfg = cfg or Config()
     infos = [get_texture_info(i) for i in infos]
     max_dim = _budget_max_dim(infos, cfg)
+    decoded: List[Optional[tuple]] = [None] * len(infos)
+
+    def work(i: int) -> None:
+        mips = load_texture_mips(infos[i])
+        if mips is not None:
+            while (len(mips) > 1
+                   and max(mips[0].shape[0], mips[0].shape[1]) > max_dim):
+                mips = mips[1:]
+            decoded[i] = ("mips", mips)
+        else:
+            px = load_texture_pixels(infos[i])
+            if px is not None:
+                decoded[i] = ("img", _downscale_to(px, max_dim))
+
+    if infos:
+        ThreadDispatch(cfg.loader_thread_count).dispatch_blocking(
+            len(infos), work)
     builder = TexturePoolBuilder(paired=paired, quad=quad)
     add_default_textures(builder)
-    for info in infos:
-        px = load_texture_pixels(info)
-        if px is None:
+    for info, item in zip(infos, decoded):
+        if item is None:
             # broken texture: a 1x1 magenta placeholder keeps the table
             # indices stable while flagging the asset visually
             builder.add(np.asarray([[[1.0, 0.0, 1.0, 1.0]]], np.float32),
                         srgb=False, generate_mips=False)
+        elif item[0] == "mips":
+            builder.add_mips(item[1], srgb=info.is_srgb)
         else:
-            builder.add(_downscale_to(px, max_dim), srgb=info.is_srgb,
-                        generate_mips=True)
+            builder.add(item[1], srgb=info.is_srgb, generate_mips=True)
     return builder.build(dtype=dtype, device=device)
 
 

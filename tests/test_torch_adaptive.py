@@ -21,7 +21,6 @@
 import os
 
 import numpy as np
-import pytest
 import torch
 
 from pt.render.integrator import PathTracingSettings as JSettings
@@ -32,6 +31,9 @@ from pt_torch.render.integrator import PathTracingSettings
 from pt_torch.run import renderer as TR
 from pt_torch.run.offline import OfflineRenderer, RenderSettings
 from pt_torch.scene.examples import make_default_scene
+
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 FILM_MSE = 1e-3
 

@@ -44,6 +44,7 @@ from pt_torch.scene.flatten import world_vertices as t_world_vertices
 
 from test_torch_accel import T, _fields, pallas_interpret  # noqa: F401
 from test_torch_scene import _bits, _torch_bits
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _ns(pkg):
@@ -219,19 +220,28 @@ def test_scene_texture_pool_bit_equal_to_pt(layout):
 
 
 def test_encoded_texture_raises_naming_the_decoder_slice(tmp_path):
-    """PNG and Radiance HDR are decoded now; a DDS texture, as bytes or as a
-    file, still raises, naming the importers' slice. A PNG cut short does
-    not raise: it becomes `pt`'s placeholder (None from the loader)."""
+    """The DDS decoder has come (queue 1, item 6): a DDS texture, as bytes
+    or as a file, decodes as in `pt`, and one whose header holds no format
+    becomes `pt`'s placeholder (None from the loader, a magenta texel in
+    the pool) instead of raising. A PNG cut short becomes the placeholder
+    too."""
+    from tests.test_dds import RED565, bc1_block, make_dds
     ns = _ns("pt_torch")
-    info = ns.TextureInfo("file.dds", ns.TextureType.COLOR,
-                          data=b"DDS " + bytes(124))
-    with pytest.raises(NotImplementedError, match="importers' slice"):
-        tstex.build_texture_pool([info], device="cpu")
+    bad = b"DDS " + bytes(124)
+    info = ns.TextureInfo("file.dds", ns.TextureType.COLOR, data=bad)
+    assert tstex.load_texture_pixels(info) is None
+    pool = tstex.build_texture_pool([info], quad=False, device="cpu")
+    np.testing.assert_array_equal(pool.data[-1].float().numpy(),
+                                  [1.0, 0.0, 1.0, 1.0])
     path = tmp_path / "x.dds"
-    path.write_bytes(b"DDS " + bytes(124))
-    with pytest.raises(NotImplementedError, match="DDS"):
-        tstex.load_texture_pixels(ns.TextureInfo("x", ns.TextureType.COLOR,
-                                                 path=str(path)))
+    path.write_bytes(make_dds(4, 4, b"DXT1",
+                              bc1_block(RED565, RED565, [0] * 16)))
+    px = tstex.load_texture_pixels(ns.TextureInfo("x", ns.TextureType.COLOR,
+                                                  path=str(path)))
+    want = jstex.load_texture_pixels(_ns("pt").TextureInfo(
+        "x", _ns("pt").TextureType.COLOR, path=str(path)))
+    np.testing.assert_array_equal(px, want)
+    np.testing.assert_array_equal(px[0, 0], [1.0, 0.0, 0.0, 1.0])
     cut = ns.TextureInfo("file.png", ns.TextureType.COLOR,
                          data=b"\x89PNG\r\n\x1a\n")
     assert tstex.load_texture_pixels(cut) is None

@@ -36,17 +36,8 @@ from pt_torch.scene.flatten import flatten_scene as t_flatten
 from pt_torch.scene.textures import build_scene_textures as t_textures
 
 from test_torch_animated import _ns
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each test's PyTorch ops on one thread: the suite runs several test
-    processes at once, and their intra-op thread pools would otherwise
-    contend for the same cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 W = 48
 FLAGS = [{}, {"force_opaque": True}, {"cull_backfaces": True},

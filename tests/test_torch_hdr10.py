@@ -28,16 +28,8 @@ from pt.post import pipeline as jpost
 from pt_torch.post import pipeline as tpost
 from pt_torch.scene.textures import decode_png
 
+from torch_threads import one_torch_thread  # noqa: F401
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each test's PyTorch ops on one thread: the suite runs several test
-    processes at once, and their intra-op thread pools would otherwise
-    contend for the same cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 RTOL = 1e-5
 RTOL_PQ = 2.5e-5      # the PQ power's amplification (module docstring)

@@ -26,6 +26,13 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "pt", "benches", "PIL"}
+# the functions that import Pillow, where `pt` does: JPG/TGA/WEBP decoding,
+# JPG/TGA writing and the MJPEG AVI's frames; and chip_smoke's video arm,
+# which decodes those frames where Pillow is installed
+PILLOW_ONLY_IN = {("textures.py", "decode_image_u8"),
+                  ("textures.py", "get_texture_info"),
+                  ("saver.py", "write_image"), ("avi.py", "write_frame"),
+                  ("chip_smoke.py", "phase_import")}
 
 
 def _port_sources():
@@ -37,7 +44,15 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_pt_imports(path):
+    """No import of JAX, `pt` or `benches` anywhere; Pillow only inside
+    the functions of PILLOW_ONLY_IN, so that importing any module of the
+    port never loads it."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    owner = {}
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for inner in ast.walk(fn):
+                owner.setdefault(inner, fn.name)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots = [a.name.split(".")[0] for a in node.names]
@@ -46,6 +61,8 @@ def test_no_jax_or_pt_imports(path):
         else:
             continue
         bad = FORBIDDEN.intersection(roots)
+        if bad == {"PIL"} and (path.name, owner.get(node)) in PILLOW_ONLY_IN:
+            continue
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
@@ -290,6 +307,85 @@ def test_debug_stats_and_hdr_run_without_jax_pt_or_pillow(tmp_path):
     from pt_torch.scene.textures import decode_png
     assert decode_png((tmp_path / "d.png").read_bytes()).shape == (12, 16, 4)
     assert decode_png((tmp_path / "h.png").read_bytes()).shape == (16, 16, 4)
+
+
+def test_importers_and_cli_import_without_jax_pt_or_pillow():
+    """The importers, `dds`, `gltf_export`, `avi`, the catalog, the saver
+    and the CLI import in a process where `jax`, `pt`, `benches` and
+    Pillow cannot be imported."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'pt', 'benches', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "for m in ('scene.gltf', 'scene.obj', 'scene.fbx', 'scene.dds',"
+        " 'scene.gltf_export', 'scene.catalog', 'scene.manager',"
+        " 'out.avi', 'out.saver', 'core.threads', 'core.config',"
+        " 'run.cli', 'run.app'):\n"
+        "    importlib.import_module('pt_torch.' + m)\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
+        " if v is not None}\n"
+        "assert not loaded & {'jax', 'pt', 'benches', 'PIL'}\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_export_import_and_render_without_pillow(tmp_path):
+    """A small Courtyard exported to .glb (its textures as the port's PNG),
+    imported, its DDS, PNG and HDR textures decoded, and the glb rendered
+    to PNG through the CLI, in a process where `jax`, `pt`, `benches` and
+    Pillow cannot be imported."""
+    glb, png = tmp_path / "c.glb", tmp_path / "c.png"
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.set_num_threads(1)   # beside the other test processes\n"
+        "for m in ('jax', 'pt', 'benches', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from pt_torch.out.saver import write_radiance_hdr\n"
+        "from pt_torch.scene.builder import SceneBuilder\n"
+        "from pt_torch.scene.gltf import import_gltf\n"
+        "from pt_torch.scene.gltf_export import export_glb\n"
+        "from pt_torch.scene.standin import make_courtyard_scene\n"
+        "from pt_torch.scene.textures import build_texture_pool\n"
+        "from pt_torch.scene.types import TextureInfo, TextureType\n"
+        f"export_glb(make_courtyard_scene(0.1, 0.05), {str(glb)!r})\n"
+        "b = SceneBuilder('c')\n"
+        f"import_gltf(b, {str(glb)!r})\n"
+        "scene = b.create_scene()\n"
+        "assert len(scene.textures) >= 40, len(scene.textures)\n"
+        f"write_radiance_hdr({str(tmp_path / 'e.hdr')!r},"
+        " np.ones((2, 2, 3), np.float32))\n"
+        "infos = scene.textures[:3] + [TextureInfo('d', TextureType.COLOR,"
+        f" path={str(ROOT / 'tests/data/adv_legacy_dxt1.dds')!r}),"
+        f" TextureInfo('e', TextureType.COLOR, path={str(tmp_path / 'e.hdr')!r})]\n"
+        "pool = build_texture_pool(infos, device='cpu')\n"
+        "assert pool.count == 9 + 5 and int(pool.sizes[9 + 3, 0, 0]) == 8\n"
+        "assert pool.sizes[9:, 0].prod(-1).min() > 1   # none a placeholder\n"
+        "sys.argv = ['pt_torch.run.cli', 'render', '--scene',"
+        f" {str(glb)!r}, '--size', '16x16', '--spp', '1', '--bounces', '2',"
+        f" '--device', 'cpu', '--out', {str(png)!r}]\n"
+        "try:\n"
+        "    runpy.run_module('pt_torch.run.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items()"
+        " if v is not None}\n"
+        "assert not loaded & {'jax', 'pt', 'benches', 'PIL'}\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "OK"
+    from pt_torch.scene.textures import decode_png
+    image = decode_png(png.read_bytes())
+    assert image.shape == (16, 16, 4) and image[..., :3].max() > 0
 
 
 def test_default_device_is_the_card():

@@ -45,6 +45,9 @@ from pt_torch.render import integrator as tint
 from pt_torch.run.renderer import Renderer
 from pt_torch.scene import flatten as tflat
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+
 CSRC = pathlib.Path(kernels.__file__).resolve().parent / "csrc"
 ARRAYS = ["c_lo", "c_hi", "c_ent", "l_lo", "l_hi", "leaf_page", "leaf_seg",
           "seg_inv", "pages", "root_lo", "root_hi", "seg_tri_base"]

@@ -29,6 +29,9 @@ from pt_torch.render.integrator import PathTracingSettings
 from pt_torch.run import renderer as TR
 from pt_torch.scene import examples as tex_
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+
 FILM_MSE = 1e-3
 
 

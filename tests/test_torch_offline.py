@@ -34,6 +34,7 @@ from pt_torch.run.offline import OfflineRenderer, RenderSettings
 from pt_torch.run.renderer import Renderer
 from pt_torch.scene.examples import make_default_scene
 from pt_torch.scene.textures import decode_png, read_radiance_hdr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _renderer(spp=1, bounces=2, scene=None):
@@ -291,10 +292,22 @@ def test_saver_hands_writer_errors_back(tmp_path):
 
 
 @pytest.mark.parametrize("fmt", ["jpg", "tga", "mp4"])
-def test_saver_formats_of_item_5_raise(tmp_path, fmt):
-    with pytest.raises(ValueError, match="queue 1, item 5"):
-        OutputSaver().register_output(
-            OutputInfo(str(tmp_path / f"x.{fmt}"), 8, 8, 30.0, fmt))
+def test_saver_formats_of_item_5_raise(tmp_path, fmt, monkeypatch):
+    """Item 5 is done: jpg, tga and mp4 (the MJPEG AVI where there is no
+    ffmpeg) are written on the saver's thread; a format the port does not
+    write still raises."""
+    from pt_torch.out import saver
+    monkeypatch.setattr(saver, "ffmpeg_available", lambda: False)
+    out = OutputSaver()
+    out.register_output(OutputInfo(str(tmp_path / f"x.{fmt}"), 8, 8, 30.0,
+                                   fmt))
+    out.submit_frame(np.full((8, 8, 3), 0.5, np.float32))
+    out.end_output()
+    written = "x.avi" if fmt == "mp4" else f"x.{fmt}"
+    assert [p.name for p in tmp_path.iterdir()] == [written]
+    with pytest.raises(ValueError, match="unsupported image format 'bmp'"):
+        out.register_output(OutputInfo(str(tmp_path / "x.bmp"), 8, 8, 30.0,
+                                       "bmp"))
 
 
 # ------------------------------------------------------- scene manager
@@ -338,7 +351,9 @@ def test_config_matches_pt():
     assert fields == {"texture_memory_budget": 2 << 30,
                       "max_texture_size": 4096,
                       "min_refresh_rate": 60.0,
-                      "max_samples_per_frame": 64}
+                      "max_samples_per_frame": 64,
+                      "assets_path": None, "scenes_path": None,
+                      "loader_thread_count": theirs["loader_thread_count"]}
     assert all(theirs[name] == default for name, default in fields.items())
 
 

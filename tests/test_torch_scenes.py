@@ -319,16 +319,28 @@ def test_png_decoder_refuses_what_it_does_not_take():
         ihdr = struct.pack(">IIBBBBB", 4, 4, depth, ctype, 0, 0, interlace)
         crc = struct.pack(">I", zlib.crc32(b"IHDR" + ihdr) & 0xFFFFFFFF)
         return good[:16] + ihdr + crc + good[33:]
-    for bad in (with_header(16, 2, 0), with_header(8, 2, 1),
-                with_header(4, 3, 0), with_header(8, 5, 0)):
+    # what the standard does not allow: colour type 5, a 16-bit palette,
+    # 2-bit RGB, interlace method 2
+    for bad in (with_header(8, 5, 0), with_header(16, 3, 0),
+                with_header(2, 2, 0), with_header(8, 2, 2)):
         with pytest.raises(ValueError, match="unsupported PNG"):
             tstex.decode_png(bad)
+    # 16-bit RGB, Adam7 and 4-bit palettes are taken now (queue 1, item 6):
+    # under this 8-bit RGB image data they fail on its length instead
+    for other in (with_header(16, 2, 0), with_header(8, 2, 1),
+                  with_header(4, 3, 0)):
+        with pytest.raises(ValueError, match="wrong length|PLTE"):
+            tstex.decode_png(other)
     with pytest.raises(ValueError, match="CRC"):
         tstex.decode_png(good[:40] + bytes([good[40] ^ 1]) + good[41:])
     with pytest.raises(ValueError, match="not a PNG"):
         tstex.decode_png(b"GIF89a" + good)
-    with pytest.raises(ValueError, match="unknown image format"):
+    # other formats go to Pillow, as in pt: a broken one raises there and
+    # the loader gives the placeholder
+    with pytest.raises(OSError):
         tstex._decode_bytes(b"\xff\xd8\xff\xe0 a jpeg", "photo.jpg")
+    assert tstex.load_texture_pixels(TextureInfo(
+        "photo.jpg", TextureType.COLOR, data=b"\xff\xd8\xff\xe0")) is None
     # an undecodable texture becomes the magenta placeholder, as in pt
     info = TextureInfo("broken.png", TextureType.COLOR, data=good[:20])
     assert tstex.load_texture_pixels(info) is None

@@ -21,7 +21,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 from pt.core.stats import MaxTimer as JMaxTimer
 from pt.core.stats import Stats as JStats
@@ -30,16 +29,7 @@ from pt.run.adaptive import AdaptiveSampleController as JController
 from pt_torch.core.stats import MaxTimer, Stats, Timer
 from pt_torch.run.adaptive import AdaptiveSampleController
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each test's PyTorch ops on one thread: the suite runs several test
-    processes at once, and their intra-op thread pools would otherwise
-    contend for the same cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
