@@ -222,7 +222,31 @@ Phases, each fatal on failure (nothing is caught and passed over):
     launch against its per-ray arm (per-ray, warp, warp, per-ray) beside
     the warp and the per-ray K1 on the bounce-0 and bounce-2 wavefronts,
     with its plain walk and its bound (K1's plus 4 bytes a lane). The phase
-    logs its own seconds.
+    logs its own seconds;
+12. the LBVH backend (`[bvh]` lines), `pt`'s threaded LBVH walked in
+    tensor code, no kernel: ids exact against brute force on 65,536 random
+    rays over 4,096 random triangles (the any-hit query too; conditions
+    tested every step and every 8 bit-equal); `render --backend bvh` on
+    the Default at 512², 4 spp through the CLI; one 1-spp, 1-bounce step
+    on the Heightfield n=224 at 512² (build ms, ms, lockstep steps and host
+    syncs a trace, µs a step); one 4-spp, 5-bounce step at 512² on the
+    Heightfield cut to BVH_N (ms a step, its film against the kernels'
+    film, MSE < 1e-3) and at 64² card against CPU (MSE < 1e-3). Every
+    tree tensor on the card; no kernel launch, plain version or brute
+    force;
+13. the lane-order knobs (`[knobs]` lines), off and on in turns at 512²,
+    4 spp, 5 bounces: `sort_rays` on the Animated Heightfield (17 K3 + 17
+    K4 a step either way), `shade_sorted` on the Heightfield (17 K1 + 17
+    K2); films bit-equal, ms a step of each arm;
+14. the viewer (`[view]` lines), last, since it re-imports the shading
+    modules in this process: `run_viewer` on a loopback port in a thread
+    over an `Application` on the card, the Heightfield at 512²; over HTTP
+    /frame and /state (the JPEG within a mean 8 of 255 of the snapshot it
+    was published from), W held through /input (the camera moves, the
+    film restarts), /settings, /scene to the Animated Heightfield (only
+    K3/K4 from then on), the H key (`reload_shaders`), the render trigger
+    (a PNG); frames a second, JPEG ms and the launches a frame; no plain
+    call.
 
 Phase 3 also holds K5 (closest_bf8i, with raw_ids) and K6 (occluded_bf8i,
 with opaque_only), the warp kernels, against their plain versions over the
@@ -238,7 +262,9 @@ from phase 10c `launches_hdr` (K1/K2: a 4-spp HDR10 step) and
 `launches_debug` (K3: a debug frame, and `launches_debug_alpha` in the
 alpha loop; K4: a COLOR frame with shadows), from phase 10d
 `launches_import` (K1/K2, or K5/K6: the imported Courtyard's CLI render;
-K3/K4: a 4-spp step of the animated import), then one row per archive
+K3/K4: a 4-spp step of the animated import), from phase 14
+`launches_view` (K1/K2: a viewer frame of the Heightfield; K3/K4: one of
+the Animated Heightfield), then one row per archive
 entry point, with the kernel it
 runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
 time on the same rays; A3-A6 their A/B at both bounces; A1, A7 and
@@ -253,6 +279,7 @@ without a CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import io
 import json
 import pathlib
 import subprocess
@@ -313,6 +340,13 @@ N_COURT = 4096      # parity rays per set over the Courtyard's trees
 # where the textures do not matter, takes a twentieth.
 COURT_TEX_SCALE = 0.5
 COURT_TEX_SCALE_PARITY = 0.05
+# the Heightfield's grid size in [bvh]'s 4-spp Renderer cell and its card
+# against CPU film: cut from 224, where one 4-spp step of the threaded walk
+# took 67.6 s; a 1-spp, 1-bounce step keeps n=224 (BVH_FULL_N)
+BVH_N = 64
+BVH_FULL_N = 224
+BVH_RAYS = 65536    # random rays of [bvh]'s gate against brute force
+VIEW_N = 224        # the Heightfield of [view], static and animated
 
 REPLACES = {
     "closest_bf8": "pt/accel/pallas_bvh.py:1427 packet_closest_bf8",
@@ -433,6 +467,14 @@ def build_animated_scene(ns, n: int = 224, n_cards: int = 0,
     the package's scene classes (see `port_namespace`)."""
     b = ns.SceneBuilder("Animated Heightfield" if animate
                         else "Static Heightfield")
+    fill_animated_scene(b, ns, n, n_cards, animate, seed)
+    return b.create_scene()
+
+
+def fill_animated_scene(b, ns, n: int = 224, n_cards: int = 0,
+                        animate: bool = True, seed: int = 7) -> None:
+    """`build_animated_scene`'s content, added to the builder `b` (what a
+    scene manager's loader does with the builder it is handed)."""
     ns.create_heightfield_scene(b, n)
     node = len(b.node_parents) - 1
     if n_cards:
@@ -480,7 +522,6 @@ def build_animated_scene(ns, n: int = 224, n_cards: int = 0,
             scales=ns.KeySequence(ticks=np.asarray([0.0]),
                                   values=np.asarray([[1.0, 1.0, 1.0]])))],
             ticks_per_second=24.0, duration=48.0))
-    return b.create_scene()
 
 
 def _wavy_grid(n: int):
@@ -688,13 +729,14 @@ def _log_build_of(tag, lib, walk):
 
 
 def _renderer(scene, width: int, spp: int, bounces: int, device: str,
-              instancing: str = "auto"):
+              instancing: str = "auto", backend: str = "pallas"):
     """A Renderer on `device` for `scene` (an int n: the static Heightfield
     of that grid size)."""
     from pt_torch.render.integrator import PathTracingSettings
     from pt_torch.run.renderer import Renderer
     from pt_torch.scene.examples import make_heightfield_scene
-    r = Renderer(PathTracingSettings(sample_count=spp, bounce_count=bounces),
+    r = Renderer(PathTracingSettings(sample_count=spp, bounce_count=bounces,
+                                     backend=backend),
                  device=device, instancing=instancing)
     r.set_scene(make_heightfield_scene(scene) if isinstance(scene, int)
                 else scene, stream_textures=False)
@@ -2021,6 +2063,70 @@ def phase_alpha():
         f"{sp.bvh_alpha.n_leaves} leaves), {ms:.1f} ms per step, launches "
         f"{counts}; bounce 0: {decals} decals, {accepted} accepted alpha "
         f"hits; film mean {float(film.mean()):.5f}")
+    _failed_subset_trees()
+
+
+def _failed_subset_trees():
+    """A static alpha scene whose two subset SBVH builds are made to fail
+    (each subset under `pt`'s 4096-triangle cap): the split stays, each
+    subset gets its Morton tree built on the card, and the step runs K3/K4
+    only, with no brute-force call. Its film against the same scene's
+    film over the BF8 subset trees (the same hits)."""
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.run import renderer as trend
+    scene = build_animated_scene(port_namespace(), 32, 600, animate=False)
+    films = {}
+    real = trend.build_packet_bvh_sah
+    saved = trend.Renderer._accel_cache
+    for arm in ("bf8", "failed"):
+        trend.Renderer._accel_cache = None
+        r = _renderer(scene, 256, 1, 3, "cuda")
+        opq = r.ds.tri_opaque.cpu().numpy()
+        sizes = {int(opq.sum()), int((~opq).sum())}
+        check(max(sizes) <= trend._FAILED_SUBSET_MAX
+              and len(opq) not in sizes,
+              f"failed subsets: subset sizes {sizes} of {len(opq)}")
+        if arm == "failed":
+            trend.build_packet_bvh_sah = (
+                lambda wpos, rows, *a, **k: None if len(rows) in sizes
+                else real(wpos, rows, *a, **k))
+        try:
+            r.render()                                # builds the trees
+        finally:
+            trend.build_packet_bvh_sah = real
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with _BruteCalls() as brute:
+            t1 = time.perf_counter()
+            r.render()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        sp = r.accel.alpha_split
+        names = (None if sp is None else
+                 (type(sp.bvh_opaque).__name__, type(sp.bvh_alpha).__name__))
+        want_tree, closest, occluded = (
+            ("BF8BVH", "closest_bf8", "occluded_bf8") if arm == "bf8" else
+            ("PacketBVH", "closest_v4", "occluded_v4"))
+        # per bounce 1 opaque + 4 alpha closest traces, then 1 opaque
+        # occlusion + 4 alpha closest traces, all on the subset trees
+        check(names == (want_tree, want_tree)
+              and counts == {closest: 3 * 9, occluded: 3}
+              and brute.calls == 0,
+              f"failed subsets, {arm} arm: trees {names}, launches "
+              f"{counts}, {brute.calls} brute calls")
+        films[arm] = r.film_mean()
+        log(f"[alpha] failed subsets, {arm} arm: {len(opq)} triangles "
+            f"(subsets {sorted(sizes)}), subset trees {names}, 256x256, 3 "
+            f"bounces, 1 spp: {ms:.1f} ms per step, launches {counts}, "
+            f"{brute.calls} brute calls")
+    trend.Renderer._accel_cache = saved
+    mse = float(np.mean((films["failed"] - films["bf8"]) ** 2))
+    check(bool(np.isfinite(films["failed"]).all()) and mse < 1e-3,
+          f"failed subsets: film MSE {mse:.3e} against the BF8 split")
+    log(f"[alpha] failed subsets: film MSE {mse:.3e} against the BF8 "
+        f"subset trees' film (bound 1e-3)")
 
 
 def _counted_steps(r, names, steps: int = 3):
@@ -3966,6 +4072,476 @@ def phase_budget():
     return rows
 
 
+def _walk_timed(fn):
+    """CUDA-event ms of one threaded walk `fn()` (no warm run: nothing to
+    compile), with the walk's counters set to 0 just before and read just
+    after: (ms, result, counters)."""
+    import torch
+    from pt_torch.accel import traverse
+    torch.cuda.synchronize()
+    traverse.reset_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out, dict(traverse.stats)
+
+
+def _no_launches(what):
+    from pt_torch.accel import kernels
+    got = {k: v for k, v in kernels.launches.items() if v}
+    check(not got, f"{what}: kernels launched {got}")
+
+
+def phase_bvh():
+    """Phase 12 (`[bvh]` lines): `backend="bvh"`, `pt`'s threaded LBVH
+    walked in tensor code, on the card. (a) exact ids against brute force
+    on BVH_RAYS random rays over 4,096 independent random triangles, the
+    any-hit query likewise, and the loop conditions tested every step or
+    every 8 bit-equal; (b) `render --backend bvh` on the Default at 512²,
+    4 spp, 5 bounces through the CLI; (c) `Renderer` on the Heightfield:
+    at full size (BVH_FULL_N) one 512², 1-spp, 1-bounce step (a closest
+    and an any-hit trace) under CUDA events, and at the cut size (BVH_N)
+    one 512², 4-spp, 5-bounce step, its film against the kernels' film of
+    the same RNG on the card (MSE < 1e-3); (d) the Heightfield (BVH_N) at
+    64², 1 spp, 3 bounces, card against CPU (MSE < 1e-3). Every tree
+    tensor on the card, no kernel launch and no plain version or brute
+    force anywhere on the bvh paths. Logs build ms, ms a trace, lockstep
+    steps and host syncs a trace, ms a lockstep step and ms a render
+    step. Returns the phase's numbers."""
+    import torch
+    from pt_torch.accel import kernels, lbvh, traverse
+    from pt_torch.accel.intersect import intersect_brute
+    from pt_torch.render.integrator import TMIN, ThreadedTriangles
+    from pt_torch.scene.textures import decode_png
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    res = {}
+    # (a) the walk against brute force
+    rng = np.random.default_rng(16)
+    centers = rng.uniform(-10, 10, (4096, 3))
+    verts = (centers[:, None, :] + rng.normal(0, 0.4, (4096, 3, 3)))
+    V = torch.as_tensor(verts.reshape(-1, 3).astype(np.float32),
+                        device="cuda")
+    T = torch.arange(3 * 4096, dtype=torch.int32, device="cuda").view(-1, 3)
+    o = rng.uniform(-12, 12, (BVH_RAYS, 3)).astype(np.float32)
+    d = rng.normal(size=(BVH_RAYS, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    O = torch.as_tensor(o, device="cuda")
+    D = torch.as_tensor(d, device="cuda")
+    kernels.reset_launch_counts()
+    tree = lbvh.build_bvh(V, T, 4)
+    for name in ("aabb_lo", "aabb_hi", "miss_next", "leaf_id", "leaf_tris"):
+        check(getattr(tree, name).device.type == "cuda",
+              f"[bvh] ThreadedBVH.{name} is not on the card")
+    ms8, hit8, st8 = _walk_timed(lambda: traverse.bvh_closest(
+        tree, V, T, O, D, TMIN))
+    ms1, hit1, st1 = _walk_timed(lambda: traverse.bvh_closest(
+        tree, V, T, O, D, TMIN, check_every=1))
+    ref = intersect_brute(V, T, O, D, TMIN)
+    check(torch.equal(hit8.tri, ref.tri),
+          f"[bvh] ids against brute force: "
+          f"{int((hit8.tri != ref.tri).sum())} of {BVH_RAYS} differ")
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(hit8, hit1)),
+          "[bvh] conditions every step and every 8 steps differ")
+    occ = traverse.bvh_occluded(tree, V, T, O, D, 6.0, TMIN)
+    check(torch.equal(occ, intersect_brute(V, T, O, D, TMIN, 6.0).is_hit),
+          "[bvh] any-hit against brute force differs")
+    _no_launches("[bvh] the walk")
+    log(f"[bvh] {BVH_RAYS} random rays, 4096 triangles: ids equal to brute "
+        f"force ({int((hit8.tri >= 0).sum())} hits), any-hit equal "
+        f"({int(occ.sum())} blocked); checks every 8 steps {ms8:.2f} ms "
+        f"({st8['steps']} steps, {st8['rounds']} leaf rounds, "
+        f"{st8['syncs']} syncs) against every step {ms1:.2f} ms "
+        f"({st1['syncs']} syncs), bit-equal; no kernel launched")
+    res["random_ms"] = {"every_8": round(ms8, 3), "every_1": round(ms1, 3)}
+
+    # (b) the CLI on the Default
+    out = OUT_DIR / "default_bvh_512.png"
+    with _PlainCalls() as plain, _BruteCalls() as brute:
+        rc, _, wall, launches = _cli(
+            ["render", "--backend", "bvh", "--scene", "Test Scenes/Default",
+             "--size", "512x512", "--spp", "4", "--bounces", "5", "--out",
+             str(out)])
+    img = decode_png(out.read_bytes())
+    check(rc == 0 and img.shape == (512, 512, 4) and img[..., :3].max() > 0,
+          f"[bvh] render --backend bvh: rc {rc}, image {img.shape}")
+    check(not launches and not any(plain.calls.values()) and not brute.calls,
+          f"[bvh] render --backend bvh: launches {launches}, plain "
+          f"{plain.calls}, brute {brute.calls}")
+    log(f"[bvh] python -m pt_torch.run.cli render --backend bvh (Default, "
+        f"512², 4 spp, 5 bounces): exit 0, {wall:.2f} s wall, no kernel "
+        f"launched, no plain or brute call, {out.name} decoded")
+    res["cli_default_512_s"] = round(wall, 3)
+
+    # (c) the walk at full size: one 1-spp, 1-bounce step on the
+    # Heightfield n=224 (a closest and an any-hit trace of 262,144 lanes)
+    rf = _renderer(BVH_FULL_N, 512, 1, 1, "cuda", backend="bvh")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rf._ensure_accel()
+    end.record()
+    torch.cuda.synchronize()
+    build_ms = start.elapsed_time(end)
+    full = rf.accel.bvh.bvh
+    check(all(getattr(full, f).device.type == "cuda" for f in
+              ("aabb_lo", "aabb_hi", "miss_next", "leaf_id", "leaf_tris")),
+          "[bvh] the Heightfield's tree is not on the card")
+    kernels.reset_launch_counts()
+    with _LaneLog() as lanes:
+        ms_full, _, st = _walk_timed(rf.render)
+    _no_launches(f"[bvh] Heightfield n={BVH_FULL_N}")
+    check(lanes.closest == [262144] and len(lanes.occluded) == 1,
+          f"[bvh] n={BVH_FULL_N} step: lanes {lanes.closest}, "
+          f"{lanes.occluded}")
+    log(f"[bvh] Heightfield n={BVH_FULL_N} ({int(rf.ds.tri_idx.shape[0])} "
+        f"triangles, {full.leaf_count} leaves of {full.leaf_size}, "
+        f"{full.n_nodes} nodes) at 512², 1 spp, 1 bounce: build "
+        f"{build_ms:.2f} ms, one step {ms_full:.1f} ms (CUDA events: a "
+        f"closest trace of 262,144 lanes and its any-hit trace), "
+        f"{st['steps']} lockstep steps, {st['rounds']} leaf rounds, "
+        f"{st['syncs']} host syncs: {ms_full / 2:.1f} ms, "
+        f"{st['steps'] / 2:.0f} steps and {st['syncs'] / 2:.0f} syncs a "
+        f"trace, {ms_full / max(st['steps'], 1) * 1e3:.1f} us a lockstep "
+        f"step; no kernel launched")
+    res.update(full_build_ms=round(build_ms, 3), full_step_ms=round(ms_full, 1),
+               full_steps=st["steps"], full_syncs=st["syncs"])
+    del rf
+    # (c) Renderer on the Heightfield at the cut size, 4 spp, 5 bounces
+    r = _renderer(BVH_N, 512, 4, 5, "cuda", backend="bvh")
+    r._ensure_accel()
+    check(isinstance(r.accel.bvh, ThreadedTriangles),
+          f"[bvh] accel is {type(r.accel.bvh).__name__}")
+    bvh = r.accel.bvh.bvh
+    kernels.reset_launch_counts()
+    traverse.reset_stats()
+    with _PlainCalls() as plain, _BruteCalls() as brute, _LaneLog() as lanes:
+        t1 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t1)
+    st = dict(traverse.stats)
+    _no_launches("[bvh] Renderer")
+    check(not any(plain.calls.values()) and not brute.calls,
+          f"[bvh] Renderer: plain {plain.calls}, brute {brute.calls}")
+    film = r.film_mean()
+    check(np.isfinite(film).all() and film.max() > 0, "[bvh] film")
+    rp = _renderer(BVH_N, 512, 4, 5, "cuda")
+    rp.render()
+    mse = float(np.mean((film - rp.film_mean()) ** 2))
+    check(mse < 1e-3, f"[bvh] film against the kernels' film: MSE {mse}")
+    traces = st["traces"]
+    log(f"[bvh] Heightfield n={BVH_N} ({int(r.ds.tri_idx.shape[0])} "
+        f"triangles, {bvh.leaf_count} leaves of {bvh.leaf_size}, "
+        f"{bvh.n_nodes} nodes) at 512², 4 spp, 5 bounces: one step "
+        f"{step_ms:.1f} ms (host clock, synchronized), {traces} traces "
+        f"({len(lanes.closest)} closest, {len(lanes.occluded)} any-hit; "
+        f"lanes {lanes.closest[:2]}...), {st['steps']} lockstep steps, "
+        f"{st['rounds']} leaf rounds, {st['syncs']} host syncs: "
+        f"{step_ms / traces:.1f} ms, {st['steps'] / traces:.0f} steps and "
+        f"{st['syncs'] / traces:.0f} syncs a trace, "
+        f"{step_ms / max(st['steps'], 1) * 1e3:.1f} us a lockstep step; "
+        f"film against the kernels' film (17 K1 + 17 K2) MSE {mse:.3e}; no "
+        f"kernel, plain or brute call")
+    res.update(step_ms=round(step_ms, 1), traces=traces, steps=st["steps"],
+               syncs=st["syncs"], rounds=st["rounds"],
+               film_mse_vs_kernels=mse)
+    del rp, r
+    # (d) card against CPU
+    films = {}
+    for dev in ("cuda", "cpu"):
+        rc_ = _renderer(BVH_N, 64, 1, 3, dev, backend="bvh")
+        rc_.render()
+        films[dev] = rc_.film_mean()
+    mse = float(np.mean((films["cuda"] - films["cpu"]) ** 2))
+    check(mse < 1e-3, f"[bvh] card against CPU: MSE {mse}")
+    log(f"[bvh] Heightfield n={BVH_N} at 64², 1 spp, 3 bounces, card "
+        f"against CPU: MSE {mse:.3e}")
+    res["card_vs_cpu_mse"] = mse
+    log(f"[bvh] phase 12 in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def _knob_arms(r, field, expect):
+    """`field` off and on in turns (off, on, on, off) on renderer `r`, one
+    step each from a reset film (the same RNG): each step's film bit-equal
+    to the first, its launches `expect`, no plain call. Returns ms per
+    step of each arm."""
+    import dataclasses
+    import torch
+    from pt_torch.accel import kernels
+    base, times = r.settings, {False: [], True: []}
+    first = None
+    for on in (False, True, True, False):
+        r.set_settings(dataclasses.replace(base, **{field: on}))
+        r.reset_accumulation()
+        kernels.reset_launch_counts()
+        with _PlainCalls() as plain:
+            t1 = time.perf_counter()
+            r.render()
+            torch.cuda.synchronize()
+            times[on].append(1e3 * (time.perf_counter() - t1))
+        got = {k: v for k, v in kernels.launches.items() if v}
+        check(got == expect and not any(plain.calls.values()),
+              f"[knobs] {field}={on}: launches {got}, plain {plain.calls}")
+        if first is None:
+            first = r.accum.clone()
+        check(torch.equal(r.accum.view(torch.int32),
+                          first.view(torch.int32)),
+              f"[knobs] {field}={on}: film differs from {field}=False")
+    r.set_settings(base)
+    return times
+
+
+def phase_knobs():
+    """Phase 13 (`[knobs]` lines): `pt`'s two lane-order knobs on the card,
+    each off and on in turns at 512², 4 spp, 5 bounces: `sort_rays` on the
+    Animated Heightfield (the Morton tree: 17 K3 + 17 K4 a step either
+    way) and `shade_sorted` on the static Heightfield (17 K1 + 17 K2);
+    films bit-equal, no plain call. Returns ms per step of each arm."""
+    t0 = time.perf_counter()
+    r = _renderer(build_animated_scene(port_namespace()), 512, 4, 5, "cuda")
+    _step_frame(r)
+    r.render()                                   # warm, and the rebuild
+    sort = _knob_arms(r, "sort_rays", {"closest_v4": 17, "occluded_v4": 17})
+    del r
+    r = _renderer(224, 512, 4, 5, "cuda")
+    r.render()
+    shade = _knob_arms(r, "shade_sorted",
+                       {"closest_bf8": 17, "occluded_bf8": 17})
+    out = {}
+    for field, times in (("sort_rays", sort), ("shade_sorted", shade)):
+        log(f"[knobs] {field} off/on in turns (off, on, on, off), 512², 4 "
+            f"spp, 5 bounces: films bit-equal, launches unchanged; ms a "
+            f"step off {[round(t, 1) for t in times[False]]}, on "
+            f"{[round(t, 1) for t in times[True]]} (host clock, "
+            f"synchronized)")
+        out[field] = {"off_ms": [round(t, 1) for t in times[False]],
+                      "on_ms": [round(t, 1) for t in times[True]]}
+    log(f"[knobs] phase 13 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _http(base, path, body=None):
+    """GET (body None) or POST `body` as JSON to the viewer: the reply's
+    bytes."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=30) as reply:
+        return reply.read()
+
+
+def _wait(cond, what, timeout=120.0):
+    t_end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < t_end, f"[view] timed out waiting for "
+              f"{what}")
+        time.sleep(0.05)
+
+
+def phase_view():
+    """Phase 14 (`[view]` lines): `run_viewer` on a loopback port, in a
+    thread, over an `Application` on the card with the Heightfield
+    (VIEW_N) at 512², 5 bounces, the kernel backend, and the config's
+    samples-per-frame cap at 1, so that every frame renders 1 sample and
+    launches the same kernels as every other frame of its scene.
+    Through HTTP: GET /frame and /state (the JPEG decoded within a mean
+    absolute error of 8 of 255 of the `snapshot()` it was published
+    from); POST /input with W held (the camera moves, the film restarts);
+    POST /settings (bounce_count 3, exposure 2.0, taken); POST /scene to
+    the Animated Heightfield (registered as "Chip Smoke/Animated
+    Heightfield": only K3/K4 launch from then on); the H key
+    (`reload_shaders`: eleven modules re-imported, frames still come); the
+    render trigger (a PNG in `render_dir`). No plain version runs. Logs
+    frames a second, JPEG ms and the launches a frame, which must be one
+    count on every counted frame of a scene. This phase comes
+    last: it re-imports the port's shading modules in this process.
+    Returns the launches a frame and the loop's numbers."""
+    import threading
+    from PIL import Image
+    from pt_torch.accel import kernels
+    from pt_torch.core.config import Config
+    from pt_torch.core.input import Input
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run import viewer
+    from pt_torch.run.app import Application
+    from pt_torch.scene.manager import CustomSceneLoader
+    from pt_torch.scene.textures import decode_png
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    shot = OUT_DIR / "view_render.png"
+    shot.unlink(missing_ok=True)
+    app = Application(Config(max_samples_per_frame=1))
+    check(app.renderer.device.type == "cuda", "[view] not on the card")
+    app.scene_manager.register(
+        "Chip Smoke", "Animated Heightfield", CustomSceneLoader(
+            lambda b: fill_animated_scene(b, port_namespace(), VIEW_N)))
+    app.renderer.set_settings(PathTracingSettings(sample_count=1,
+                                                  bounce_count=5))
+    app.init("Test Scenes", "Heightfield", 512, 512)
+    app.renderer.wait_for_textures()
+    frames, lock, holder = [], threading.Lock(), {}
+
+    class Recorded(viewer.ViewerServer):
+        def start(self):
+            super().start()
+            holder["server"] = self
+
+        def publish(self, img, state=None):
+            t1 = time.perf_counter()
+            super().publish(img, state)
+            with lock:
+                frames.append(dict(
+                    t=t1, ms=1e3 * (time.perf_counter() - t1),
+                    jpeg=self._jpeg, img=np.array(img, copy=True),
+                    launches=dict(kernels.launches),
+                    scene=app.renderer.scene.name,
+                    total=(state or {}).get("total_samples")))
+                for f in frames[:-24]:
+                    f["img"] = None                 # keep the last 24
+
+    def seen():
+        with lock:
+            return len(frames)
+
+    orig = viewer.ViewerServer
+    viewer.ViewerServer = Recorded
+    kernels.reset_launch_counts()
+    result = []
+    th = threading.Thread(target=lambda: result.append(viewer.run_viewer(
+        app, port=0, duration_seconds=900.0, show_hud=False,
+        render_dir=str(OUT_DIR))))
+    try:
+        with _PlainCalls() as plain:
+            th.start()
+            _wait(lambda: seen() >= 6, "six frames")
+            server = holder["server"]
+            base = f"http://{server.host}:{server.port}"
+            jpeg = _http(base, "/frame")
+            state = json.loads(_http(base, "/state"))
+            with lock:
+                match = [f for f in frames if f["jpeg"] == jpeg
+                         and f["img"] is not None]
+            check(match, "[view] /frame is no frame published")
+            dec = np.asarray(Image.open(io.BytesIO(jpeg)).convert("RGB"),
+                             np.float32)
+            mae = float(np.mean(np.abs(dec - np.clip(match[-1]["img"], 0, 1)
+                                       * 255.0)))
+            check(dec.shape == (512, 512, 3) and mae < 8.0,
+                  f"[view] /frame {dec.shape} against snapshot(): mean "
+                  f"abs error {mae:.2f} of 255")
+            check(state["size"] == [512, 512] and state["total_samples"] >= 1,
+                  f"[view] /state {state}")
+            n_still = seen()
+            cam = app.renderer.scene.cameras[0]
+            p0 = cam.position.copy()
+            with lock:
+                total0 = frames[-1]["total"]
+            _http(base, "/input", {"events": [
+                {"type": "key", "key": "w", "pressed": True}]})
+            _wait(lambda: not np.array_equal(cam.position, p0),
+                  "the camera to move")
+            _http(base, "/input", {"events": [
+                {"type": "key", "key": "w", "pressed": False}]})
+            n_move = seen()
+            _wait(lambda: seen() >= n_move + 2, "frames after the move")
+            with lock:
+                after = [f["total"] for f in frames[n_move - 1:]]
+            check(min(after) < total0 or total0 <= 2,
+                  f"[view] the film did not restart: {total0} then {after}")
+            moved = float(np.linalg.norm(cam.position - p0))
+            _http(base, "/settings", {"bounce_count": 3, "exposure": 2.0})
+            _wait(lambda: (app.renderer.settings.bounce_count == 3
+                           and app.renderer.post.exposure == 2.0),
+                  "the settings")
+            scenes = json.loads(_http(base, "/scenes"))["scenes"]
+            check("Chip Smoke/Animated Heightfield" in scenes,
+                  f"[view] /scenes {scenes}")
+            _http(base, "/scene", {"scene": "Chip Smoke/Animated Heightfield"})
+            _wait(lambda: app.renderer.scene.name == "Animated Heightfield",
+                  "the scene switch")
+            n_switch = seen()
+            _wait(lambda: seen() >= n_switch + 6, "animated frames")
+            _http(base, "/input", {"events": [
+                {"type": "key", "key": "h", "pressed": True},
+                {"type": "key", "key": "h", "pressed": False}]})
+            _wait(lambda: app.tasks.progress("ShaderCompilation") == (11, 11),
+                  "the shader reload")
+            n_reload = seen()
+            _wait(lambda: seen() >= n_reload + 3, "frames after the reload")
+            n_trigger = seen()
+            _http(base, "/render", {"path": shot.name, "max_samples": 4})
+            _wait(shot.exists, "the render trigger's PNG")
+            n_shot = seen()
+            _wait(lambda: seen() >= n_shot + 2, "frames after the render")
+            app.stop()
+            th.join(timeout=120)
+    finally:
+        app.stop()
+        viewer.ViewerServer = orig
+        for k in ("w", "h"):
+            Input.set_key(k, False)
+    check(not th.is_alive() and result, "[view] the loop did not end")
+    check(not any(plain.calls.values()),
+          f"[view] plain versions called: {plain.calls}")
+    img = decode_png(shot.read_bytes())
+    check(img.shape == (512, 512, 4) and img[..., :3].max() > 0,
+          f"[view] the render trigger's PNG {img.shape}")
+    # diffs[j]: the launches of frame j+1's render, between publishes j and
+    # j+1. Counted: the still frames before the first request (the first
+    # render built the tree), and the animated frames from the switch up
+    # to the render trigger (whose offline render lands in a frame's diff)
+    diffs = [{k: b["launches"][k] - a["launches"].get(k, 0)
+              for k in b["launches"]
+              if b["launches"][k] - a["launches"].get(k, 0)}
+             for a, b in zip(frames, frames[1:])]
+    static = diffs[1:n_still - 1]
+    anim = [diffs[j] for j in range(n_switch, n_trigger - 1)
+            if frames[j]["scene"] == "Animated Heightfield"]
+    check(static and all(set(f) == {"closest_bf8", "occluded_bf8"}
+                         for f in static),
+          f"[view] static frames' launches {static[:4]}")
+    check(len(anim) >= 6 and all(
+        f and set(f) <= {"closest_v4", "occluded_v4"} for f in anim),
+        f"[view] animated frames' launches {anim[:6]}")
+    check(all(f.get("closest_v4") and f.get("occluded_v4")
+              for f in anim), f"[view] an animated frame without K3/K4 "
+          f"{anim}")
+    still = frames[1:n_still]
+    fps = (len(still) - 1) / (still[-1]["t"] - still[0]["t"])
+    jpeg_ms = [f["ms"] for f in frames]
+
+    # one sample a frame: every counted frame of a scene launches the same
+    static_counts = {tuple(sorted(f.items())) for f in static}
+    anim_counts = {tuple(sorted(f.items())) for f in anim}
+    check(len(static_counts) == 1 and len(anim_counts) == 1,
+          f"[view] launches differ between frames: still {static_counts}, "
+          f"animated {anim_counts}")
+    launches_view = {**static[0], **anim[0]}
+    log(f"[view] run_viewer on {base}, Heightfield n={VIEW_N} at 512², 5 "
+        f"bounces, on the card: /frame within {mae:.2f} of 255 of its "
+        f"snapshot(); W held moved the camera {moved:.3f} and restarted the "
+        f"film ({total0} spp, then {after}); bounce_count 3 and exposure "
+        f"2.0 taken; /scene to the Animated Heightfield: {len(anim)} frames, "
+        f"only K3/K4; H: ShaderCompilation (11, 11), frames still came; "
+        f"/render wrote {shot.name}; no plain call")
+    log(f"[view] live loop {fps:.2f} frames/s over {len(still)} still "
+        f"frames; publish (JPEG encode) {np.median(jpeg_ms):.2f} ms median, "
+        f"{max(jpeg_ms):.2f} max over {len(frames)} frames; launches a "
+        f"frame {launches_view}, the same on each of {len(static)} still "
+        f"and {len(anim)} animated frames")
+    log(f"[view] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return {"launches_view": launches_view, "fps": round(fps, 3),
+            "jpeg_ms_median": round(float(np.median(jpeg_ms)), 3),
+            "frames": len(frames), "jpeg_mae": round(mae, 3)}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4003,6 +4579,9 @@ def main() -> None:
     debug = fresh(phase_debug)
     imp = fresh(phase_import)
     b_rows = fresh(phase_budget)
+    bvh = fresh(phase_bvh)
+    knobs = fresh(phase_knobs)
+    view = fresh(phase_view)        # last: it re-imports shading modules
     counts.update(a_counts)
     counts.update(i_counts)
     times.update(a_times)
@@ -4034,6 +4613,8 @@ def main() -> None:
             rows[-1]["launches_import"] = imported[k]
         if k == "closest_v4":
             rows[-1]["launches_debug_alpha"] = debug["launches_debug_alpha"]
+        if k in view["launches_view"]:       # phase 14: a viewer frame
+            rows[-1]["launches_view"] = view["launches_view"][k]
         if k in PER_RAY:        # the in-call A/B against the first design
             rows[-1].update(per_ray_ms=tm["per_ray_ms"], ab_ms=tm["ab_ms"],
                             per_ray_ms_bounce2=times[(k, 2)]["per_ray_ms"],
@@ -4082,7 +4663,8 @@ def main() -> None:
         f"{json.dumps(ar_stats)}; entry points (render_image_stats per "
         f"call, the CLI's 512² render) {json.dumps(entry)}; debug frames "
         f"and HDR10 {json.dumps(debug)}; scene import "
-        f"{json.dumps(imp)}")
+        f"{json.dumps(imp)}; LBVH backend {json.dumps(bvh)}; lane-order "
+        f"knobs {json.dumps(knobs)}; viewer {json.dumps(view)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

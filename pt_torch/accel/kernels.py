@@ -100,6 +100,7 @@ from pt_torch.accel.bvh8 import ALPHA_TRI_BIT, LEAF_BIT, BF8BVH, PacketBVH
 from pt_torch.accel.instanced import SEG_SHIFT, BF8Instanced
 from pt_torch.accel.intersect import Hit
 from pt_torch.accel.native import BUILD_DIR, compile_shared
+from pt_torch.core.compilewatch import stage_call
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _COMMON = CSRC / "rt_common.cuh"
@@ -232,7 +233,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _cuda_handles.get(name)
     if lib is not None:
         return lib
-    build_kernels()
+    stage_call(build_kernels, what="kernel build", hang_warn_s=600.0)
     with _lock:
         lib = _cuda_handles.get(name)
         if lib is None:

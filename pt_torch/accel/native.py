@@ -18,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 
+from pt_torch.core.compilewatch import stage_call
+
 _SRC = pathlib.Path(__file__).resolve().parents[2] / "csrc" / "sah_bvh.cpp"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / ".build"
 _LIB = BUILD_DIR / "libptsah_torch.so"
@@ -53,7 +55,8 @@ def _load() -> ctypes.CDLL:
         if _lib_handle is not None:
             return _lib_handle
         if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-            compile_shared(["g++"] + _CXXFLAGS, [_SRC], _LIB)
+            stage_call(compile_shared, ["g++"] + _CXXFLAGS, [_SRC], _LIB,
+                       what="SBVH library build", hang_warn_s=600.0)
         lib = ctypes.CDLL(str(_LIB))
         f32p = ctypes.POINTER(ctypes.c_float)
         i32p = ctypes.POINTER(ctypes.c_int32)

@@ -3,16 +3,15 @@
 In a path tracer the scene and accel arrays play the part of weights: to
 hold the port against `pt` on identical state, `pt`'s DeviceScene,
 DeviceTextures, PacketBVH (SAH or Morton build), BF8BVH, BF8Instanced,
-BF8V6 and AlphaSplit are read out as mappings of field name → numpy array
-(or Python scalar for static metadata) and converted here; so are the
-settings that select what runs: PathTracingSettings (with its backend),
-DebugFlags and DebugRenderMode. An imported scene (`Scene`: geometry,
-materials, textures, lights, cameras, skins, animation keys and the graph)
-is read out the same way by `scene_state`, which takes either package's
-objects.
-Arrays keep their bits: bf16 texel rows arrive as numpy `bfloat16` (or raw
-uint16) and are reinterpreted, and the f32 page id rows are copied as raw
-bits. This module imports neither JAX nor `pt`.
+BF8V6, ThreadedBVH and AlphaSplit are read out as mappings of field name →
+numpy array (or Python scalar for static metadata) and converted here; so
+are the settings that select what runs: PathTracingSettings (with its
+backend), DebugFlags and DebugRenderMode. An imported scene (`Scene`:
+geometry, materials, textures, lights, cameras, skins, animation keys and
+the graph) is read out the same way by `scene_state`, which takes either
+package's objects. Arrays keep their bits: bf16 texel rows arrive as numpy
+`bfloat16` (or raw uint16) and are reinterpreted, and the f32 page id rows
+are copied as raw bits. This module imports neither JAX nor `pt`.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from pt_torch import default_device
 from pt_torch.accel.archive import BF8V6
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, bf8_depth
 from pt_torch.accel.instanced import BF8Instanced
+from pt_torch.accel.lbvh import ThreadedBVH
 from pt_torch.render.debug import DebugFlags, DebugRenderMode
 from pt_torch.render.integrator import AlphaSplit, PathTracingSettings
 from pt_torch.render.textures import DeviceTextures
@@ -86,6 +86,12 @@ def bf8_instanced(fields: Mapping, device=None) -> BF8Instanced:
     return out
 
 
+def threaded_bvh(fields: Mapping, device=None) -> ThreadedBVH:
+    """`pt.accel.lbvh.ThreadedBVH` fields → ThreadedBVH (the threaded LBVH
+    of `backend="bvh"`)."""
+    return _convert(ThreadedBVH, fields, device)
+
+
 def alpha_split(bvh_opaque, sel_opaque, bvh_alpha, sel_alpha,
                 device=None) -> AlphaSplit:
     """`pt.render.integrator.AlphaSplit` → AlphaSplit: the two subset trees
@@ -109,23 +115,11 @@ def bf8_v6(fields: Mapping, device=None) -> BF8V6:
     return out
 
 
-# `pt`'s PathTracingSettings fields of queue 1, item 7, with `pt`'s defaults
-_LATER_SETTINGS = {"bvh_leaf_size": 4, "sort_rays": False,
-                   "shade_sorted": False}
-
-
 def path_tracing_settings(fields: Mapping) -> PathTracingSettings:
     """`pt.render.integrator.PathTracingSettings` fields (as
-    `dataclasses.asdict` gives them) → PathTracingSettings, backend
-    included. A field of a later item set off `pt`'s default raises: the
-    port would not honour it."""
-    for name, default in _LATER_SETTINGS.items():
-        if fields.get(name, default) != default:
-            raise NotImplementedError(f"{name}={fields[name]!r} comes with "
-                                      "queue 1, item 7 of the port")
-    names = {f.name for f in dataclasses.fields(PathTracingSettings)}
-    return PathTracingSettings(**{k: v for k, v in fields.items()
-                                  if k in names})
+    `dataclasses.asdict` gives them) → PathTracingSettings, every field
+    carried: the backend, the LBVH leaf size and the two sorts included."""
+    return PathTracingSettings(**fields)
 
 
 def debug_flags(fields: Mapping) -> DebugFlags:

@@ -101,8 +101,9 @@ class Camera:
 class InputCamera(Camera):
     """Fly camera with yaw/pitch state (≙ InputCamera, Core/Camera.h:47-73).
 
-    The reference polls GLFW; headless builds drive it programmatically via
-    move()/rotate(). Pitch clamps to ±89° exactly like the reference.
+    The reference polls GLFW; here `on_update` polls the Input shim (the
+    live viewer feeds it), and scripts drive move()/rotate() directly.
+    Pitch clamps to ±89° exactly like the reference.
     """
 
     CAMERA_SPEED = 5.0
@@ -146,6 +147,33 @@ class InputCamera(Camera):
             self._update_inv_view()
             return True
         return False
+
+    def on_update(self, dt: float) -> bool:
+        """Poll the Input shim each frame (≙ InputCamera::OnUpdate,
+        Core/Camera.cpp:82-137): WASD/QE move, the right mouse button turns
+        mouse-look on. Without an input source nothing is pressed and this
+        is a no-op; move()/rotate() still drive the camera directly."""
+        from pt_torch.core.input import Input
+        key = Input.is_key_pressed
+        forward = (1.0 if key("w") else 0.0) - (1.0 if key("s") else 0.0)
+        right = (1.0 if key("d") else 0.0) - (1.0 if key("a") else 0.0)
+        up = (1.0 if key("q") else 0.0) - (1.0 if key("e") else 0.0)
+        changed = False
+        if forward or right or up:
+            changed |= self.move(forward, right, up, dt)
+        if Input.is_mouse_button_pressed(1):        # RMB = mouse-look
+            dx, dy = Input.consume_mouse_delta()
+            # one frame's look delta is clamped: a remote viewer batches
+            # events on the client's clock, so a latency spike can deliver
+            # hundreds of pixels of motion in one flush; ±250 px is a fast
+            # full-screen swipe at 30 fps
+            clamp = 250.0
+            dx = float(np.clip(dx, -clamp, clamp))
+            dy = float(np.clip(dy, -clamp, clamp))
+            changed |= self.rotate(dx, dy)
+        else:
+            Input.consume_mouse_delta()             # drop stale deltas
+        return changed
 
     def rotate(self, dx: float, dy: float) -> bool:
         """Mouse-look: dx/dy in pixels scaled by MOUSE_SENSITIVITY."""

@@ -8,12 +8,20 @@ Morton tree of an animated scene, or a static tree whose BF8 collapse did
 not fit) to K3/K4, and a structure that carries its own `closest` /
 `occluded` methods through them: a `BF8Instanced` (static scenes with
 shared-BLAS instancing) to K5/K6, the archive's `BF8V6` (A/B work) to its
-kernels, and the brute backend's `BruteTriangles` (`settings.backend =
-"brute"`: every ray against every triangle, no tree) to `intersect_brute`.
+kernels, the brute backend's `BruteTriangles` (`settings.backend =
+"brute"`: every ray against every triangle, no tree) to `intersect_brute`,
+and the LBVH backend's `ThreadedTriangles` (`settings.backend = "bvh"`:
+`pt`'s threaded LBVH) to the tensor-code walk of `pt_torch.accel.traverse`.
 The host drives the sample and bounce loops
 (`pt_torch.run.renderer`, and `render_flat` / `render_image_stats` here,
 the single-call render over the Morton tree); every stage is plain tensor
-code plus the kernel launches, with no host sync inside a bounce.
+code plus the kernel launches, with no host sync inside a bounce (the
+threaded walk alone syncs, to test its loop conditions).
+
+Two knobs of `pt`, off by default, reorder lanes without changing any
+lane's result: `sort_rays` traces each tail bounce's closest and shadow
+rays sorted by direction octant and origin Morton code (opaque scenes over a
+`PacketBVH` only), and `shade_sorted` shades the lanes in material order.
 
 Alpha-tested geometry runs the any-hit emulation loops
 (`trace_closest_alpha`, `trace_occluded_alpha`): up to ALPHA_ROUNDS
@@ -36,10 +44,11 @@ import torch
 
 from pt_torch import default_device
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, build_packet_bvh
-from pt_torch.accel.lbvh import _expand_bits_10
 from pt_torch.accel.intersect import Hit, intersect_brute
 from pt_torch.accel.kernels import (closest_bf8, closest_v4, occluded_bf8,
                                     occluded_v4)
+from pt_torch.accel.lbvh import ThreadedBVH, _expand_bits_10, build_bvh
+from pt_torch.accel.traverse import bvh_closest, bvh_occluded
 from pt_torch.render import rng as prng
 from pt_torch.render.bsdf import evaluate_bsdf, sample_bsdf
 from pt_torch.render.differentials import (DiffRays, compute_dp_dxy,
@@ -70,10 +79,18 @@ class PathTracingSettings:
     lens_radius: float = 0.0
     focal_distance: float = 1.0
     # traversal backend: "pallas" (the port's kernels: on the card the CUDA
-    # kernels, on the CPU their plain versions) or "brute" (every ray
-    # against every triangle, no tree; cheapest for tiny scenes). `pt`'s
-    # "bvh" (its threaded LBVH) is queue 1, item 7 of the port
+    # kernels, on the CPU their plain versions), "bvh" (`pt`'s threaded
+    # LBVH, walked in tensor code) or "brute" (every ray against every
+    # triangle, no tree; cheapest for tiny scenes)
     backend: str = "pallas"
+    # triangles per leaf of the threaded LBVH ("bvh" only)
+    bvh_leaf_size: int = 4
+    # per-bounce coherence sort of the tail bounces' rays (octant + origin
+    # Morton code), shared by the closest and the shadow trace. Off, as in
+    # `pt`, where the sort measured a net loss on the TPU. It reaches only
+    # opaque scenes over a binary PacketBVH (K3/K4), as in `pt`; the wide
+    # structures ignore it
+    sort_rays: bool = False
     # NEE shadow rays toward point lights are traced reversed (origin at
     # the sampled light point): occlusion is segment-symmetric; film-equal
     # up to a TMIN sliver at the segment ends
@@ -84,6 +101,10 @@ class PathTracingSettings:
     rr_start_bounce: int = 0
     # nearest-mip material sampling on tail bounces (bounce >= 1)
     tex_nearest_tail: bool = True
+    # material-sorted shading: lanes permuted to material order around
+    # `_shade_hit` and back; a pure permutation, so the film is unchanged.
+    # Off, as in `pt`
+    shade_sorted: bool = False
 
     @classmethod
     def reference_exact(cls, **overrides) -> "PathTracingSettings":
@@ -95,21 +116,18 @@ class PathTracingSettings:
         return cls(**overrides)
 
 
-BACKENDS = ("pallas", "brute")
+BACKENDS = ("pallas", "bvh", "brute")
 
 
 def resolve_backend(settings: PathTracingSettings) -> str:
-    """The backend `settings` names, "pallas" or "brute". Unlike `pt`, which
-    swaps "pallas" for brute force or its LBVH off the TPU, nothing is
-    swapped: "pallas" runs the kernels' plain versions on the CPU. "bvh"
-    and unknown names raise."""
+    """The backend `settings` names: "pallas", "bvh" or "brute", on any
+    device. Unlike `pt`, which swaps "pallas" for brute force or its LBVH
+    off the TPU, nothing is swapped: "pallas" runs the kernels' plain
+    versions on the CPU. An unknown name raises."""
     backend = settings.backend
-    if backend == "bvh":
-        raise NotImplementedError(
-            "backend 'bvh' (pt's threaded LBVH) comes with queue 1, item 7 "
-            "of the port; use 'pallas' or 'brute'")
     if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r} (pallas or brute)")
+        raise ValueError(f"unknown backend {backend!r} (pallas, bvh or "
+                         "brute)")
     return backend
 
 
@@ -121,6 +139,8 @@ class BruteTriangles:
     through their duck dispatch. As in `pt`, no lane is pointed out of the
     scene (`_degenerate_masked`) and no shadow distance is clamped to a root
     box: there is none."""
+
+    has_root_box = False
 
     def __init__(self, wpos: torch.Tensor, tri_idx: torch.Tensor):
         self.wpos = wpos
@@ -134,13 +154,50 @@ class BruteTriangles:
         return self.closest(origins, dirs, dist, tmin).is_hit
 
 
+class ThreadedTriangles:
+    """The LBVH backend's structure: `pt`'s `ThreadedBVH` with the world
+    positions and triangle rows its leaves index, reaching
+    `trace_closest`/`trace_occluded` through their duck dispatch. As for
+    brute force, and as `pt`'s `_root_bounds` gives None for a
+    `ThreadedBVH`, no lane is pointed out of the scene and no shadow
+    distance is clamped to a root box. No hand-written kernel runs: the
+    walk is `pt_torch.accel.traverse`'s tensor code."""
+
+    has_root_box = False
+
+    def __init__(self, bvh: ThreadedBVH, wpos: torch.Tensor,
+                 tri_idx: torch.Tensor):
+        self.bvh = bvh
+        self.wpos = wpos
+        self.tri_idx = tri_idx
+
+    def closest(self, origins, dirs, tmax, tmin) -> Hit:
+        return bvh_closest(self.bvh, self.wpos, self.tri_idx, origins, dirs,
+                           tmin, tmax)
+
+    def occluded(self, origins, dirs, dist, tmin) -> torch.Tensor:
+        return bvh_occluded(self.bvh, self.wpos, self.tri_idx, origins, dirs,
+                            dist, tmin)
+
+
+def _root_bounds(bvh):
+    """The structure's root box (lo, hi), or None for brute force and the
+    threaded LBVH, which have none (`pt`'s `_root_bounds`). Read from the
+    structure's `has_root_box`, not its class, so that an accel built
+    before `reload_shaders` re-imported this module still answers."""
+    if not getattr(bvh, "has_root_box", True):
+        return None
+    return bvh.root_lo, bvh.root_hi
+
+
 class AlphaSplit(NamedTuple):
     """Opaque/alpha scene partition for any-hit emulation (≙ the RT
     hardware's opaque-flag fast path). Alpha-tested triangles are usually a
     small part of a scene, so the re-trace rounds that emulate any-hit
     shaders walk a much smaller tree than the scene's, and shadow queries
     use the early-out occlusion kernel on the opaque tree."""
-    bvh_opaque: object           # accel over the opaque subset
+    bvh_opaque: object           # accel over the opaque subset (a tree, or
+                                 # BruteTriangles on the brute backend)
     sel_opaque: torch.Tensor     # (K0,) i32 global triangle ids
     bvh_alpha: object            # accel over the non-opaque subset
     sel_alpha: torch.Tensor      # (K1,) i32
@@ -157,7 +214,8 @@ class Accel(NamedTuple):
     tri_bit: torch.Tensor        # (T, 9)
     tri_uv: torch.Tensor         # (T, 6) uv0|uv1|uv2
     bvh: Optional[object]        # BF8BVH | PacketBVH | BF8Instanced | BF8V6 |
-                                 # BruteTriangles (None: not built yet)
+                                 # ThreadedTriangles | BruteTriangles
+                                 # (None: not built yet)
     alpha_split: Optional[AlphaSplit] = None
 
 
@@ -193,11 +251,18 @@ def prepare_accel(ds: DeviceScene,
     """World-space flatten, per-triangle attribute packing and, for the
     "pallas" backend (the default), the Morton `PacketBVH` build, all on the
     scene's device (≙ the BLAS/TLAS update of an animated frame: rebuilt
-    every frame, since all of it is dense tensor code). The "brute" backend
-    builds no tree."""
+    every frame, since all of it is dense tensor code). The "bvh" backend
+    builds `pt`'s threaded LBVH of `settings.bvh_leaf_size`, the "brute"
+    backend no tree."""
+    settings = settings or PathTracingSettings()
     base = prepare_attribs(ds)
-    if resolve_backend(settings or PathTracingSettings()) == "brute":
+    backend = resolve_backend(settings)
+    if backend == "brute":
         return base._replace(bvh=BruteTriangles(base.wpos, ds.tri_idx))
+    if backend == "bvh":
+        return base._replace(bvh=ThreadedTriangles(
+            build_bvh(base.wpos, ds.tri_idx, settings.bvh_leaf_size),
+            base.wpos, ds.tri_idx))
     return base._replace(bvh=build_packet_bvh(base.wpos, ds.tri_idx,
                                               tri_opaque=ds.tri_opaque))
 
@@ -298,13 +363,14 @@ def _degenerate_masked(bvh, origins, dirs, tmax, live):
     """Point dead lanes at a ray that exits the scene at once: origin
     outside the root AABB, +x direction, tmax = TMIN. They leave the
     traversal at the root node; their hits are never read. `tmax` is (N,)
-    or a Python scalar. Brute force has no root box and gets the rays
-    unchanged, as in `pt`."""
+    or a Python scalar. Brute force and the threaded LBVH have no root box
+    and get the rays unchanged, as in `pt`."""
     if not isinstance(tmax, torch.Tensor):
         tmax = torch.full_like(origins[:, 0], tmax)
-    if isinstance(bvh, BruteTriangles):
+    bounds = _root_bounds(bvh)
+    if bounds is None:
         return origins, dirs, tmax
-    outside = bvh.root_hi + 1.0e6
+    outside = bounds[1] + 1.0e6
     live_c = live[:, None]
     o = torch.where(live_c, origins, outside)
     d = torch.where(live_c, dirs, _axis(0, dirs))
@@ -530,7 +596,8 @@ def trace_closest(bvh, origins, dirs, tmax):
     a BF8BVH, K3 over a PacketBVH (their plain versions on the CPU), and any
     structure that carries its own `closest` method through it, as `pt`'s
     duck dispatch does: K5 over a BF8Instanced, `closest_v6` over the
-    archive's BF8V6, `intersect_brute` over BruteTriangles. tmax is (N,)
+    archive's BF8V6, `intersect_brute` over BruteTriangles, the threaded
+    walk over ThreadedTriangles. tmax is (N,)
     f32. A BF8Instanced strips ALPHA_TRI_BIT and, when it carries
     `seg_tri_base`, remaps (segment, mesh-local) ids to global flattened
     ids."""
@@ -549,7 +616,7 @@ def trace_occluded(bvh, origins, dirs, dist):
     """Shadow query (≙ checkOccluded, raygen.rgen:22-33): K2 over a BF8BVH,
     K4 over a PacketBVH, a structure's own `occluded` method otherwise (K6
     over a BF8Instanced, `occluded_v6` over a BF8V6, brute force over
-    BruteTriangles)."""
+    BruteTriangles, the threaded walk over ThreadedTriangles)."""
     args = (origins.contiguous(), dirs.contiguous(), dist.contiguous(), TMIN)
     if isinstance(bvh, BF8BVH):
         return occluded_bf8(bvh, *args)
@@ -767,16 +834,67 @@ def _shade_hit(ds: DeviceScene, tex: DeviceTextures, accel: Accel, hit,
     )
 
 
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation of 0..n-1."""
+    return torch.empty_like(perm).scatter_(
+        0, perm, torch.arange(perm.shape[0], device=perm.device))
+
+
+def _permute(x, perm):
+    """A lane-indexed value (a tensor; a tuple of them: a Hit, DiffRays or
+    the decal triple; or None) with its lanes taken in `perm`'s order."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        parts = [a[perm] for a in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x[perm]
+
+
+def _shade_sorted(ds, tex, accel, hit, origin, direction, state, alive,
+                  max_roughness, decal, diff, nearest_mip):
+    """`_shade_hit` over the lanes in material order (`pt`'s
+    `shade_sorted`): a stable sort by the hit's material row (missed and
+    dead lanes last), shade, and the payload permuted back. A pure
+    permutation: each lane's RNG state and inputs travel with it."""
+    mat_key = torch.where(alive & hit.is_hit,
+                          ds.tri_mat[torch.clamp(hit.tri, min=0).long()],
+                          0x7FFFFFF)
+    perm = torch.argsort(mat_key, stable=True)
+    inv = _inverse(perm)
+    payload = _shade_hit(ds, tex, accel, _permute(hit, perm),
+                         origin[perm], direction[perm], state[perm],
+                         alive[perm], max_roughness[perm],
+                         _permute(decal, perm), _permute(diff, perm),
+                         nearest_mip=nearest_mip)
+    return {k: _permute(v, inv) for k, v in payload.items()}
+
+
 def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
                 carry: BounceCarry, settings: PathTracingSettings,
-                bounce: int = 0) -> BounceCarry:
+                bounce: int = 0,
+                sort_rays: Optional[bool] = None) -> BounceCarry:
     """Wavefront bounce number `bounce`: closest trace → shade → NEE → RR
     (≙ one iteration of raygen.rgen:62-97). RR divides by
     settings.rr_scale from settings.rr_start_bounce on; bounces >= 1
-    sample materials at the nearest mip when settings.tex_nearest_tail."""
+    sample materials at the nearest mip when settings.tex_nearest_tail.
+
+    With settings.sort_rays, an opaque scene over a PacketBVH traces the
+    closest and the shadow rays in coherence order (`_coherence_keys`,
+    stable), dead lanes pointed out of the scene, and scatters the results
+    back. `sort_rays` says whether this bounce may sort: None means on the
+    tail bounces (bounce >= 1), as `pt`'s host-driven loop has it;
+    `render_flat` passes True, as `pt`'s single-program render sorts every
+    bounce. As in `pt`, the sorted shadow trace is not reversed toward
+    point lights."""
     (state, origin, direction, throughput, radiance, alive,
      max_roughness, rays, diff) = carry
     rays = rays + torch.sum(alive)
+    if sort_rays is None:
+        sort_rays = bounce > 0
+    # the coherence sort: opaque scenes over a binary tree only (`pt`)
+    sort = (sort_rays and settings.sort_rays and not ds.has_alpha
+            and isinstance(accel.bvh, PacketBVH))
 
     decal = None
     if ds.has_alpha:
@@ -784,6 +902,15 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
         hit, d_color, d_alpha, d_has = trace_closest_alpha(
             ds, tex, accel, origin, direction, alive)
         decal = (d_color, d_alpha, d_has)
+    elif sort:
+        # one permutation for the closest and the shadow trace
+        perm = torch.argsort(_coherence_keys(accel.bvh, origin, direction,
+                                             alive), stable=True)
+        inv = _inverse(perm)
+        o_s, d_s, t_s = _degenerate_masked(accel.bvh, origin[perm],
+                                           direction[perm], TMAX,
+                                           alive[perm])
+        hit = _permute(trace_closest(accel.bvh, o_s, d_s, t_s), inv)
     else:
         # dead lanes are degenerated so they leave the traversal at the
         # root; their hits are never read (all below is gated on `alive`)
@@ -796,10 +923,10 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
     sky = _skybox_emissive(ds, direction)
     radiance = radiance + torch.where(missed[..., None], throughput * sky, 0.0)
 
-    payload = _shade_hit(ds, tex, accel, hit, origin, direction, state,
-                         alive, max_roughness, decal, diff,
-                         nearest_mip=(bounce > 0
-                                      and settings.tex_nearest_tail))
+    nearest_mip = bounce > 0 and settings.tex_nearest_tail
+    shade = _shade_sorted if settings.shade_sorted else _shade_hit
+    payload = shade(ds, tex, accel, hit, origin, direction, state, alive,
+                    max_roughness, decal, diff, nearest_mip=nearest_mip)
     state = payload["state"]
     max_roughness = payload["max_roughness"]
     active = alive & hit.is_hit
@@ -809,18 +936,19 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
                                  throughput * payload["emissive"], 0.0)
 
     # NEE (raygen.rgen:81-83). Shadow distances are clamped to the scene
-    # AABB exit (a tree's root box; brute force has none, as in `pt`): no
-    # occluder exists outside the scene. Shadow rays whose contribution is
-    # identically zero are not traced (film-exact).
+    # AABB exit (a tree's root box; brute force and the threaded LBVH have
+    # none, as in `pt`): no occluder exists outside the scene. Shadow rays
+    # whose contribution is identically zero are not traced (film-exact).
     shadow_dir = -_normalize(payload["light_dir"])
     shadow_live = (active & (payload["light_pdf"] > 0.0)
                    & torch.any(payload["direct_light"] != 0.0, dim=-1))
     light_dist = payload["light_dist"]
-    if not isinstance(accel.bvh, BruteTriangles):
+    bounds = _root_bounds(accel.bvh)
+    if bounds is not None:
         light_dist = torch.minimum(
             light_dist,
-            _aabb_exit_t(accel.bvh.root_lo, accel.bvh.root_hi,
-                         payload["next_origin"], shadow_dir) + 1e-3)
+            _aabb_exit_t(bounds[0], bounds[1], payload["next_origin"],
+                         shadow_dir) + 1e-3)
     reverse = (~payload["light_is_dir"] if settings.reverse_point_shadows
                else None)
     if ds.has_alpha:
@@ -828,6 +956,11 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
                                         payload["next_origin"], shadow_dir,
                                         light_dist, shadow_live,
                                         reverse=reverse)
+    elif sort:
+        so, sd, sdist = _degenerate_masked(
+            accel.bvh, payload["next_origin"][perm], shadow_dir[perm],
+            light_dist[perm], shadow_live[perm])
+        occluded = trace_occluded(accel.bvh, so, sd, sdist)[inv]
     else:
         so_f, sd_f, st_f = payload["next_origin"], shadow_dir, light_dist
         if reverse is not None:
@@ -896,7 +1029,8 @@ def render_flat(ds: DeviceScene, tex: DeviceTextures, inv_view, inv_proj,
     RNG is seeded once from `frame` and carried
     from sample to sample; one ray counter runs across the samples; every
     bounce samples textures with full trilinear filtering (no nearest-mip
-    tail), while Russian roulette still reads the bounce index.
+    tail), while Russian roulette still reads the bounce index; with
+    settings.sort_rays every bounce, the primary one too, sorts.
 
     Returns (radiance (N, 3) summed over the samples, rays () int64).
     """
@@ -913,7 +1047,8 @@ def render_flat(ds: DeviceScene, tex: DeviceTextures, inv_view, inv_proj,
         carry = start_carry(state, origin, direction, diff)
         carry = carry._replace(rays=ray_count)
         for bounce in range(settings.bounce_count):
-            carry = bounce_once(ds, tex, accel, carry, trilinear, bounce)
+            carry = bounce_once(ds, tex, accel, carry, trilinear, bounce,
+                                sort_rays=True)
         radiance_sum = finish_sample(carry, radiance_sum)
         state, ray_count = carry.state, carry.rays
     return radiance_sum, ray_count

@@ -5,12 +5,14 @@ Port of `pt.run.app` (≙ the reference's Application, Application.{h,cpp}):
 ordered init of config → scene manager → renderer
 (Application.cpp:193-249), the main loop (scene update → UpdateSceneData →
 OnUpdate → Render, Application.cpp:251-365) with its debug-frame switch,
-the scene-import and rendering progress counters (Application.h:15-36),
-and the offline-rendering entry point (BeginOfflineRendering,
-Application.cpp:412-439).
+the background-task progress counters (Application.h:15-36), the shader
+hot-reload (`reload_shaders`, the viewer's H key) and the offline-rendering
+entry point (BeginOfflineRendering, Application.cpp:412-439).
 
-The shader hot-reload, and the shader-compilation and texture-upload
-counters, come with queue 1, item 8 of the port (the viewer).
+Of the four counters `pt` declares, it drives "SceneImport" and
+"Rendering"; the port also drives "ShaderCompilation", which counts the
+modules `reload_shaders` has re-imported. "TextureUpload" is declared and,
+as in `pt`, nothing advances it.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ from pt_torch.scene.manager import SceneManager
 
 class BackgroundTasks:
     """Atomic {total, done} progress counters per task type
-    (≙ BackgroundTask, Application.h:15-36): the two this shell advances."""
+    (≙ BackgroundTask, Application.h:15-36)."""
 
-    TYPES = ("SceneImport", "Rendering")
+    TYPES = ("ShaderCompilation", "TextureUpload", "SceneImport", "Rendering")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -192,6 +194,44 @@ class Application:
 
     def stop(self) -> None:
         self._running = False
+
+    def reload_shaders(self) -> None:
+        """Dev hot-reload (≙ Renderer::ReloadShaders, Renderer.cpp:756,
+        bound to the H key): re-import the shader-equivalent modules
+        (shading, rng, rays, sampling, bsdf, materials, differentials,
+        textures, the post stack, and the integrator that composes them)
+        from disk, then the renderer module; move the live renderer onto
+        the reloaded class and restart accumulation (≙ recompiling changed
+        GLSL and relinking the pipelines, ShaderLibrary.cpp:224-298). Each
+        re-imported module advances the "ShaderCompilation" counter.
+
+        As in `pt`, the accel and kernel modules (`pt_torch.accel.*`) and
+        the built kernel libraries are not reloaded: the live accel keeps
+        its structures, as the reference's BLASes survive a shader reload,
+        and the launch counters keep counting. The renderer's class-wide
+        accel cache starts empty on the reloaded class. Modules that
+        imported integrator names elsewhere (`pt_torch.render.debug`, the
+        benches) keep the old code until the process restarts; the render
+        path does not."""
+        import importlib
+
+        from pt_torch.post import pipeline
+        from pt_torch.render import (bsdf, differentials, integrator,
+                                     materials, rays, rng, sampling, shading,
+                                     textures)
+        import pt_torch.run.renderer as renderer_mod
+        # leaf modules first, so that the integrator binds fresh names
+        mods = (shading, rng, rays, sampling, bsdf, materials, differentials,
+                textures, pipeline, integrator, renderer_mod)
+        self.tasks.begin("ShaderCompilation", len(mods))
+        for mod in mods:
+            reloaded = importlib.reload(mod)
+            self.tasks.advance("ShaderCompilation")
+        # the live instance keeps its state (scene, film, accel, settings);
+        # its methods now run the reloaded code
+        self.renderer.__class__ = reloaded.Renderer
+        if self.renderer.width:
+            self.renderer.reset_accumulation()
 
     def _render_debug_frame(self) -> np.ndarray:
         """One frame of the debug renderer at the film size with the active

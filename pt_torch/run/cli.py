@@ -6,22 +6,20 @@ Port of `pt.run.cli`, run as `python -m pt_torch.run.cli <command>`:
   render ...                       offline render (≙ Offline Render modal)
   debug ...                        debug view modes (≙ Debug tab)
   stats                            stat board dump (≙ Statistics tab)
+  view ...                         live browser viewer with fly camera
 
-with `pt`'s flags and defaults, and `--device` on `render`, `debug` and
-`stats` (default: the card, `cuda:0`; `--device cpu` runs the kernels'
-plain versions). `-A/-S` name the Assets and Scenes directories
+with `pt`'s flags and defaults, and `--device` on `render`, `debug`,
+`stats` and `view` (default: the card, `cuda:0`; `--device cpu` runs the
+kernels' plain versions). `-A/-S` name the Assets and Scenes directories
 (`Config.create`); `--scene` takes "Group/Name" or a .gltf/.glb/.obj/.fbx
 file, registered as "CLI/file". `render --format` writes png, hdr, jpg or
 tga (jpg and tga need Pillow) or mp4 (through ffmpeg, or an MJPEG AVI,
 which needs Pillow, where there is no ffmpeg). `render --backend pallas`
-(the default) runs the port's kernels, `--backend brute` brute force;
-`debug` and `stats` trace by brute force, as in `pt`. What later items of
-the port's queue bring exits non-zero with a message that names the item:
-
-  --backend bvh                                   queue 1, item 7
-  view                                            queue 1, item 8
-
-`view` is a bare command until then: whatever follows it is not parsed.
+(the default) and `view --backend pallas` run the port's kernels,
+`--backend bvh` `pt`'s threaded LBVH in tensor code, `--backend brute`
+brute force; `debug` and `stats` trace by brute force, as in `pt`. `view`
+serves the viewer on `--host:--port` (loopback, 8000 by default) for
+`--duration` seconds, or until Ctrl-C; its JPEG stream needs Pillow.
 """
 
 from __future__ import annotations
@@ -31,10 +29,10 @@ import sys
 
 SCENE_FILES = (".gltf", ".glb", ".obj", ".fbx")
 
-# the commands of later items: command → (what it does, its queue item)
-DEFERRED_COMMANDS = {
-    "view": ("live browser viewer with fly camera", 8),
-}
+BACKENDS = ["pallas", "bvh", "brute"]
+BACKEND_HELP = ("pallas: the port's kernels; bvh: pt's threaded LBVH, "
+                "walked in tensor code; brute: every ray against every "
+                "triangle")
 
 DEBUG_MODES = ["color", "world-position", "normal", "tex-coords", "mips",
                "geometry", "primitive", "instance"]
@@ -91,9 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--lens-radius", type=float, default=0.0)
     r.add_argument("--focal-distance", type=float, default=1.0)
     r.add_argument("--backend", default="pallas",
-                   choices=["pallas", "bvh", "brute"],
-                   help="pallas: the port's kernels; brute: every ray "
-                        "against every triangle (bvh: queue 1, item 7)")
+                   choices=BACKENDS, help=BACKEND_HELP)
     r.add_argument("--checkpoint", default=None,
                    help="film checkpoint file for long single-frame "
                         "renders: resumed if present, saved every 5 min, "
@@ -127,23 +123,27 @@ def build_parser() -> argparse.ArgumentParser:
                                      "board")
     _add_device(s)
 
-    for name, (text, item) in DEFERRED_COMMANDS.items():
-        sub.add_parser(name, help=f"{text} (queue 1, item {item})")
+    v = sub.add_parser("view", help="live browser viewer with fly camera")
+    v.add_argument("--scene", default="Test Scenes/Default")
+    v.add_argument("--size", type=_parse_size, default=(640, 480),
+                   metavar="WxH")
+    v.add_argument("--bounces", type=int, default=5)
+    v.add_argument("--backend", default="pallas", choices=BACKENDS,
+                   help=BACKEND_HELP)
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=8000)
+    v.add_argument("--duration", type=float, default=1e30,
+                   help="stop after this many seconds (default: run forever)")
+    v.add_argument("--adaptive", type=float, default=None, metavar="TOL",
+                   help="adaptive progressive refinement: converged pixels "
+                        "stop sampling; a fully-converged still view idles")
+    _add_device(v)
     return p
 
 
 def _error(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 2
-
-
-def _deferred_option(args):
-    """The message for the option of `args` that a later item of the port's
-    queue brings, or None."""
-    if getattr(args, "backend", None) == "bvh":
-        return ("--backend bvh: pt's threaded LBVH comes with queue 1, item "
-                "7 of the port; use pallas (the port's kernels) or brute")
-    return None
 
 
 def _config(args):
@@ -166,9 +166,6 @@ def _load_app(args, width: int, height: int, fmt: str = "png"):
     from pt_torch.out.saver import FORMATS
     from pt_torch.run.app import Application
     from pt_torch.scene.manager import SceneDescription
-    deferred = _deferred_option(args)
-    if deferred:
-        return None, _error(deferred)
     if fmt not in FORMATS:
         return None, _error(f"unsupported output format '{fmt}' (png, jpg, "
                             "tga, hdr or mp4)")
@@ -302,17 +299,28 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def cmd_view(args) -> int:
+    """`pt`'s `view`: the scene at `--size` with one sample a frame and
+    `--bounces` over `--backend`, served by `run_viewer`."""
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.viewer import run_viewer
+
+    width, height = args.size
+    app, rc = _load_app(args, width, height)
+    if app is None:
+        return rc
+    app.renderer.set_settings(PathTracingSettings(
+        sample_count=1, bounce_count=args.bounces, backend=args.backend))
+    run_viewer(app, args.host, args.port, duration_seconds=args.duration,
+               adaptive_tol=args.adaptive)
+    app.shutdown()
+    return 0
+
+
 def main(argv=None) -> int:
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.command in DEFERRED_COMMANDS:
-        text, item = DEFERRED_COMMANDS[args.command]
-        return _error(f"{args.command} ({text}) comes with queue 1, item "
-                      f"{item} of the port")
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     handlers = {"list-scenes": cmd_list_scenes, "render": cmd_render,
-                "debug": cmd_debug, "stats": cmd_stats}
+                "debug": cmd_debug, "stats": cmd_stats, "view": cmd_view}
     return handlers[args.command](args)
 
 

@@ -37,17 +37,28 @@ so its film is the same on the card and the CPU from run to run.
 
 With `settings.backend = "brute"` no tree is built: every trace tests
 every triangle (`BruteTriangles`), and a static alpha scene gets `pt`'s
-brute opaque/alpha split.
+brute opaque/alpha split. With `settings.backend = "bvh"` every scene gets
+`pt`'s threaded LBVH (`ThreadedTriangles`, leaves of
+`settings.bvh_leaf_size`), built on the device once for a static scene and
+after every change of an animated one, never cached, and walked in tensor
+code: no kernel runs. Where a static scene's opaque or alpha subset tree
+fails to build and that subset holds at most 4096 triangles, the split is
+kept, as in `pt`, and the subset gets its Morton `PacketBVH`, built on the
+device and walked by K3/K4 (`pt` traces it by brute force: the same hits).
+
+Each stage call (raygen, a bounce) goes through the compile watch
+(`pt_torch.core.compilewatch.stage_call`, as `pt`'s `_guard`): a transient
+error is retried, a stage blocked for long is reported.
 
 `set_scene` streams textures by default: the placeholder pool first, the
 real pool from a loader thread, swapped in (and the film restarted) by the
 next `render` that finds it ready; `wait_for_textures` blocks for it.
 
-For the offline path and the app: `set_settings` (a change resets the
-film, a change of backend also the accel), `on_update` (the run loop's
-samples-per-frame controller), `snapshot(hdr=)` (HDR10 PQ output) and
-`save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys; a resumed
-render continues the exact RNG stream.
+For the offline path and the app: `set_settings` (a change resets the film,
+a change of backend or of LBVH leaf size also the accel), `on_update` (the
+run loop's samples-per-frame controller), `snapshot(hdr=)` (HDR10 PQ
+output) and `save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys; a
+resumed render continues the exact RNG stream.
 
 `pt`'s timers and stats go to the process-wide board
 (`pt_torch.core.stats`): "Mesh Upload", "Texture Upload", "Acceleration
@@ -67,10 +78,12 @@ import numpy as np
 import torch
 
 from pt_torch import default_device
-from pt_torch.accel.bvh8 import build_bf8, build_packet_bvh_sah
+from pt_torch.accel.bvh8 import (build_bf8, build_packet_bvh,
+                                 build_packet_bvh_sah)
 from pt_torch.accel.instanced import (build_instanced_bf8,
                                       build_instanced_split)
 from pt_torch.core.cache import LRUCache, fnv1a
+from pt_torch.core.compilewatch import stage_call as _guard
 from pt_torch.core.stats import Stats, Timer
 from pt_torch.post.pipeline import PostProcessSettings, postprocess
 from pt_torch.render.integrator import (Accel, AlphaSplit, BounceCarry,
@@ -93,6 +106,10 @@ _MASK32 = 0xFFFFFFFF
 # spp-major group cap: the largest merged wavefront dispatched as one unit
 # (a 512² film merges 4 spp exactly, 1080p stays per sample)
 _MAX_GROUP_LANES = 1 << 20
+
+# the largest opaque or alpha subset that keeps the split when its tree
+# fails to build (`pt`'s rule); a larger one drops the split
+_FAILED_SUBSET_MAX = 4096
 
 _LUM = np.array([0.2126, 0.7152, 0.0722], np.float32)
 
@@ -300,6 +317,7 @@ class Renderer:
         # not install its pool: its generation no longer matches
         self._tex_gen += 1
         self._pending_tex = None
+        self._tex_thread = None
         if tex is not None:
             self.tex = tex
         elif scene.textures and stream_textures:
@@ -376,11 +394,11 @@ class Renderer:
                      post: Optional[PostProcessSettings] = None) -> None:
         """≙ Renderer::SetSettings (Renderer.cpp:825-852): a change of the
         path-tracing settings resets the accumulation, and a change of
-        backend also rebuilds the accel. (`pt` rebuilds on a change of its
-        LBVH leaf size too, which is queue 1, item 7 of the port.)"""
+        backend or of the LBVH leaf size also rebuilds the accel."""
         if settings is not None and settings != self.settings:
             resolve_backend(settings)            # an unknown backend raises
-            if settings.backend != self.settings.backend:
+            if (settings.backend != self.settings.backend
+                    or settings.bvh_leaf_size != self.settings.bvh_leaf_size):
                 self._accel_dirty = True
             self.settings = settings
             self.reset_accumulation()
@@ -430,14 +448,15 @@ class Renderer:
         ikey = (key, "instanced")
         hit = Renderer._accel_cache.get(ikey)
         if hit is None:
-            hit = self._instanced_trees(tri_np, opq_np, build_static)
+            hit = self._instanced_trees(tri_np, opq_np, build_static,
+                                        base.wpos)
             Renderer._accel_cache.put(ikey, hit)
         if hit == Renderer._INFEASIBLE:
             return None
         bvh, split = hit
         return base._replace(bvh=bvh, alpha_split=split)
 
-    def _instanced_trees(self, tri_np, opq_np, build_static):
+    def _instanced_trees(self, tri_np, opq_np, build_static, wpos):
         """(tree, AlphaSplit or None) of the shared-BLAS structure, or
         `_INFEASIBLE`.
 
@@ -446,9 +465,10 @@ class Renderer:
         plus instanced opaque/alpha subset trees for the AlphaSplit scheme;
         a subset whose instanced build is infeasible gets a flat subset
         tree from `build_static` (hybrid: the duplicated bytes of a small
-        subset are acceptable). Wholly opaque or wholly alpha content has
-        no split: the single-tree loops walk the full instanced tree, as
-        they do when a subset has no tree at all."""
+        subset are acceptable), and one with no tree at all the Morton tree
+        where `_subset_split` allows it. Wholly opaque or wholly alpha
+        content has no split: the single-tree loops walk the full instanced
+        tree."""
         layout = shared_mesh_layout(self.scene)
         if layout is None:
             return Renderer._INFEASIBLE
@@ -470,10 +490,30 @@ class Renderer:
                 tree_o = build_static(tri_np[sel_o], opq_np[sel_o])
             if tree_a is None:
                 tree_a = build_static(tri_np[sel_a], opq_np[sel_a])
-            if tree_o is not None and tree_a is not None:
-                t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-                split = AlphaSplit(tree_o, t(sel_o), tree_a, t(sel_a))
+            split = self._subset_split(wpos, tree_o, sel_o, tree_a, sel_a)
         return full, split
+
+    def _subset_split(self, wpos, tree_o, sel_o, tree_a, sel_a):
+        """The AlphaSplit of two subset trees (None where a build failed)
+        over the world positions `wpos`, or None. A subset without a tree
+        keeps the split where it holds at most `_FAILED_SUBSET_MAX`
+        triangles (`pt`'s rule) and is traced through its Morton
+        `PacketBVH`, built on the device (K3/K4; `pt` traces it by brute
+        force, which finds the same hits); past that the scene keeps the
+        single-tree loops."""
+        if any(tree is None and len(sel) > _FAILED_SUBSET_MAX
+               for tree, sel in ((tree_o, sel_o), (tree_a, sel_a))):
+            return None
+        t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+
+        def subset(tree, sel):
+            if tree is not None:
+                return tree
+            rows = t(sel).long()
+            return build_packet_bvh(wpos, self.ds.tri_idx[rows],
+                                    tri_opaque=self.ds.tri_opaque[rows])
+        return AlphaSplit(subset(tree_o, sel_o), t(sel_o),
+                          subset(tree_a, sel_a), t(sel_a))
 
     def _ensure_accel(self) -> None:
         """Build the acceleration structure when the scene changed
@@ -489,17 +529,20 @@ class Renderer:
         self._accel_dirty = False
 
     def _build_accel(self) -> None:
-        """Animated scenes: `prepare_accel` for the backend (the Morton
-        tree, on the device, or brute force). Static scenes with the brute
+        """Animated scenes, and every scene with the LBVH backend:
+        `prepare_accel` for the backend (the Morton tree or the threaded
+        LBVH, on the device, or brute force). Static scenes with the brute
         backend: no tree, and on an alpha scene `pt`'s brute opaque/alpha
         split. Static scenes with the kernels: the shared-BLAS structure
         when the instancing policy selects it and it is feasible, else the
         host SBVH build, BF8 where it fits; either with opaque/alpha split
-        trees on an alpha scene. Kernel-backend accels come from the cache
-        when this device built them for the same geometry before; brute
-        accels build nothing and are never cached (as in `pt`)."""
+        trees on an alpha scene (a subset whose tree fails gets its Morton
+        tree where `_subset_split` allows). Kernel-backend accels come
+        from the cache when this device built them for the same geometry
+        before; brute and LBVH accels are never cached (as in `pt`)."""
         if (self.scene.has_animated_instances
-                or self.scene.has_skinned_geometry):
+                or self.scene.has_skinned_geometry
+                or resolve_backend(self.settings) == "bvh"):
             self.accel = prepare_accel(self.ds, self.settings)
             return
         base = prepare_attribs(self.ds)
@@ -557,14 +600,10 @@ class Renderer:
                 # the re-trace rounds walk a tree over the non-opaque subset
                 sel_o = np.nonzero(opq_np)[0].astype(np.int32)
                 sel_a = np.nonzero(~opq_np)[0].astype(np.int32)
-                bvh_o = build_static(tri_np[sel_o], opq_np[sel_o])
-                bvh_a = build_static(tri_np[sel_a], opq_np[sel_a])
-                # pt traces a subset without a tree by brute force; the
-                # port has no brute backend, so such a scene keeps the
-                # single tree
-                if bvh_o is not None and bvh_a is not None:
-                    t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-                    split = AlphaSplit(bvh_o, t(sel_o), bvh_a, t(sel_a))
+                split = self._subset_split(
+                    base.wpos,
+                    build_static(tri_np[sel_o], opq_np[sel_o]), sel_o,
+                    build_static(tri_np[sel_a], opq_np[sel_a]), sel_a)
             if bvh is not None:
                 Renderer._accel_cache.put(key, (bvh, split))
             cached = (bvh, split)
@@ -635,10 +674,12 @@ class Renderer:
             px, py, rep = self._group_arrays(g)
             frames = (rep + (self.total_samples + rep0)) & _MASK32
         state = init_rng_state(px, py, self.width, frames)
-        state, o, d, diff = raygen(px, py, self.width, self.height,
-                                   inv_view, inv_proj, state, self.settings)
-        carry = bounce_once(self.ds, self.tex, self.accel,
-                            start_carry(state, o, d, diff), self.settings, 0)
+        state, o, d, diff = _guard(raygen, px, py, self.width, self.height,
+                                   inv_view, inv_proj, state, self.settings,
+                                   what="raygen")
+        carry = _guard(bounce_once, self.ds, self.tex, self.accel,
+                       start_carry(state, o, d, diff), self.settings, 0,
+                       what="bounce 0")
         flat = self.accum.view(-1, 3)
         if g == 1:
             subs = [carry]
@@ -688,8 +729,8 @@ class Renderer:
         alive = [] if observe else None
         last = self.settings.bounce_count - 1
         for bounce in range(first, last + 1):
-            carry = bounce_once(self.ds, self.tex, self.accel, carry,
-                                self.settings, bounce)
+            carry = _guard(bounce_once, self.ds, self.tex, self.accel, carry,
+                           self.settings, bounce, what=f"bounce {bounce}")
             if alive is not None:
                 alive.append(torch.sum(carry.alive))
             j = bounce - first
@@ -855,8 +896,9 @@ class Renderer:
         px, py = t(px_np), t(py_np)
         state = init_rng_state(px, py, self.width,
                                t(frames_np.astype(np.int64) & _MASK32))
-        state, o, d, diff = raygen(px, py, self.width, self.height,
-                                   inv_view, inv_proj, state, self.settings)
+        state, o, d, diff = _guard(raygen, px, py, self.width, self.height,
+                                   inv_view, inv_proj, state, self.settings,
+                                   what="raygen")
         key = ("full", n)
         plan = self._plans.get(key)
         full, obs = self._bounces(start_carry(state, o, d, diff), 0, plan,

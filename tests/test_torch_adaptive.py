@@ -5,8 +5,8 @@
   streams of repeated render(1) calls, so the film is bit-equal to the
   uniform one (with the "full" compaction plans applied from the second
   dispatch on).
-* Against `pt`'s render_adaptive on the same scene and arguments (`pt`'s
-  LBVH backend): film MSE < 1e-3, the project's film contract, and the
+* Against `pt`'s render_adaptive on the same scene and arguments (the
+  LBVH backend in both packages): film MSE < 1e-3, the project's film contract, and the
   mean samples per pixel within 5%.
 * The global-MSE mode, the time budget, a uniform render resetting the
   film, the checkpoint fields (`spp_map`, `accum_sq`) and the refusal to
@@ -38,8 +38,9 @@ from torch_threads import one_torch_thread  # noqa: F401
 FILM_MSE = 1e-3
 
 
-def _renderer(size=16, bounces=2):
-    r = TR.Renderer(PathTracingSettings(sample_count=1, bounce_count=bounces),
+def _renderer(size=16, bounces=2, backend="pallas"):
+    r = TR.Renderer(PathTracingSettings(sample_count=1, bounce_count=bounces,
+                                        backend=backend),
                     device="cpu")
     r.set_scene(make_default_scene(), stream_textures=False)
     r.on_resize(size, size)
@@ -64,7 +65,7 @@ def test_tol_zero_is_bit_equal_to_the_uniform_film():
 
 def test_film_matches_pts_render_adaptive():
     kw = dict(tol=0.05, max_spp=16, min_spp=2, check_every=2)
-    r = _renderer()
+    r = _renderer(backend="bvh")             # pt's backend here
     stats = r.render_adaptive(**kw)
     jr = JRenderer(JSettings(sample_count=1, bounce_count=2, backend="bvh"))
     jr.set_scene(j_default(), stream_textures=False)

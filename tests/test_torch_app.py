@@ -19,6 +19,7 @@
 
 import contextlib
 import io
+import re
 
 import numpy as np
 import pytest
@@ -99,9 +100,8 @@ def test_cli_list_scenes_matches_pt():
 
 def test_cli_parser_keeps_pts_flags_and_defaults():
     """Every command of `pt`'s parser is there. `list-scenes`, `render`,
-    `debug` and `stats` have each of `pt`'s options with `pt`'s default;
-    `render`, `debug` and `stats` add `--device`. The command of a later
-    item (`view`) is bare."""
+    `debug`, `stats` and `view` have each of `pt`'s options with `pt`'s
+    default; `render`, `debug`, `stats` and `view` add `--device`."""
     def options(parser):
         sub = next(a for a in parser._actions
                    if a.dest == "command").choices
@@ -109,13 +109,10 @@ def test_cli_parser_keeps_pts_flags_and_defaults():
                        if a.dest != "help"} for name, p in sub.items()}
     got, want = options(cli.build_parser()), options(jcli.build_parser())
     assert got.keys() == want.keys()
-    assert list(cli.DEFERRED_COMMANDS) == ["view"]
-    for name in cli.DEFERRED_COMMANDS:
-        assert got.pop(name) == {}
-        want.pop(name)
-    for name in ("render", "debug", "stats"):
+    assert not hasattr(cli, "DEFERRED_COMMANDS")
+    for name in ("render", "debug", "stats", "view"):
         assert got[name].pop("device") is None
-    assert got["render"]["backend"] == "pallas"
+    assert got["render"]["backend"] == got["view"]["backend"] == "pallas"
     assert got == want
 
 
@@ -132,7 +129,7 @@ _SMALL = ["--size", "8x8", "--spp", "1", "--bounces", "1"]
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["render", "--backend", "bvh", "--device", "cpu"], 7),
+    (["render", "--backend", "bvh", "--device", "cpu", *_SMALL], 7),
     (["render", "--format", "mp4", "--device", "cpu", *_SMALL], 5),
     (["render", "--format", "tga", "--device", "cpu", *_SMALL], 5),
     (["render", "--out", "frame.jpg", "--device", "cpu", *_SMALL], 5),
@@ -142,24 +139,34 @@ _SMALL = ["--size", "8x8", "--spp", "1", "--bounces", "1"]
     (["debug", "--out", "d.jpg", "--device", "cpu", "--size", "8x8"], 5),
     (["debug", "--scene", "scene.glb", "--device", "cpu"], 6),
     (["view"], 8),
-    (["view", "--port", "9000", "--duration", "1"], 8),
+    # port 0 takes a free one; the id is the one this case has always had
+    pytest.param(["view", "--port", "0", "--duration", "0.5", "--size",
+                  "8x8", "--bounces", "1", "--device", "cpu"], 8,
+                 id="view_--port_9000"),
     (["-A", "Assets", "list-scenes"], 6),
     (["-S", "Scenes", "render", "--device", "cpu"], 6),
 ], ids=lambda v: v if isinstance(v, int) else "_".join(v[:3]))
 def test_cli_deferred_options_name_their_queue_item(tmp_path, monkeypatch,
                                                     argv, item):
-    """Items 7 and 8 are still to come: their options exit non-zero naming
-    the item and write nothing. Items 5 and 6 are done: mp4 (the MJPEG AVI
+    """The options of queue 1, items 5 to 8, all ported. Item 7:
+    `--backend bvh` renders. Item 8: `view` serves the viewer for
+    `--duration` seconds, and without `--device` on a host with no card
+    exits 2 as the other commands do. Items 5 and 6: mp4 (the MJPEG AVI
     where there is no ffmpeg), tga and jpg files are written; a scene file
     that does not exist exits 2 as in `pt`, and so does an `-A`/`-S` path
     that is not a directory."""
     from pt_torch.out import saver
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(saver, "ffmpeg_available", lambda: False)
-    rc, _, err = _main(argv)
-    if item in (7, 8):
-        assert rc != 0
-        assert f"queue 1, item {item}" in err, err
+    if argv[0] == "view" and "--device" not in argv:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _main(argv)
+    if item == 8:
+        if "--device" in argv:
+            assert rc == 0, err
+            assert re.search(r"viewer at http://127\.0\.0\.1:\d+/", out), out
+        else:
+            assert rc == 2 and "no CUDA device" in err, err
         assert not list(tmp_path.iterdir())
     elif "--scene" in argv:
         assert rc == 2 and "scene file not found" in err, err
@@ -169,7 +176,8 @@ def test_cli_deferred_options_name_their_queue_item(tmp_path, monkeypatch,
     else:
         assert rc == 0, err
         written = {"mp4": "render.avi", "tga": "render.png",
-                   "frame.jpg": "frame.jpg", "d.jpg": "d.jpg"}[argv[2]]
+                   "frame.jpg": "frame.jpg", "d.jpg": "d.jpg",
+                   "bvh": "render.png"}[argv[2]]
         assert [p.name for p in tmp_path.iterdir()] == [written]
 
 

@@ -9,7 +9,7 @@
   textured Default, 32², 1 spp, 3 bounces, brute) against `pt`'s: film MSE
   < 1e-3 and the same ray count.
 * No fallback: brute reaches no kernel wrapper, the kernel backend never
-  reaches brute force, "bvh" raises naming queue 1, item 7, and an unknown
+  reaches brute force, "bvh" builds the threaded LBVH, and an unknown
   backend raises.
 * A change of backend through `set_settings` rebuilds the accel; the
   brute accel stays out of the accel cache (as in `pt`), and changing back
@@ -138,19 +138,25 @@ def test_render_image_stats_brute_matches_pt_at_entry_settings(
 
 
 def test_unknown_and_later_backends_raise():
+    """An unknown backend raises; "bvh" (queue 1, item 7, now ported)
+    builds `pt`'s threaded LBVH and is taken by `set_settings`."""
     ds = flatten_scene(tex_.make_default_scene(), device="cpu")
     bvh = tint.PathTracingSettings(backend="bvh")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tint.prepare_accel(ds, bvh)
+    accel = tint.prepare_accel(ds, bvh)
+    assert isinstance(accel.bvh, tint.ThreadedTriangles)
+    assert accel.bvh.bvh.leaf_size == bvh.bvh_leaf_size == 4
     with pytest.raises(ValueError, match="unknown backend"):
         tint.resolve_backend(tint.PathTracingSettings(backend="xla"))
     r = Renderer(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        r.set_settings(bvh)
+    with pytest.raises(ValueError, match="unknown backend"):
+        r.set_settings(tint.PathTracingSettings(backend="xla"))
     assert r.settings.backend == "pallas"
+    r.set_settings(bvh)
+    assert r.settings.backend == "bvh" and r._accel_dirty
     assert tint.PathTracingSettings().backend == "pallas"
     assert [tint.resolve_backend(tint.PathTracingSettings(backend=b))
-            for b in ("pallas", "brute")] == ["pallas", "brute"]
+            for b in ("pallas", "bvh", "brute")] == ["pallas", "bvh",
+                                                     "brute"]
 
 
 def test_backend_change_rebuilds_and_switching_back_hits_the_cache(

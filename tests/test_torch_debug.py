@@ -182,6 +182,7 @@ def test_convert_carries_modes_flags_and_settings():
     assert got == PathTracingSettings(sample_count=2, bounce_count=3,
                                       backend="brute")
     assert tdebug.render_debug_image.__defaults__[0].backend == "brute"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        convert.path_tracing_settings(dataclasses.asdict(
-            JSettings(sort_rays=True)))
+    js = JSettings(sort_rays=True, shade_sorted=True, bvh_leaf_size=8)
+    assert convert.path_tracing_settings(dataclasses.asdict(js)) == \
+        PathTracingSettings(sort_rays=True, shade_sorted=True,
+                            bvh_leaf_size=8)

@@ -1319,3 +1319,75 @@ def test_cuda_hdr10_snapshot_matches_cpu(cuda_device, tmp_path):
     assert {k: v for k, v in kernels.launches.items() if v} == {
         "closest_bf8": 5, "occluded_bf8": 5}
     assert decode_png(png.read_bytes()).shape == (32, 32, 4)
+
+
+@pytest.mark.gpu
+def test_cuda_bvh_closest_equals_brute(cuda_device):
+    """`backend="bvh"`'s threaded walk on the card: exact ids against the
+    brute oracle on independent random triangles, every tree tensor on the
+    card, no kernel launched."""
+    from pt_torch.accel import lbvh, traverse
+    from pt_torch.accel.intersect import intersect_brute
+    v, t = _random_tris(2000, seed=5)
+    V = torch.as_tensor(v, device=cuda_device)
+    T = torch.as_tensor(t, device=cuda_device)
+    o, d = _rays(8192, seed=6, device=cuda_device)
+    tree = lbvh.build_bvh(V, T, 4)
+    for name in ("aabb_lo", "aabb_hi", "miss_next", "leaf_id", "leaf_tris"):
+        assert getattr(tree, name).device.type == "cuda", name
+    kernels.reset_launch_counts()
+    hit = traverse.bvh_closest(tree, V, T, o, d)
+    occ = traverse.bvh_occluded(tree, V, T, o, d, 6.0)
+    assert not any(kernels.launches.values())
+    ref = intersect_brute(V, T, o, d)
+    assert torch.equal(hit.tri, ref.tri)
+    assert int((hit.tri >= 0).sum()) > 0
+    assert torch.equal(occ, intersect_brute(V, T, o, d, tmax=6.0).is_hit)
+
+
+@pytest.mark.gpu
+def test_cuda_viewer_serves_a_frame(cuda_device):
+    """The viewer on `cuda:0` (the Default at 64², one frame a loop): GET
+    /frame is a JPEG of the card's film, GET /state reports its samples."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run import viewer
+    from pt_torch.run.app import Application
+
+    app = Application()
+    assert app.renderer.device.type == "cuda"
+    app.renderer.set_settings(PathTracingSettings(sample_count=1,
+                                                  bounce_count=3))
+    app.init(width=64, height=64)
+    holder = {}
+    orig = viewer.ViewerServer
+
+    class Hooked(orig):
+        def start(self):
+            super().start()
+            holder["base"] = f"http://{self.host}:{self.port}"
+
+    viewer.ViewerServer = Hooked
+    try:
+        t = threading.Thread(target=viewer.run_viewer, args=(app,),
+                             kwargs=dict(port=0, duration_seconds=6.0,
+                                         show_hud=False))
+        t.start()
+        deadline = time.monotonic() + 60.0
+        state = {}
+        while time.monotonic() < deadline and not state.get("total_samples"):
+            time.sleep(0.2)
+            if "base" in holder:
+                state = json.loads(urllib.request.urlopen(
+                    holder["base"] + "/state", timeout=5).read())
+        jpeg = urllib.request.urlopen(holder["base"] + "/frame",
+                                      timeout=5).read()
+        t.join()
+    finally:
+        viewer.ViewerServer = orig
+    assert jpeg[:2] == b"\xff\xd8" and len(jpeg) > 200
+    assert state["total_samples"] >= 1 and state["size"] == [64, 64]

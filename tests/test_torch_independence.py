@@ -27,12 +27,15 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "pt", "benches", "PIL"}
 # the functions that import Pillow, where `pt` does: JPG/TGA/WEBP decoding,
-# JPG/TGA writing and the MJPEG AVI's frames; and chip_smoke's video arm,
-# which decodes those frames where Pillow is installed
+# JPG/TGA writing, the MJPEG AVI's frames and the viewer's JPEG stream; and
+# chip_smoke's video arm and viewer phase, which decode those JPEGs where
+# Pillow is installed
 PILLOW_ONLY_IN = {("textures.py", "decode_image_u8"),
                   ("textures.py", "get_texture_info"),
                   ("saver.py", "write_image"), ("avi.py", "write_frame"),
-                  ("chip_smoke.py", "phase_import")}
+                  ("viewer.py", "_encode_jpeg"),
+                  ("chip_smoke.py", "phase_import"),
+                  ("chip_smoke.py", "phase_view")}
 
 
 def _port_sources():
