@@ -238,6 +238,22 @@ Phases, each fatal on failure (nothing is caught and passed over):
     4 spp, 5 bounces: `sort_rays` on the Animated Heightfield (17 K3 + 17
     K4 a step either way), `shade_sorted` on the Heightfield (17 K1 + 17
     K2); films bit-equal, ms a step of each arm;
+13b. multi-device rendering (`[dist]` lines): one gang of 4 ranks on the
+    card over gloo (`pt_torch.dist.launch.Gang`), started once; the
+    Heightfield n=224 at 512², 5 bounces, 4 spp. `render_image_sharded`
+    over the 4 ranks: the bands joined bit-equal to `render_image_stats`
+    here, rays equal, each rank 20 closest_v4 + 20 occluded_v4 (launch
+    counters set to 0 just before and read just after) and no plain
+    version; the 2-D meshes 4x1 and 1x4 bit-equal to the 1-D modes, the
+    2x2 mean 1.5-2.6x and the spp mode's 3-5x the single film's;
+    `Renderer(mesh=)` over 1, 2 and 4 ranks: one render(4) step's film and
+    rays bit-equal to one device's Renderer here, also with compaction off,
+    each rank 17 closest_bf8 + 17 occluded_bf8 and no plain version, then
+    3 timed steps (ms a step, Mrays/s over the ranks, peak MiB per rank:
+    the ranks share one card, so this is no scaling figure);
+    `render_adaptive` at tol=0 bit-equal to one device's; `OfflineRenderer`
+    under the mesh writes one PNG, its bytes equal to a 1-rank mesh's; the
+    sharded film at 64² against the CPU's (MSE < 1e-3);
 14. the viewer (`[view]` lines), last, since it re-imports the shading
     modules in this process: `run_viewer` on a loopback port in a thread
     over an `Application` on the card, the Heightfield at 512²; over HTTP
@@ -264,7 +280,9 @@ alpha loop; K4: a COLOR frame with shadows), from phase 10d
 `launches_import` (K1/K2, or K5/K6: the imported Courtyard's CLI render;
 K3/K4: a 4-spp step of the animated import), from phase 14
 `launches_view` (K1/K2: a viewer frame of the Heightfield; K3/K4: one of
-the Animated Heightfield), then one row per archive
+the Animated Heightfield), from phase 13b `launches_dist` (per rank of
+the 4: K1/K2 in a `Renderer(mesh=)` render(4) step, K3/K4 in a
+`render_image_sharded` call), then one row per archive
 entry point, with the kernel it
 runs and the workload it was timed on (A2, A8/A9: also the per-ray arm's
 time on the same rays; A3-A6 their A/B at both bounces; A1, A7 and
@@ -2132,20 +2150,23 @@ def _failed_subset_trees():
 def _counted_steps(r, names, steps: int = 3):
     """`steps` render steps with the launch counters set to 0 just before
     and read just after: (seconds, launches of `names`, all launches, useful
-    rays, peak MiB)."""
+    rays, peak MiB; None for a renderer on the CPU)."""
     import torch
     from pt_torch.accel import kernels
+    cuda = r.device.type == "cuda"
     rays0 = r.rays_traced
-    torch.cuda.reset_peak_memory_stats()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t1 = time.perf_counter()
     for _ in range(steps):
         r.render()
-    torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     every = dict(kernels.launches)
     return (dt, {k: every[k] for k in names}, every, r.rays_traced - rays0,
-            torch.cuda.max_memory_allocated() / 2**20)
+            torch.cuda.max_memory_allocated() / 2**20 if cuda else None)
 
 
 def _check_film(r, what: str):
@@ -4326,6 +4347,304 @@ def phase_knobs():
     return out
 
 
+# ------------------------------------------------------------------ [dist]
+
+DIST_RANKS = 4      # the [dist] gang: ranks on cuda:0 over gloo
+DIST_CROSS = 64     # [dist]'s card-against-CPU film size, over the
+DIST_CROSS_N = 32   # Heightfield of this grid (the CPU traces by brute force)
+DIST_STEPS = 3      # timed render(4) steps of each mesh size
+K12 = ("closest_bf8", "occluded_bf8")
+K34 = ("closest_v4", "occluded_v4")
+
+
+def _dist_settings(spp: int, bounces: int):
+    from pt_torch.render.integrator import PathTracingSettings
+    return PathTracingSettings(sample_count=spp, bounce_count=bounces)
+
+
+def _dist_renderer(mesh, width: int, spp: int, bounces: int, device,
+                   n: int):
+    """`Renderer(mesh=)` on `device` (None: the rank's card) over the
+    Heightfield of grid size `n`."""
+    from pt_torch.run.renderer import Renderer
+    from pt_torch.scene.examples import make_heightfield_scene
+    r = Renderer(_dist_settings(spp, bounces), mesh=mesh, device=device)
+    r.set_scene(make_heightfield_scene(n))
+    r.on_resize(width, width)
+    return r
+
+
+def _first(x):
+    """`x` on the gang's first rank, None elsewhere (films come back once)."""
+    import torch.distributed as dist
+    return x if dist.get_rank() == 0 else None
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_rank_modes(width: int, spp: int, bounces: int, device=None,
+                    n: int = BVH_FULL_N):
+    """[dist] (a) and (b), in every rank, on `device` (None: the rank's
+    card) over the Heightfield of grid size `n`: `render_image_sharded`
+    over the gang with the launch counters set to 0 just before and read
+    just after and the plain versions counted; then `render_spp_sharded`
+    and the 2-D meshes 4x1, 1x4 and 2x2. (film on the first rank, rays) of
+    each."""
+    from pt_torch.accel import kernels
+    from pt_torch.dist import mesh as dm
+    from pt_torch.scene.examples import make_heightfield_scene
+    device = dm.rank_device(device)
+    args = (*_entry_inputs(make_heightfield_scene(n), width, device), width,
+            width, 0, _dist_settings(spp, bounces))
+    film = dm.film_mesh(device=device)
+    with _PlainCalls() as plain:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        band, rays = dm.render_image_sharded(*args, film, device)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+    out = {"launches": launches, "secs": secs,
+           "plain": {k: v for k, v in plain.calls.items() if v},
+           "film": (_first(dm.assemble_film(band, film)), int(rays))}
+    img, rays = dm.render_spp_sharded(*args, film, device)
+    out["spp"] = (_first(img.cpu().numpy()), int(rays))
+    for f, s in ((DIST_RANKS, 1), (1, DIST_RANKS), (2, 2)):
+        mesh = dm.film_spp_mesh(f, s, device=device)
+        band, rays = dm.render_image_spp_sharded(*args, mesh, device)
+        out[f"{f}x{s}"] = (_first(dm.assemble_film(band, mesh)), int(rays))
+    return out
+
+
+def dist_rank_renderer(width: int, spp: int, bounces: int, device=None,
+                       n: int = BVH_FULL_N):
+    """[dist] (c), in every rank: `Renderer(mesh=film_mesh(ranks[:k]))` for
+    k = 1, 2, 4, on `device` over the Heightfield of grid size `n` (as
+    `dist_rank_modes`). Per mesh: one render(spp) step with the
+    launch counters set to 0 just before and read just after and the plain
+    versions counted (film on the first rank, rays, this rank's launches
+    and plain calls), then DIST_STEPS timed steps after a barrier (this
+    rank's seconds and peak MiB, the mesh's rays). Then the 4-rank step
+    again with every compaction class patched huge (film, rays)."""
+    import torch.distributed as dist
+    from pt_torch.dist import mesh as dm
+    from pt_torch.run import renderer as R
+    out = {}
+    for k in (1, 2, DIST_RANKS):
+        mesh = dm.film_mesh(range(k), device=device)
+        if mesh.get_coordinate() is None:
+            out[k] = None
+            continue
+        r = _dist_renderer(mesh, width, spp, bounces, device, n)
+        with _PlainCalls() as plain:
+            _, _, every, rays, _ = _counted_steps(r, K12, steps=1)
+        res = {"film": _first(r.film_mean()), "rays": rays,
+               "launches": {k: v for k, v in every.items() if v},
+               "plain": {k: v for k, v in plain.calls.items() if v}}
+        dist.barrier(mesh.get_group(0))
+        res["secs"], _, _, res["steps_rays"], res["peak_mib"] = (
+            _counted_steps(r, K12, steps=DIST_STEPS))
+        out[k] = res
+    orig = R._size_class
+    R._size_class = lambda n, minimum=1024: 1 << 30
+    try:
+        r = _dist_renderer(dm.film_mesh(device=device), width, spp, bounces,
+                           device, n)
+        r.render()
+        out["uncompacted"] = (_first(r.film_mean()), r.rays_traced)
+    finally:
+        R._size_class = orig
+    return out
+
+
+def dist_rank_rest(width: int, bounces: int, directory: str, device=None,
+                   n: int = BVH_FULL_N, cross: int = DIST_CROSS):
+    """[dist] (d)-(f), in every rank, over the whole gang, on `device` over
+    the Heightfield of grid size `n` (as `dist_rank_modes`):
+    `render_adaptive` at tol=0 (2 spp a pixel); `OfflineRenderer` to one
+    PNG in `directory`/mesh and, on a 1-rank mesh, in `directory`/one (4
+    spp in steps of 2); the 4-spp film at `cross`² of the Heightfield
+    n=DIST_CROSS_N for the CPU's. What the first rank gets of each."""
+    from pt_torch.dist import mesh as dm
+    from pt_torch.out.saver import OutputInfo
+    from pt_torch.run.offline import OfflineRenderer, RenderSettings
+    mesh = dm.film_mesh(device=device)
+    r = _dist_renderer(mesh, width, 1, bounces, device, n)
+    stats = r.render_adaptive(tol=0.0, max_spp=2, min_spp=1, check_every=2)
+    out = {"adaptive": (stats, _first(r.film_mean()))}
+    for name, m in (("mesh", mesh),
+                    ("one", dm.film_mesh(range(1), device=device))):
+        if m.get_coordinate() is None:
+            continue
+        path = pathlib.Path(directory) / name / "frame.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        out[name] = OfflineRenderer(_dist_renderer(
+            m, width, 1, bounces, device, n)).render(RenderSettings(
+            output=OutputInfo(str(path), width, width, 30.0, "png"),
+            max_sample_count=4, samples_per_step=2))
+    r = _dist_renderer(mesh, cross, 4, bounces, device, DIST_CROSS_N)
+    r.render()
+    out["cross"] = _first(r.film_mean())
+    return out
+
+
+def phase_dist():
+    """Phase 13b (`[dist]` lines): multi-device rendering (`pt_torch.dist`,
+    `Renderer(mesh=)`) by one gang of DIST_RANKS ranks that share the card,
+    over gloo (nccl refuses two ranks on one card), started once; the
+    Heightfield n=224 at 512², 5 bounces, 4 spp. (a) `render_image_sharded`
+    over the 4 ranks: its bands joined bit-equal to `render_image_stats` in
+    this process, rays equal, each rank 20 closest_v4 + 20 occluded_v4 and
+    no plain version. (b) the 2-D mesh: 4x1 and 1x4 bit-equal to the 1-D
+    modes, the 2x2 mean 1.5-2.6x the single film's. (c) `Renderer(mesh=)`
+    over 1, 2 and 4 ranks: render(4) films and rays bit-equal to each other
+    and to the single-device Renderer's here, and with compaction off;
+    each rank's K1/K2 launches (17 + 17, as one device's) and no plain
+    call; ms a step, Mrays/s of the mesh, peak MiB per rank (the ranks
+    share one card: not a scaling figure). (d) `render_adaptive` at tol=0
+    bit-equal to the single-device one. (e) `OfflineRenderer` under the
+    mesh writes one PNG, its bytes equal to a 1-rank mesh's. (f) the
+    sharded film at DIST_CROSS² against the CPU's, MSE < 1e-3 (the
+    Heightfield n=DIST_CROSS_N: the CPU's plain versions are brute
+    force). Logs the seconds of each part."""
+    import shutil
+    import torch
+    from pt_torch.dist.launch import Gang
+    from pt_torch.render.integrator import render_image_stats
+    from pt_torch.scene.examples import make_heightfield_scene
+    t0 = time.perf_counter()
+    spp, bounces, width = 4, 5, 512
+    settings = _dist_settings(spp, bounces)
+    ref, ref_rays = render_image_stats(
+        *_entry_inputs(make_heightfield_scene(BVH_FULL_N), width, "cuda"),
+        width, width, 0, settings)
+    ref = ref.cpu().numpy()
+    one = _renderer(BVH_FULL_N, width, spp, bounces, "cuda")
+    one.render()
+    one_film, one_rays = one.film_mean(), one.rays_traced
+    one = _renderer(BVH_FULL_N, width, 1, bounces, "cuda")
+    one.render_adaptive(tol=0.0, max_spp=2, min_spp=1, check_every=2)
+    one_adaptive = one.film_mean()
+    del one
+    cpu = _renderer(DIST_CROSS_N, DIST_CROSS, 4, bounces, "cpu")
+    cpu.render()
+    cpu_film = cpu.film_mean()
+    del cpu
+    directory = OUT_DIR / "dist"
+    shutil.rmtree(directory, ignore_errors=True)
+    secs = {"references": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    with Gang(DIST_RANKS, "gloo") as gang:
+        secs["start"] = time.perf_counter() - t1
+        log(f"[dist] gang of {DIST_RANKS} ranks over gloo: {gang.joined}")
+        out = {}
+        for name, fn, args in (
+                ("modes", dist_rank_modes, (width, spp, bounces)),
+                ("renderer", dist_rank_renderer, (width, spp, bounces)),
+                ("rest", dist_rank_rest, (width, bounces, str(directory)))):
+            t1 = time.perf_counter()
+            out[name] = gang.run(fn, *args, deadline=300)
+            secs[name] = time.perf_counter() - t1
+    modes, rend, rest = out["modes"], out["renderer"], out["rest"]
+    log("[dist] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in secs.items()))
+
+    # (a) film bands
+    film, rays = modes[0]["film"]
+    check(np.array_equal(film, ref), "[dist] render_image_sharded film "
+          f"differs from render_image_stats': max |d| "
+          f"{float(np.abs(film - ref).max())}")
+    check(rays == int(ref_rays), f"[dist] rays {rays} against {int(ref_rays)}")
+    want = {k: spp * bounces for k in K34}
+    for rank, res in enumerate(modes):
+        check(res["launches"] == want and not res["plain"],
+              f"[dist] rank {rank}: render_image_sharded launched "
+              f"{res['launches']}, plain calls {res['plain']}")
+    log(f"[dist] render_image_sharded over {DIST_RANKS} ranks: bands joined "
+        f"bit-equal to render_image_stats, rays {rays}; per rank "
+        f"{[res['launches'] for res in modes]}, no plain call; "
+        f"{[round(res['secs'] * 1e3, 1) for res in modes]} ms a rank")
+    # (b) the 2-D mesh
+    res = modes[0]
+    check(np.array_equal(res[f"{DIST_RANKS}x1"][0], film)
+          and res[f"{DIST_RANKS}x1"][1] == rays,
+          "[dist] the 4x1 mesh differs from film sharding")
+    check(np.array_equal(res[f"1x{DIST_RANKS}"][0], res["spp"][0])
+          and res[f"1x{DIST_RANKS}"][1] == res["spp"][1],
+          "[dist] the 1x4 mesh differs from spp sharding")
+    ratio = float(res["2x2"][0].mean() / ref.mean())
+    spp_ratio = float(res["spp"][0].mean() / ref.mean())
+    check(1.5 < ratio < 2.6, f"[dist] 2x2 mesh mean ratio {ratio}")
+    check(3.0 < spp_ratio < 5.0, f"[dist] spp mode mean ratio {spp_ratio}")
+    log(f"[dist] 2-D mesh: 4x1 and 1x4 bit-equal to the 1-D modes; 2x2 "
+        f"mean {ratio:.4f}x the single film, spp mode {spp_ratio:.4f}x; rays "
+        f"spp {res['spp'][1]}, 2x2 {res['2x2'][1]}")
+    # (c) the Renderer
+    stats = {}
+    for n in (1, 2, DIST_RANKS):
+        first = rend[0][n]
+        check(np.array_equal(first["film"], one_film)
+              and first["rays"] == one_rays,
+              f"[dist] Renderer over {n} ranks: film or rays ({first['rays']}"
+              f" against {one_rays}) differ from one device's")
+        for rank in range(n):
+            res = rend[rank][n]
+            check(res["launches"] == {k: 17 for k in K12}
+                  and not res["plain"],
+                  f"[dist] Renderer over {n} ranks, rank {rank}: launched "
+                  f"{res['launches']}, plain calls {res['plain']}")
+        step = max(rend[rank][n]["secs"] for rank in range(n)) / DIST_STEPS
+        stats[n] = {"ms": round(step * 1e3, 1),
+                    "mrays": round(first["steps_rays"] / DIST_STEPS / step
+                                   / 1e6, 2),
+                    "peak_mib": [round(rend[rank][n]["peak_mib"])
+                                 for rank in range(n)]}
+        log(f"[dist] Renderer over {n} rank(s) of one card: film bit-equal to "
+            f"one device's, rays {first['rays']}, per rank 17 + 17 K1/K2, no "
+            f"plain call; {stats[n]['ms']} ms a 4-spp step, "
+            f"{stats[n]['mrays']} Mrays/s over the ranks, peak "
+            f"{stats[n]['peak_mib']} MiB per rank")
+    film_off, rays_off = rend[0]["uncompacted"]
+    check(np.array_equal(film_off, one_film) and rays_off == one_rays,
+          "[dist] compaction off changes the 4-rank film")
+    log("[dist] Renderer over 4 ranks with compaction off: bit-equal")
+    # (d) - (f)
+    rest0 = rest[0]
+    a_stats, a_film = rest0["adaptive"]
+    check(a_stats["spp_min"] == a_stats["spp_max"] == 2
+          and np.array_equal(a_film, one_adaptive),
+          f"[dist] render_adaptive at tol=0 over 4 ranks {a_stats} differs "
+          "from one device's")
+    log(f"[dist] render_adaptive tol=0 over 4 ranks: bit-equal to one "
+        f"device's, {a_stats}")
+    pngs = {name: sorted((directory / name).iterdir())
+            for name in ("mesh", "one")}
+    check(all(len(p) == 1 for p in pngs.values())
+          and rest0["mesh"] == rest0["one"] == 1
+          and all(res["mesh"] == 1 for res in rest),
+          f"[dist] offline: files {pngs}, frames {rest0}")
+    check(pngs["mesh"][0].read_bytes() == pngs["one"][0].read_bytes(),
+          "[dist] offline PNG under 4 ranks differs from a 1-rank mesh's")
+    log(f"[dist] OfflineRenderer over 4 ranks: one PNG "
+        f"({pngs['mesh'][0].stat().st_size} bytes), equal to a 1-rank "
+        "mesh's")
+    mse = float(np.mean((rest0["cross"] - cpu_film) ** 2))
+    check(mse < 1e-3, f"[dist] card against CPU at {DIST_CROSS}²: MSE {mse}")
+    log(f"[dist] sharded card film against the CPU at {DIST_CROSS}²: MSE "
+        f"{mse:.3e}")
+    secs = time.perf_counter() - t0
+    log(f"[dist] phase 13b in {secs:.1f} s")
+    return {"launches_dist": {
+        **{k: [res["launches"].get(k, 0) for res in modes] for k in K34},
+        **{k: [rend[rank][DIST_RANKS]["launches"].get(k, 0)
+               for rank in range(DIST_RANKS)] for k in K12}},
+        "steps": stats, "seconds": round(secs, 1)}
+
+
 def _http(base, path, body=None):
     """GET (body None) or POST `body` as JSON to the viewer: the reply's
     bytes."""
@@ -4581,6 +4900,7 @@ def main() -> None:
     b_rows = fresh(phase_budget)
     bvh = fresh(phase_bvh)
     knobs = fresh(phase_knobs)
+    ranks = fresh(phase_dist)
     view = fresh(phase_view)        # last: it re-imports shading modules
     counts.update(a_counts)
     counts.update(i_counts)
@@ -4615,6 +4935,8 @@ def main() -> None:
             rows[-1]["launches_debug_alpha"] = debug["launches_debug_alpha"]
         if k in view["launches_view"]:       # phase 14: a viewer frame
             rows[-1]["launches_view"] = view["launches_view"][k]
+        if k in ranks["launches_dist"]:      # phase 13b: per rank
+            rows[-1]["launches_dist"] = ranks["launches_dist"][k]
         if k in PER_RAY:        # the in-call A/B against the first design
             rows[-1].update(per_ray_ms=tm["per_ray_ms"], ab_ms=tm["ab_ms"],
                             per_ray_ms_bounce2=times[(k, 2)]["per_ray_ms"],
@@ -4664,7 +4986,8 @@ def main() -> None:
         f"call, the CLI's 512² render) {json.dumps(entry)}; debug frames "
         f"and HDR10 {json.dumps(debug)}; scene import "
         f"{json.dumps(imp)}; LBVH backend {json.dumps(bvh)}; lane-order "
-        f"knobs {json.dumps(knobs)}; viewer {json.dumps(view)}")
+        f"knobs {json.dumps(knobs)}; ranks on one card {json.dumps(ranks)}; "
+        f"viewer {json.dumps(view)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,6 +22,15 @@ film either way. The "Rendering" stat counts the frames written (and says
 where a resumed render started). Unlike `pt`, the render first waits for
 the renderer's streamed textures, so no frame is shaded with the
 placeholder pool.
+
+Under a mesh (`Renderer(mesh=)`) every rank runs `render` with the same
+settings: each renders its band and takes part in every snapshot and
+checkpoint, and only the mesh's first rank writes the image, video or
+checkpoint file. The loop's decisions (cancel, the time budget, a
+checkpoint's turn) are OR-ed over the ranks after each step, so every rank
+steps, saves and stops together. A render that raises under a mesh keeps
+its last periodic checkpoint: saving one then would wait for ranks that
+may be gone.
 """
 
 from __future__ import annotations
@@ -78,8 +87,13 @@ class OfflineRenderer:
         self._cancelled = False
 
     def cancel(self) -> None:
-        """≙ CancelRendering (Renderer.cpp:810-823)."""
+        """≙ CancelRendering (Renderer.cpp:810-823). Under a mesh it takes
+        effect after the ranks' next step, on every rank."""
         self._cancelled = True
+
+    def _agreed_cancel(self) -> bool:
+        self._cancelled = self.renderer.any_rank(self._cancelled)[0]
+        return self._cancelled
 
     def _resume(self, ckpt: str, adaptive: bool) -> None:
         """Load the checkpoint at `ckpt` if there is one; an unusable file,
@@ -117,12 +131,14 @@ class OfflineRenderer:
         self._cancelled = False
 
         ckpt = settings.checkpoint_path if settings.frame_count == 1 else None
+        writes = r.band == 0          # one device, or the mesh's first rank
         InputCamera.disable_input()
         r.on_resize(out.width, out.height)
         # the first sample sees the scene's own textures, and a swap can no
         # longer reset a film resumed from its checkpoint
         r.wait_for_textures()
-        self.saver.register_output(out)
+        if writes:
+            self.saver.register_output(out)
         frames_written = 0
         completed = False
         try:
@@ -144,7 +160,7 @@ class OfflineRenderer:
                         progress(frame, settings.frame_count,
                                  r.total_samples)
                 else:
-                    while (not self._cancelled
+                    while (not self._agreed_cancel()
                            and r.total_samples < settings.max_sample_count):
                         # clamp the last step so a resume never overshoots
                         # the requested budget
@@ -158,21 +174,24 @@ class OfflineRenderer:
                         if r.total_samples >= settings.max_sample_count:
                             break
                         now = time.perf_counter()
-                        if (settings.max_time_seconds is not None
-                                and now - start
-                                >= settings.max_time_seconds):
+                        out_of_time, ckpt_due = r.any_rank(
+                            settings.max_time_seconds is not None
+                            and now - start >= settings.max_time_seconds,
+                            ckpt and (now - last_ckpt
+                                      >= settings.checkpoint_interval_seconds))
+                        if out_of_time:
                             break
-                        if ckpt and (now - last_ckpt
-                                     >= settings.checkpoint_interval_seconds):
+                        if ckpt_due:
                             r.save_checkpoint(ckpt)
                             last_ckpt = now
-                if self._cancelled:
+                if self._agreed_cancel():
                     break
                 # HDR files keep linear radiance; the rest goes through the
                 # post stack
                 image = (r.film_mean() if out.format == "hdr"
                          else r.snapshot(hdr=settings.hdr))
-                self.saver.submit_frame(image)
+                if writes:
+                    self.saver.submit_frame(image)
                 frames_written += 1
                 Stats.add_stat("Rendering",
                                f"{frames_written}/{settings.frame_count}")
@@ -186,13 +205,16 @@ class OfflineRenderer:
             if self._cancelled or not completed:
                 # cancelled or died mid-render: delete the partial output
                 # but keep a checkpoint so the render can resume
-                self.saver.cancel_output()
-                if ckpt and r.total_samples > 0:
+                if writes:
+                    self.saver.cancel_output()
+                if (ckpt and r.total_samples > 0
+                        and (completed or r.mesh is None)):
                     with contextlib.suppress(Exception):
                         r.save_checkpoint(ckpt)
             else:
-                self.saver.end_output()
-                if ckpt:
+                if writes:
+                    self.saver.end_output()
+                if ckpt and writes:
                     with contextlib.suppress(OSError):
                         os.remove(ckpt)
             InputCamera.enable_input()

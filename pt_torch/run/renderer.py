@@ -60,6 +60,23 @@ run loop's samples-per-frame controller), `snapshot(hdr=)` (HDR10 PQ
 output) and `save_checkpoint` / `load_checkpoint` in `pt`'s `.npz` keys; a
 resumed render continues the exact RNG stream.
 
+With `mesh` (a 1-D `DeviceMesh` of `pt_torch.dist.film_mesh`, one rank
+per band of film rows; `pt`'s `Renderer(mesh=)`), each rank holds its band
+of the film and renders it with the same loops: its lanes are its band's
+pixels, tile-ordered within the band, and its film is the band's rows.
+Every method that reads the film, the ray count or the loops' decisions is
+then collective, and every rank of the mesh calls the same methods in the
+same order: the compaction plans come from the largest live count of any
+rank (one all-reduce where a plan is observed), the adaptive film's
+statistics from the gathered film (each rank deals the same allocation,
+every band's, and traces its own), `max_seconds` from the ranks' agreement,
+`rays_traced` is every rank's count, and `snapshot`, `film_mean` and
+`save_checkpoint` gather the film (`assemble_film`). Only the mesh's first
+rank writes a checkpoint; every rank resumes one, under a mesh of any size
+or none. Under a mesh `set_scene` does not stream textures, so every band
+is shaded with the scene's own pool from the first sample on. The bands
+joined equal the single-device film bit for bit.
+
 `pt`'s timers and stats go to the process-wide board
 (`pt_torch.core.stats`): "Mesh Upload", "Texture Upload", "Acceleration
 Structure Build" and "Render" (host seconds: on the card a step's kernels
@@ -76,6 +93,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pt_torch import default_device
 from pt_torch.accel.bvh8 import (build_bf8, build_packet_bvh,
@@ -85,6 +103,7 @@ from pt_torch.accel.instanced import (build_instanced_bf8,
 from pt_torch.core.cache import LRUCache, fnv1a
 from pt_torch.core.compilewatch import stage_call as _guard
 from pt_torch.core.stats import Stats, Timer
+from pt_torch.dist import mesh as dmesh
 from pt_torch.post.pipeline import PostProcessSettings, postprocess
 from pt_torch.render.integrator import (Accel, AlphaSplit, BounceCarry,
                                         BruteTriangles, PathTracingSettings,
@@ -204,8 +223,10 @@ def _rep_major_stream(alloc: np.ndarray, base_counts: np.ndarray):
     """(pixel, frame) dispatch stream, repetition-major: every pixel's
     rep-0 sample first (film order), then rep-1, ...: a chunk of the stream
     covers mostly distinct pixels in film order, and a pixel's duplicates
-    carry consecutive frame counters."""
-    parts_p, parts_f = [], []
+    carry consecutive frame counters. An empty allocation gives empty
+    streams."""
+    empty = np.zeros(0, np.int64)
+    parts_p, parts_f = [empty], [empty]
     for rep in range(int(alloc.max())):
         sel = np.flatnonzero(alloc > rep)
         parts_p.append(sel)
@@ -254,26 +275,41 @@ class Renderer:
                  device=None, mesh=None, instancing: str = "auto",
                  min_refresh_rate: float = 60.0,
                  max_samples_per_frame: int = 64):
-        """`device`: None → `cuda:0` (raises without a card); "cpu" runs
-        the kernels' plain versions. `instancing`: the shared-BLAS policy
+        """`device`: None → `cuda:0` (raises without a card), or the rank's
+        device under a mesh (`rank_device`); "cpu" runs the kernels' plain
+        versions. `mesh`: a 1-D `DeviceMesh` of film-row bands that holds
+        this rank (see the module's docstring), or None for one device.
+        `instancing`: the shared-BLAS policy
         for static scenes: "auto" switches to the instanced structure when
         geometry reuse is heavy (see `_want_instanced`), "shared" forces it
-        where it is feasible, "flatten" disables it. `mesh` (multi-device
-        film sharding) is a later slice of the port: a mesh raises.
+        where it is feasible, "flatten" disables it.
         `min_refresh_rate` / `max_samples_per_frame`: the limits of the
         samples-per-frame controller that `on_update` feeds."""
-        self.device = default_device(device)
         self.mesh = mesh
+        # this rank's band of film rows (0 of 1 on one device)
+        if mesh is None:
+            self.device = default_device(device)
+            self.band, self._bands, self._group = 0, 1, None
+        else:
+            if mesh.ndim != 1:
+                raise ValueError("Renderer shards film rows over a 1-D mesh, "
+                                 f"not {mesh}")
+            self.device = dmesh.rank_device(device)
+            (self.band,) = dmesh.coordinate(mesh)
+            self._bands = mesh.size()
+            self._group = mesh.get_group(0)
         self.instancing = instancing
         self.settings = settings or PathTracingSettings()
         self.post = post or PostProcessSettings()
         self.width = 0
         self.height = 0
+        self._rows = 0          # this rank's film rows (all of them alone)
         self.ds: Optional[DeviceScene] = None
         self.tex: Optional[DeviceTextures] = None
         self.accel: Optional[Accel] = None
         self.scene: Optional[Scene] = None
-        self.accum: Optional[torch.Tensor] = None   # (H, W, 3) f32 film
+        # (H, W, 3) f32 film; this rank's (H / bands, W, 3) rows on a mesh
+        self.accum: Optional[torch.Tensor] = None
         self.total_samples = 0
         # ray counter: per-sample 0-d device tensors plus a folded host
         # int; `_fold_rays` bounds the list, `rays_traced` reads both
@@ -283,8 +319,9 @@ class Renderer:
         self.camera_index = 0
         self._px = self._py = self._film_perm = None
         self._order_np = None
-        # adaptive film: per-pixel sample counts (film order, host) and
-        # luminance second moments (film order, device)
+        # adaptive film: per-pixel sample counts (film order, host, the
+        # whole film on every rank) and luminance second moments (film
+        # order, device, this rank's band)
         self._spp_map: Optional[np.ndarray] = None
         self._accum_sq: Optional[torch.Tensor] = None
         self._accel_dirty = True
@@ -309,7 +346,9 @@ class Renderer:
         `stream_textures`, rendering starts at once on the placeholder
         pool while a loader thread builds the real one, which the next
         render swaps in (restarting the film; ≙ the TextureUploader's
-        placeholder-then-swap table, TextureUploader.cpp:272-383)."""
+        placeholder-then-swap table, TextureUploader.cpp:272-383). Under
+        a mesh the pool is built before this returns: every band is shaded
+        with the same pool."""
         self.scene = scene
         with Timer("Mesh Upload"):
             self.ds = flatten_scene(scene, device=self.device)
@@ -320,7 +359,7 @@ class Renderer:
         self._tex_thread = None
         if tex is not None:
             self.tex = tex
-        elif scene.textures and stream_textures:
+        elif scene.textures and stream_textures and self.mesh is None:
             self.tex = default_texture_pool(device=self.device)
             gen, device = self._tex_gen, self.device
 
@@ -376,13 +415,22 @@ class Renderer:
             self.reset_accumulation()
 
     def on_resize(self, width: int, height: int) -> None:
+        """A new film size. Under a mesh the height must be divisible by the
+        mesh's size, and this rank's lanes are its band's pixels, in
+        `_tile_order` within the band."""
         if (self.width, self.height) == (width, height):
             return
+        if height % self._bands:
+            raise ValueError(f"film height {height} not divisible by mesh "
+                             f"{self._bands}")
         self.width, self.height = width, height
+        self._rows = height // self._bands
         self._group_cache = {}
-        ys, xs = np.meshgrid(np.arange(height, dtype=np.int64),
+        row0 = self.band * self._rows
+        ys, xs = np.meshgrid(np.arange(row0, row0 + self._rows,
+                                       dtype=np.int64),
                              np.arange(width, dtype=np.int64), indexing="ij")
-        order = _tile_order(width, height)
+        order = _tile_order(width, self._rows)
         self._order_np = order
         self._px = torch.as_tensor(xs.reshape(-1)[order], device=self.device)
         self._py = torch.as_tensor(ys.reshape(-1)[order], device=self.device)
@@ -409,7 +457,7 @@ class Renderer:
         """≙ ResetAccumulationImage (Renderer.cpp:801-808): the film, the
         counters, the compaction plans and the adaptive statistics."""
         if self.width and self.height:
-            self.accum = torch.zeros((self.height, self.width, 3),
+            self.accum = torch.zeros((self._rows, self.width, 3),
                                      dtype=torch.float32, device=self.device)
         self.total_samples = 0
         with self._rays_lock:
@@ -521,9 +569,6 @@ class Renderer:
         timer."""
         if not (self._accel_dirty or self.accel is None):
             return
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "multi-device film sharding is a later slice of the port")
         with Timer("Acceleration Structure Build"):
             self._build_accel()
         self._accel_dirty = False
@@ -630,7 +675,7 @@ class Renderer:
         self._ensure_accel()
         inv_view, inv_proj = self._camera_mats()
         samples = samples if samples is not None else self.settings.sample_count
-        n_full = self.width * self.height
+        n_full = self._lanes
         cap = (_MAX_GROUP_LANES // n_full if n_full <= _MAX_GROUP_LANES
                else 1)
         with Timer("Render"):     # host time: the kernels are not waited for
@@ -666,7 +711,7 @@ class Renderer:
         tail as a wavefront of its own. Each lane seeds its RNG from
         (pixel, total_samples + rep0 + rep), as repeated render(1) calls
         would."""
-        n_full = self.width * self.height
+        n_full = self._lanes
         if g == 1:
             px, py = self._px, self._py
             frames = (self.total_samples + rep0) & _MASK32
@@ -723,8 +768,9 @@ class Renderer:
         """Bounces first..B-1 of one wavefront. After each bounce but the
         last, the live lanes are compacted to plan[bounce - first]'s size
         class where that halves the wavefront. With `observe`, also the
-        live count after each bounce, read back in one copy at the end.
-        Returns (the full carry, the counts or None)."""
+        live count after each bounce, read back in one copy at the end
+        (under a mesh, the largest of any rank's: one all-reduce). Returns
+        (the full carry, the counts or None)."""
         full, perm, cur_n = carry, None, carry.alive.shape[0]
         alive = [] if observe else None
         last = self.settings.bounce_count - 1
@@ -740,8 +786,18 @@ class Renderer:
                 carry, perm = _compact(full, k)
                 cur_n = k
         full = carry if perm is None else _scatter(full, carry, perm)
-        counts = (torch.stack(alive).cpu().tolist() if alive else alive)
-        return full, counts
+        if alive:
+            counts = torch.stack(alive)
+            if self.mesh is not None:   # each rank compacts by the largest
+                counts = dmesh.all_reduce(counts, self._group,
+                                          dist.ReduceOp.MAX)
+            alive = counts.cpu().tolist()
+        return full, alive
+
+    @property
+    def _lanes(self) -> int:
+        """Pixels of this rank's film: its band's under a mesh."""
+        return self._rows * self.width
 
     def _camera_mats(self):
         cams = self.scene.cameras
@@ -756,12 +812,15 @@ class Renderer:
     def _adaptive_deficit(self, tol, target_mse, pool, min_spp, max_spp,
                           expo):
         """One host fetch of the film's luminance moments → per-pixel sample
-        deficit (film order), or None when the stopping rule is met."""
+        deficit (film order), or None when the stopping rule is met. Under a
+        mesh the moments of every band are gathered, so every rank computes
+        the whole film's deficit, the same."""
         n_full = self.width * self.height
         counts = np.maximum(self._spp_map, 1)
         lum = torch.as_tensor(_LUM, device=self.device)
-        s1, sq = torch.stack([torch.sum(self.accum.view(-1, 3) * lum, dim=-1),
-                              self._accum_sq]).cpu().numpy()
+        s1, sq = self._whole_film(torch.stack(
+            [torch.sum(self.accum.view(-1, 3) * lum, dim=-1),
+             self._accum_sq], dim=1)).T
         mean_lum = s1 / counts
         if (pool > 1 and self.height % pool == 0
                 and self.width % pool == 0):
@@ -817,6 +876,13 @@ class Renderer:
         round (one moment fetch each); `max_seconds` bounds the wall time
         at round granularity.
 
+        Under a mesh each band is dealt its own lanes (`pt`'s per-band
+        redistribution): every round, every rank allocates each band's
+        deficit to that band's stream of n_disp dispatches (n_disp from
+        the band with the largest deficit), pads a shorter stream with
+        weight-0 lanes, and traces its own band's stream. One band is the
+        single-device loop, and tol=0 gives its film bit for bit.
+
         Returns {"spp_min", "spp_max", "spp_mean", "steps"}, steps counting
         dispatches."""
         if self.ds is None or not self.width:
@@ -825,14 +891,15 @@ class Renderer:
         self._poll_textures()
         self._ensure_accel()
         inv_view, inv_proj = self._camera_mats()
-        n_full = self.width * self.height
+        n_full = self._lanes                 # pixels of this rank's band
         if self._spp_map is None:
             if self.total_samples:
                 # adaptive statistics cannot be rebuilt for a uniform film
                 self.reset_accumulation()
-            self._spp_map = np.zeros(n_full, np.int64)
+            self._spp_map = np.zeros(self.width * self.height, np.int64)
             self._accum_sq = torch.zeros((n_full,), dtype=torch.float32,
                                          device=self.device)
+        mine = slice(self.band * n_full, (self.band + 1) * n_full)
         lane_of_film = np.argsort(self._order_np)
         px_np = self._px.cpu().numpy()
         py_np = self._py.cpu().numpy()
@@ -841,20 +908,24 @@ class Renderer:
         deadline = (time.perf_counter() + max_seconds
                     if max_seconds is not None else None)
         with Timer("Render"):     # host time, as render()'s
-            while deadline is None or time.perf_counter() < deadline:
+            while deadline is None or not self.any_rank(
+                    time.perf_counter() >= deadline)[0]:
                 deficit = self._adaptive_deficit(tol, target_mse, pool,
                                                  min_spp, max_spp, expo)
-                if deficit is None:
+                if deficit is None or int(deficit.sum()) == 0:
                     break
-                total_deficit = int(deficit.sum())
-                if total_deficit == 0:
-                    break
-                n_disp = int(min(check_every,
-                                 max(1, -(-total_deficit // n_full))))
-                budget = min(total_deficit, n_disp * n_full)
-                alloc = _largest_remainder_alloc(deficit, budget)
-                pix, frm = _rep_major_stream(alloc, self._spp_map)
-                for off in range(0, len(pix), n_full):
+                bands = deficit.reshape(self._bands, n_full)
+                n_disp = int(min(check_every, max(
+                    1, -(-int(bands.sum(1).max()) // n_full))))
+                alloc = np.zeros_like(deficit)
+                for b, band in enumerate(bands):
+                    total_b = int(band.sum())
+                    if total_b:
+                        alloc[b * n_full:(b + 1) * n_full] = (
+                            _largest_remainder_alloc(
+                                band, min(total_b, n_disp * n_full)))
+                pix, frm = _rep_major_stream(alloc[mine], self._spp_map[mine])
+                for off in range(0, n_disp * n_full, n_full):
                     cp = pix[off:off + n_full]
                     cf = frm[off:off + n_full]
                     real = np.arange(n_full) < len(cp)
@@ -928,6 +999,21 @@ class Renderer:
             self._plan_ages[key] = 0
 
     # -- film --------------------------------------------------------------
+    def any_rank(self, *flags) -> list:
+        """`flags` as bools, each OR-ed over the mesh's ranks (one
+        collective), so that every rank takes the same branch."""
+        if self.mesh is None:
+            return [bool(f) for f in flags]
+        return dmesh.any_rank(flags, self._group)
+
+    def _whole_film(self, t: torch.Tensor) -> np.ndarray:
+        """`t`, this rank's rows of a film-shaped tensor (film rows or
+        film-order pixels on dim 0), as the whole film's host array: under
+        a mesh every band's, gathered (`assemble_film`)."""
+        if self.mesh is None:
+            return t.cpu().numpy()
+        return dmesh.assemble_film(t, self.mesh)
+
     def _counts_image(self) -> np.ndarray:
         """The adaptive film's per-pixel sample counts, (H, W, 1) f32."""
         return np.maximum(self._spp_map, 1).astype(np.float32).reshape(
@@ -935,19 +1021,23 @@ class Renderer:
 
     def film_mean(self) -> np.ndarray:
         """Linear per-pixel mean radiance (host), over per-pixel counts on
-        an adaptive film."""
+        an adaptive film; the whole film under a mesh too."""
+        film = self._whole_film(self.accum)
         if self._spp_map is not None:
-            return self.accum.cpu().numpy() / self._counts_image()
-        return self.accum.cpu().numpy() / max(self.total_samples, 1)
+            return film / self._counts_image()
+        return film / max(self.total_samples, 1)
 
     def snapshot(self, hdr: bool = False) -> np.ndarray:
         """Resolve the film through the post stack → float image (host):
-        SDR in [0, 1], or with `hdr` the HDR10 PQ encoding."""
+        SDR in [0, 1], or with `hdr` the HDR10 PQ encoding. Under a mesh
+        the film is gathered first, and every rank gets the whole image."""
+        accum = (self.accum if self.mesh is None else torch.as_tensor(
+            self._whole_film(self.accum), device=self.device))
         if self._spp_map is not None:
-            mean = self.accum / torch.as_tensor(self._counts_image(),
-                                                device=self.device)
+            mean = accum / torch.as_tensor(self._counts_image(),
+                                           device=self.device)
             return postprocess(mean, 1.0, self.post, hdr).cpu().numpy()
-        out = postprocess(self.accum, float(max(self.total_samples, 1)),
+        out = postprocess(accum, float(max(self.total_samples, 1)),
                           self.post, hdr)
         return out.cpu().numpy()
 
@@ -965,37 +1055,56 @@ class Renderer:
     @property
     def rays_traced(self) -> int:
         """Useful rays traced since the last reset (`pt`'s count: live
-        lanes of every closest trace plus every traced shadow ray)."""
+        lanes of every closest trace plus every traced shadow ray); under a
+        mesh, of every rank (a collective)."""
         with self._rays_lock:
             chunks = list(self._rays_chunks)
             host = self._rays_host
-        return host + (int(torch.stack(chunks).sum()) if chunks else 0)
+        mine = torch.tensor(host, dtype=torch.int64)
+        if chunks:
+            mine = mine + torch.stack(chunks).sum().cpu()
+        if self.mesh is not None:
+            mine = dmesh.all_reduce(mine, self._group)
+        return int(mine)
 
     # -- checkpoint / resume ------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
         """Persist the film and counters in `pt`'s keys (an adaptive film
         adds its per-pixel counts and moments); a resumed render continues
-        the exact RNG stream."""
+        the exact RNG stream. Under a mesh every rank calls it, the film is
+        gathered, and the mesh's first rank writes the file before any rank
+        returns."""
         extra = {}
         if self._spp_map is not None:
             extra = dict(spp_map=self._spp_map,
-                         accum_sq=self._accum_sq.cpu().numpy())
-        np.savez(path, accum=self.accum.cpu().numpy(),
-                 total_samples=self.total_samples,
-                 rays_total=self.rays_traced,
-                 width=self.width, height=self.height, **extra)
+                         accum_sq=self._whole_film(self._accum_sq))
+        film, rays = self._whole_film(self.accum), self.rays_traced
+        if self.band == 0:
+            np.savez(path, accum=film, total_samples=self.total_samples,
+                     rays_total=rays, width=self.width, height=self.height,
+                     **extra)
+        if self.mesh is not None:
+            dist.barrier(self._group)
 
     def load_checkpoint(self, path: str) -> None:
+        """Resume from `save_checkpoint`'s file, taken under a mesh of any
+        size or none: under a mesh each rank takes its band. The ray count
+        goes to the mesh's first rank."""
         with np.load(path) as data:
             self.on_resize(int(data["width"]), int(data["height"]))
-            self.accum = torch.as_tensor(data["accum"], device=self.device)
+            rows = slice(self.band * self._rows,
+                         (self.band + 1) * self._rows)
+            lanes = slice(rows.start * self.width, rows.stop * self.width)
+            self.accum = torch.as_tensor(data["accum"][rows],
+                                         device=self.device)
             self.total_samples = int(data["total_samples"])
             with self._rays_lock:
                 self._rays_chunks = []
-                self._rays_host = int(data["rays_total"])
+                self._rays_host = (int(data["rays_total"])
+                                   if self.band == 0 else 0)
             if "spp_map" in data:
                 self._spp_map = data["spp_map"].astype(np.int64)
-                self._accum_sq = torch.as_tensor(data["accum_sq"],
+                self._accum_sq = torch.as_tensor(data["accum_sq"][lanes],
                                                  device=self.device)
             else:
                 self._spp_map = None

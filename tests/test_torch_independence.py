@@ -12,7 +12,8 @@ harnesses, a frame through a BF8V6) and the frame budget and drain model
 pt_torch.run.cli` (`list-scenes`, a 16² `render --device cpu` to PNG, and
 `debug`, `stats` and `render --hdr`);
 and with no device named, the entry points take the card and raise when
-there is none.
+there is none. Ranks that `pt_torch.dist.launch` spawns from this process,
+which has JAX and `pt` loaded, load neither.
 """
 
 import ast
@@ -405,3 +406,19 @@ def test_default_device_is_the_card():
             Renderer()
         with pytest.raises(RuntimeError):
             default_device("cuda")
+
+
+def test_spawned_ranks_load_neither_jax_nor_pt():
+    """Two CPU ranks over gloo, spawned by `pt_torch.dist.launch` from this
+    process (JAX and `pt` loaded), import the port and the rank bodies of
+    tests/torch_dist_ranks.py, and find neither `jax` nor `pt` among their
+    modules."""
+    import jax  # noqa: F401
+    import pt.dist.mesh  # noqa: F401
+    import torch_dist_ranks
+    from pt_torch.dist.launch import launch
+    roots = launch(torch_dist_ranks.loaded_roots, 2, "gloo", device="cpu")
+    assert len(roots) == 2
+    for loaded in roots:
+        assert {"torch", "pt_torch", "torch_dist_ranks"} <= set(loaded)
+        assert not {"jax", "jaxlib", "pt", "benches"} & set(loaded), loaded

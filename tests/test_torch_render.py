@@ -191,12 +191,15 @@ def test_hdr_bytes_match_pt(tmp_path):
 
 
 def test_unported_paths_raise():
+    """Multi-device rendering is ported (`tests/test_torch_dist.py`): a
+    mesh raises only where the Renderer cannot shard film rows over it, a
+    2-D mesh, whose second axis `pt`'s stages do not use either."""
     scene = t_heightfield(8)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        r = Renderer(device="cpu", mesh=object())
-        r.set_scene(scene, stream_textures=False)
-        r.on_resize(8, 8)
-        r.render(1)
+
+    class TwoAxes:
+        ndim = 2
+    with pytest.raises(ValueError, match="1-D mesh"):
+        Renderer(device="cpu", mesh=TwoAxes())
     # shared-BLAS instancing renders now, through the instanced structure
     r = Renderer(device="cpu", instancing="shared")
     r.set_scene(scene, stream_textures=False)
