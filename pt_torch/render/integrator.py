@@ -33,6 +33,15 @@ Features mirrored from `pt`: next-event estimation with uniform light pick
 throughput, the progressive roughness clamp, Beer–Lambert interior
 attenuation, shadow-terminator + self-intersection origin offsets, reversed
 point-light shadow rays, and NaN/Inf sample rejection (zeroed samples).
+
+While the recorder of `pt_torch.core.stats` is on, `bounce_once` records
+the spans "trace" (the closest query), "shade", "nee" (the shadow query and
+its light) and "roulette", and the counters "closest_lanes" (the closest
+trace's width), "closest_live" and "shadow_live" (the live lanes of the
+closest and the shadow trace: the sums the ray counter adds already). The
+alpha loops record an "alpha" span around their rounds, and per round the
+counters "alpha_lanes" (the round's width) and "alpha_pending" (its pending
+lanes: one reduction a round, made only while the recorder is on).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from pt_torch.accel.kernels import (closest_bf8, closest_v4, occluded_bf8,
                                     occluded_v4)
 from pt_torch.accel.lbvh import ThreadedBVH, _expand_bits_10, build_bvh
 from pt_torch.accel.traverse import bvh_closest, bvh_occluded
+from pt_torch.core.stats import count, span, tracing
 from pt_torch.render import rng as prng
 from pt_torch.render.bsdf import evaluate_bsdf, sample_bsdf
 from pt_torch.render.differentials import (DiffRays, compute_dp_dxy,
@@ -398,6 +408,14 @@ def _remap_subset_tri(sel, tri):
     return torch.where(tri >= 0, sel[torch.clamp(tri, min=0).long()], -1)
 
 
+def _count_round(pending):
+    """Book one alpha round's width and pending lanes to the recorder; the
+    sum is made only while it is on."""
+    if tracing():
+        count("alpha_lanes", pending.shape[0])
+        count("alpha_pending", torch.sum(pending))
+
+
 def _trace_closest_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
                                sp: AlphaSplit, origins, dirs, alive):
     """Split-tree any-hit emulation:
@@ -427,35 +445,38 @@ def _trace_closest_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
     decal_alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
     has_decal = torch.zeros((n,), dtype=torch.bool, device=dev)
 
-    for _ in range(ALPHA_ROUNDS):
-        rem = torch.clamp(bound - t_accum, min=0.0)
-        o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
-                                           rem, pending)
-        hit_a = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
-        tri_g = _remap_subset_tri(sp.sel_alpha, hit_a.tri)
-        valid = pending & hit_a.is_hit & (t_accum + hit_a.t < bound)
-        rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g,
-                                        hit_a.u, hit_a.v)
-        alpha = rgba[:, 3]
-        accepts = valid & (alpha >= 0.5)
-        skips = valid & (alpha < 0.5)
+    with span("alpha"):
+        for _ in range(ALPHA_ROUNDS):
+            _count_round(pending)
+            rem = torch.clamp(bound - t_accum, min=0.0)
+            o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
+                                               rem, pending)
+            hit_a = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
+            tri_g = _remap_subset_tri(sp.sel_alpha, hit_a.tri)
+            valid = pending & hit_a.is_hit & (t_accum + hit_a.t < bound)
+            rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g,
+                                            hit_a.u, hit_a.v)
+            alpha = rgba[:, 3]
+            accepts = valid & (alpha >= 0.5)
+            skips = valid & (alpha < 0.5)
 
-        record = skips & ~has_decal
-        decal_color = torch.where(record[:, None], rgba[:, :3], decal_color)
-        decal_alpha = torch.where(record, alpha, decal_alpha)
-        has_decal = has_decal | record
+            record = skips & ~has_decal
+            decal_color = torch.where(record[:, None], rgba[:, :3],
+                                      decal_color)
+            decal_alpha = torch.where(record, alpha, decal_alpha)
+            has_decal = has_decal | record
 
-        final_t = torch.where(accepts, t_accum + hit_a.t, final_t)
-        final_tri = torch.where(accepts, tri_g, final_tri)
-        final_u = torch.where(accepts, hit_a.u, final_u)
-        final_v = torch.where(accepts, hit_a.v, final_v)
+            final_t = torch.where(accepts, t_accum + hit_a.t, final_t)
+            final_tri = torch.where(accepts, tri_g, final_tri)
+            final_u = torch.where(accepts, hit_a.u, final_u)
+            final_v = torch.where(accepts, hit_a.v, final_v)
 
-        step = hit_a.t + 1e-4
-        cur_origin = torch.where(skips[:, None],
-                                 cur_origin + dirs * step[:, None],
-                                 cur_origin)
-        t_accum = torch.where(skips, t_accum + step, t_accum)
-        pending = skips
+            step = hit_a.t + 1e-4
+            cur_origin = torch.where(skips[:, None],
+                                     cur_origin + dirs * step[:, None],
+                                     cur_origin)
+            t_accum = torch.where(skips, t_accum + step, t_accum)
+            pending = skips
     return (Hit(final_t, final_tri, final_u, final_v), decal_color,
             decal_alpha, has_decal)
 
@@ -484,35 +505,38 @@ def trace_closest_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
     decal_alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
     has_decal = torch.zeros((n,), dtype=torch.bool, device=dev)
 
-    for _ in range(ALPHA_ROUNDS):
-        o_t, d_t, t_t = _degenerate_masked(accel.bvh, cur_origin, dirs,
-                                           TMAX, pending)
-        hit = trace_closest(accel.bvh, o_t, d_t, t_t)
-        opaque = ds.tri_opaque[torch.clamp(hit.tri, min=0).long()]
-        rgba = _surface_color_alpha_tri(ds, tex, accel, hit.tri, hit.u,
-                                        hit.v)
-        alpha = rgba[:, 3]
-        is_alpha_skip = pending & hit.is_hit & ~opaque & (alpha < 0.5)
+    with span("alpha"):
+        for _ in range(ALPHA_ROUNDS):
+            _count_round(pending)
+            o_t, d_t, t_t = _degenerate_masked(accel.bvh, cur_origin, dirs,
+                                               TMAX, pending)
+            hit = trace_closest(accel.bvh, o_t, d_t, t_t)
+            opaque = ds.tri_opaque[torch.clamp(hit.tri, min=0).long()]
+            rgba = _surface_color_alpha_tri(ds, tex, accel, hit.tri, hit.u,
+                                            hit.v)
+            alpha = rgba[:, 3]
+            is_alpha_skip = pending & hit.is_hit & ~opaque & (alpha < 0.5)
 
-        # record the first (closest) decal per ray (anyhit keeps min dist)
-        record = is_alpha_skip & ~has_decal
-        decal_color = torch.where(record[:, None], rgba[:, :3], decal_color)
-        decal_alpha = torch.where(record, alpha, decal_alpha)
-        has_decal = has_decal | record
+            # record the first (closest) decal per ray (anyhit keeps min dist)
+            record = is_alpha_skip & ~has_decal
+            decal_color = torch.where(record[:, None], rgba[:, :3],
+                                      decal_color)
+            decal_alpha = torch.where(record, alpha, decal_alpha)
+            has_decal = has_decal | record
 
-        adjusted = Hit(t_accum + hit.t, hit.tri, hit.u, hit.v)
-        if final is None:
-            final = adjusted
-        else:
-            final = Hit(*(torch.where(pending, a, f)
-                          for a, f in zip(adjusted, final)))
+            adjusted = Hit(t_accum + hit.t, hit.tri, hit.u, hit.v)
+            if final is None:
+                final = adjusted
+            else:
+                final = Hit(*(torch.where(pending, a, f)
+                              for a, f in zip(adjusted, final)))
 
-        step = hit.t + 1e-4
-        cur_origin = torch.where(is_alpha_skip[:, None],
-                                 cur_origin + dirs * step[:, None],
-                                 cur_origin)
-        t_accum = torch.where(is_alpha_skip, t_accum + step, t_accum)
-        pending = is_alpha_skip
+            step = hit.t + 1e-4
+            cur_origin = torch.where(is_alpha_skip[:, None],
+                                     cur_origin + dirs * step[:, None],
+                                     cur_origin)
+            t_accum = torch.where(is_alpha_skip, t_accum + step, t_accum)
+            pending = is_alpha_skip
     return final, decal_color, decal_alpha, has_decal
 
 
@@ -538,21 +562,24 @@ def _trace_occluded_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
     pending = alive & ~occluded
     cur_origin = origins
     remaining = dist
-    for _ in range(ALPHA_ROUNDS):
-        o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
-                                           remaining, pending)
-        hit = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
-        tri_g = _remap_subset_tri(sp.sel_alpha, hit.tri)
-        rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g, hit.u, hit.v)
-        translucent = hit.is_hit & (rgba[:, 3] < 1.0)
-        occluded = occluded | (pending & hit.is_hit & ~translucent)
-        cont = pending & translucent
-        step = hit.t + 1e-4
-        cur_origin = torch.where(cont[:, None],
-                                 cur_origin + dirs * step[:, None],
-                                 cur_origin)
-        remaining = torch.where(cont, remaining - step, remaining)
-        pending = cont
+    with span("alpha"):
+        for _ in range(ALPHA_ROUNDS):
+            _count_round(pending)
+            o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
+                                               remaining, pending)
+            hit = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
+            tri_g = _remap_subset_tri(sp.sel_alpha, hit.tri)
+            rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g, hit.u,
+                                            hit.v)
+            translucent = hit.is_hit & (rgba[:, 3] < 1.0)
+            occluded = occluded | (pending & hit.is_hit & ~translucent)
+            cont = pending & translucent
+            step = hit.t + 1e-4
+            cur_origin = torch.where(cont[:, None],
+                                     cur_origin + dirs * step[:, None],
+                                     cur_origin)
+            remaining = torch.where(cont, remaining - step, remaining)
+            pending = cont
     return occluded
 
 
@@ -572,22 +599,24 @@ def trace_occluded_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
     cur_origin = origins
     remaining = dist
 
-    for _ in range(ALPHA_ROUNDS):
-        o_t, d_t, t_t = _degenerate_masked(accel.bvh, cur_origin, dirs,
-                                           remaining, pending)
-        hit = trace_closest(accel.bvh, o_t, d_t, t_t)
-        opaque = ds.tri_opaque[torch.clamp(hit.tri, min=0).long()]
-        rgba = _surface_color_alpha_tri(ds, tex, accel, hit.tri, hit.u,
-                                        hit.v)
-        translucent = hit.is_hit & ~opaque & (rgba[:, 3] < 1.0)
-        occluded = occluded | (pending & hit.is_hit & ~translucent)
-        cont = pending & translucent
-        step = hit.t + 1e-4
-        cur_origin = torch.where(cont[:, None],
-                                 cur_origin + dirs * step[:, None],
-                                 cur_origin)
-        remaining = torch.where(cont, remaining - step, remaining)
-        pending = cont
+    with span("alpha"):
+        for _ in range(ALPHA_ROUNDS):
+            _count_round(pending)
+            o_t, d_t, t_t = _degenerate_masked(accel.bvh, cur_origin, dirs,
+                                               remaining, pending)
+            hit = trace_closest(accel.bvh, o_t, d_t, t_t)
+            opaque = ds.tri_opaque[torch.clamp(hit.tri, min=0).long()]
+            rgba = _surface_color_alpha_tri(ds, tex, accel, hit.tri, hit.u,
+                                            hit.v)
+            translucent = hit.is_hit & ~opaque & (rgba[:, 3] < 1.0)
+            occluded = occluded | (pending & hit.is_hit & ~translucent)
+            cont = pending & translucent
+            step = hit.t + 1e-4
+            cur_origin = torch.where(cont[:, None],
+                                     cur_origin + dirs * step[:, None],
+                                     cur_origin)
+            remaining = torch.where(cont, remaining - step, remaining)
+            pending = cont
     return occluded
 
 
@@ -889,7 +918,10 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
     point lights."""
     (state, origin, direction, throughput, radiance, alive,
      max_roughness, rays, diff) = carry
-    rays = rays + torch.sum(alive)
+    live = torch.sum(alive)
+    count("closest_lanes", alive.shape[0])
+    count("closest_live", live)
+    rays = rays + live
     if sort_rays is None:
         sort_rays = bounce > 0
     # the coherence sort: opaque scenes over a binary tree only (`pt`)
@@ -897,115 +929,126 @@ def bounce_once(ds: DeviceScene, tex: DeviceTextures, accel: Accel,
             and isinstance(accel.bvh, PacketBVH))
 
     decal = None
-    if ds.has_alpha:
-        # alpha-tested geometry: the re-trace loops give any-hit semantics
-        hit, d_color, d_alpha, d_has = trace_closest_alpha(
-            ds, tex, accel, origin, direction, alive)
-        decal = (d_color, d_alpha, d_has)
-    elif sort:
-        # one permutation for the closest and the shadow trace
-        perm = torch.argsort(_coherence_keys(accel.bvh, origin, direction,
-                                             alive), stable=True)
-        inv = _inverse(perm)
-        o_s, d_s, t_s = _degenerate_masked(accel.bvh, origin[perm],
-                                           direction[perm], TMAX,
-                                           alive[perm])
-        hit = _permute(trace_closest(accel.bvh, o_s, d_s, t_s), inv)
-    else:
-        # dead lanes are degenerated so they leave the traversal at the
-        # root; their hits are never read (all below is gated on `alive`)
-        o_c, d_c, t_c = _degenerate_masked(accel.bvh, origin, direction,
-                                           TMAX, alive)
-        hit = trace_closest(accel.bvh, o_c, d_c, t_c)
-    missed = alive & ~hit.is_hit
+    with span("trace"):
+        if ds.has_alpha:
+            # alpha-tested geometry: the re-trace loops give any-hit semantics
+            hit, d_color, d_alpha, d_has = trace_closest_alpha(
+                ds, tex, accel, origin, direction, alive)
+            decal = (d_color, d_alpha, d_has)
+        elif sort:
+            # one permutation for the closest and the shadow trace
+            perm = torch.argsort(_coherence_keys(accel.bvh, origin, direction,
+                                                 alive), stable=True)
+            inv = _inverse(perm)
+            o_s, d_s, t_s = _degenerate_masked(accel.bvh, origin[perm],
+                                               direction[perm], TMAX,
+                                               alive[perm])
+            hit = _permute(trace_closest(accel.bvh, o_s, d_s, t_s), inv)
+        else:
+            # dead lanes are degenerated so they leave the traversal at the
+            # root; their hits are never read (all below is gated on `alive`)
+            o_c, d_c, t_c = _degenerate_masked(accel.bvh, origin, direction,
+                                               TMAX, alive)
+            hit = trace_closest(accel.bvh, o_c, d_c, t_c)
 
-    # miss: add skybox emissive, terminate (raygen.rgen:73-77)
-    sky = _skybox_emissive(ds, direction)
-    radiance = radiance + torch.where(missed[..., None], throughput * sky, 0.0)
+    with span("shade"):
+        missed = alive & ~hit.is_hit
 
-    nearest_mip = bounce > 0 and settings.tex_nearest_tail
-    shade = _shade_sorted if settings.shade_sorted else _shade_hit
-    payload = shade(ds, tex, accel, hit, origin, direction, state, alive,
-                    max_roughness, decal, diff, nearest_mip=nearest_mip)
-    state = payload["state"]
-    max_roughness = payload["max_roughness"]
-    active = alive & hit.is_hit
+        # miss: add skybox emissive, terminate (raygen.rgen:73-77)
+        sky = _skybox_emissive(ds, direction)
+        radiance = radiance + torch.where(missed[..., None], throughput * sky,
+                                          0.0)
 
-    # emissive (raygen.rgen:79)
-    radiance = radiance + torch.where(active[..., None],
-                                 throughput * payload["emissive"], 0.0)
+        nearest_mip = bounce > 0 and settings.tex_nearest_tail
+        shade = _shade_sorted if settings.shade_sorted else _shade_hit
+        payload = shade(ds, tex, accel, hit, origin, direction, state, alive,
+                        max_roughness, decal, diff, nearest_mip=nearest_mip)
+        state = payload["state"]
+        max_roughness = payload["max_roughness"]
+        active = alive & hit.is_hit
 
-    # NEE (raygen.rgen:81-83). Shadow distances are clamped to the scene
-    # AABB exit (a tree's root box; brute force and the threaded LBVH have
-    # none, as in `pt`): no occluder exists outside the scene. Shadow rays
-    # whose contribution is identically zero are not traced (film-exact).
-    shadow_dir = -_normalize(payload["light_dir"])
-    shadow_live = (active & (payload["light_pdf"] > 0.0)
-                   & torch.any(payload["direct_light"] != 0.0, dim=-1))
-    light_dist = payload["light_dist"]
-    bounds = _root_bounds(accel.bvh)
-    if bounds is not None:
-        light_dist = torch.minimum(
-            light_dist,
-            _aabb_exit_t(bounds[0], bounds[1], payload["next_origin"],
-                         shadow_dir) + 1e-3)
-    reverse = (~payload["light_is_dir"] if settings.reverse_point_shadows
-               else None)
-    if ds.has_alpha:
-        occluded = trace_occluded_alpha(ds, tex, accel,
-                                        payload["next_origin"], shadow_dir,
-                                        light_dist, shadow_live,
-                                        reverse=reverse)
-    elif sort:
-        so, sd, sdist = _degenerate_masked(
-            accel.bvh, payload["next_origin"][perm], shadow_dir[perm],
-            light_dist[perm], shadow_live[perm])
-        occluded = trace_occluded(accel.bvh, so, sd, sdist)[inv]
-    else:
-        so_f, sd_f, st_f = payload["next_origin"], shadow_dir, light_dist
-        if reverse is not None:
-            # point-light lanes trace light → surface; the -TMIN limit
-            # excludes the shading surface the forward trace excluded via
-            # tmin
-            rev = shadow_live & reverse
-            so_f = torch.where(rev[:, None],
-                               so_f + shadow_dir * light_dist[:, None], so_f)
-            sd_f = torch.where(rev[:, None], -shadow_dir, sd_f)
-            st_f = torch.where(rev, light_dist - TMIN, st_f)
-        so, sd, sdist = _degenerate_masked(accel.bvh, so_f, sd_f, st_f,
-                                           shadow_live)
-        occluded = trace_occluded(accel.bvh, so, sd, sdist)
-    rays = rays + torch.sum(shadow_live)
-    nee_ok = shadow_live & ~occluded
-    radiance = radiance + torch.where(
-        nee_ok[..., None],
-        throughput * payload["direct_light"]
-        / torch.clamp(payload["light_pdf"], min=1e-12)[..., None],
-        0.0)
+        # emissive (raygen.rgen:79)
+        radiance = radiance + torch.where(active[..., None],
+                                          throughput * payload["emissive"],
+                                          0.0)
 
-    # throughput update (raygen.rgen:85-86): only when pdf > 1e-3
-    tp_update = active & (payload["pdf"] > 0.001)
-    throughput = torch.where(
-        tp_update[..., None],
-        throughput * payload["bsdf"]
-        / torch.clamp(payload["pdf"], min=1e-12)[..., None],
-        throughput)
+    with span("nee"):
+        # NEE (raygen.rgen:81-83). Shadow distances are clamped to the scene
+        # AABB exit (a tree's root box; brute force and the threaded LBVH have
+        # none, as in `pt`): no occluder exists outside the scene. Shadow rays
+        # whose contribution is identically zero are not traced (film-exact).
+        shadow_dir = -_normalize(payload["light_dir"])
+        shadow_live = (active & (payload["light_pdf"] > 0.0)
+                       & torch.any(payload["direct_light"] != 0.0, dim=-1))
+        light_dist = payload["light_dist"]
+        bounds = _root_bounds(accel.bvh)
+        if bounds is not None:
+            light_dist = torch.minimum(
+                light_dist,
+                _aabb_exit_t(bounds[0], bounds[1], payload["next_origin"],
+                             shadow_dir) + 1e-3)
+        reverse = (~payload["light_is_dir"] if settings.reverse_point_shadows
+                   else None)
+        if ds.has_alpha:
+            occluded = trace_occluded_alpha(ds, tex, accel,
+                                            payload["next_origin"], shadow_dir,
+                                            light_dist, shadow_live,
+                                            reverse=reverse)
+        elif sort:
+            so, sd, sdist = _degenerate_masked(
+                accel.bvh, payload["next_origin"][perm], shadow_dir[perm],
+                light_dist[perm], shadow_live[perm])
+            occluded = trace_occluded(accel.bvh, so, sd, sdist)[inv]
+        else:
+            so_f, sd_f, st_f = payload["next_origin"], shadow_dir, light_dist
+            if reverse is not None:
+                # point-light lanes trace light → surface; the -TMIN limit
+                # excludes the shading surface the forward trace excluded via
+                # tmin
+                rev = shadow_live & reverse
+                so_f = torch.where(rev[:, None],
+                                   so_f + shadow_dir * light_dist[:, None],
+                                   so_f)
+                sd_f = torch.where(rev[:, None], -shadow_dir, sd_f)
+                st_f = torch.where(rev, light_dist - TMIN, st_f)
+            so, sd, sdist = _degenerate_masked(accel.bvh, so_f, sd_f, st_f,
+                                               shadow_live)
+            occluded = trace_occluded(accel.bvh, so, sd, sdist)
+        shadow_rays = torch.sum(shadow_live)
+        count("shadow_live", shadow_rays)
+        rays = rays + shadow_rays
+        nee_ok = shadow_live & ~occluded
+        radiance = radiance + torch.where(
+            nee_ok[..., None],
+            throughput * payload["direct_light"]
+            / torch.clamp(payload["light_pdf"], min=1e-12)[..., None],
+            0.0)
 
-    # Russian roulette (raygen.rgen:88-97); the continuation rand is drawn
-    # only on lanes that reach it (masked state advance)
-    rr_div = settings.rr_scale if bounce >= settings.rr_start_bounce else 1.0
-    prob = torch.clamp(torch.max(throughput, dim=-1).values * (1.0 / rr_div),
-                       max=1.0)
-    dead_small = prob < 0.001
-    need_rr = active & ~dead_small
-    rr_state = prng.xorshift(state)
-    rr = prng.uint_to_float(rr_state)
-    state = torch.where(need_rr, rr_state, state)
-    killed = need_rr & (prob < rr)
-    survived = need_rr & ~killed
-    throughput = torch.where(survived[..., None],
-                             throughput / torch.clamp(prob, min=1e-12)[..., None],
-                             throughput)
+    with span("roulette"):
+        # throughput update (raygen.rgen:85-86): only when pdf > 1e-3
+        tp_update = active & (payload["pdf"] > 0.001)
+        throughput = torch.where(
+            tp_update[..., None],
+            throughput * payload["bsdf"]
+            / torch.clamp(payload["pdf"], min=1e-12)[..., None],
+            throughput)
+
+        # Russian roulette (raygen.rgen:88-97); the continuation rand is drawn
+        # only on lanes that reach it (masked state advance)
+        rr_div = (settings.rr_scale if bounce >= settings.rr_start_bounce
+                  else 1.0)
+        prob = torch.clamp(
+            torch.max(throughput, dim=-1).values * (1.0 / rr_div), max=1.0)
+        dead_small = prob < 0.001
+        need_rr = active & ~dead_small
+        rr_state = prng.xorshift(state)
+        rr = prng.uint_to_float(rr_state)
+        state = torch.where(need_rr, rr_state, state)
+        killed = need_rr & (prob < rr)
+        survived = need_rr & ~killed
+        throughput = torch.where(
+            survived[..., None],
+            throughput / torch.clamp(prob, min=1e-12)[..., None], throughput)
 
     return BounceCarry(state, payload["next_origin"], payload["next_dir"],
                        throughput, radiance, survived, max_roughness, rays,

@@ -79,9 +79,17 @@ joined equal the single-device film bit for bit.
 
 `pt`'s timers and stats go to the process-wide board
 (`pt_torch.core.stats`): "Mesh Upload", "Texture Upload", "Acceleration
-Structure Build" and "Render" (host seconds: on the card a step's kernels
-are queued, not waited for, so "Render" is the time to queue them), and
-"Total Samples", "Adaptive Mean SPP" and "Samples Per Frame".
+Structure Build" (host seconds), "Render" (on the card the device time of
+a step, between two CUDA events, folded in by a later flush once they
+have run; host seconds on the CPU), and "Total Samples", "Adaptive Mean
+SPP" and "Samples Per Frame".
+
+While the recorder of `pt_torch.core.stats` is on, the loop records its
+stages as spans: "Render" (the step), "raygen", "bounce" (with its index),
+"compact" (a compaction and its scatter back), "observe" (the plan's
+read-back), "accumulate" (the film's add), "Acceleration Structure Build"
+(a rebuild), and in `snapshot` "post" and "readback" (the image's copy to
+the host); `bounce_once` records its own.
 """
 
 from __future__ import annotations
@@ -102,7 +110,7 @@ from pt_torch.accel.instanced import (build_instanced_bf8,
                                       build_instanced_split)
 from pt_torch.core.cache import LRUCache, fnv1a
 from pt_torch.core.compilewatch import stage_call as _guard
-from pt_torch.core.stats import Stats, Timer
+from pt_torch.core.stats import Stats, Timer, span
 from pt_torch.dist import mesh as dmesh
 from pt_torch.post.pipeline import PostProcessSettings, postprocess
 from pt_torch.render.integrator import (Accel, AlphaSplit, BounceCarry,
@@ -147,12 +155,14 @@ def _tile_order(width: int, height: int, tile: int = 32) -> np.ndarray:
 
 def _carry_map(fn, *carries):
     """`fn` applied field by field across carries (BounceCarry and its
-    DiffRays), as a tree map."""
-    def go(*xs):
-        if isinstance(xs[0], tuple):
-            return type(xs[0])(*(go(*f) for f in zip(*xs)))
-        return fn(*xs)
-    return go(*carries)
+    DiffRays), as a tree map. It recurses by name, not through a closure
+    of its own: a closure that calls itself is a reference cycle, which
+    would keep `fn` (and the permutation a compaction's `fn` holds) on the
+    device until the cyclic garbage collector next runs."""
+    if isinstance(carries[0], tuple):
+        return type(carries[0])(*(_carry_map(fn, *f)
+                                  for f in zip(*carries)))
+    return fn(*carries)
 
 
 def _compact(carry: BounceCarry, k: int):
@@ -678,7 +688,7 @@ class Renderer:
         n_full = self._lanes
         cap = (_MAX_GROUP_LANES // n_full if n_full <= _MAX_GROUP_LANES
                else 1)
-        with Timer("Render"):     # host time: the kernels are not waited for
+        with Timer("Render", self.device, step=True):
             done = 0
             while done < samples:
                 g = min(cap, samples - done)
@@ -718,13 +728,15 @@ class Renderer:
         else:
             px, py, rep = self._group_arrays(g)
             frames = (rep + (self.total_samples + rep0)) & _MASK32
-        state = init_rng_state(px, py, self.width, frames)
-        state, o, d, diff = _guard(raygen, px, py, self.width, self.height,
-                                   inv_view, inv_proj, state, self.settings,
-                                   what="raygen")
-        carry = _guard(bounce_once, self.ds, self.tex, self.accel,
-                       start_carry(state, o, d, diff), self.settings, 0,
-                       what="bounce 0")
+        with span("raygen"):
+            state = init_rng_state(px, py, self.width, frames)
+            state, o, d, diff = _guard(raygen, px, py, self.width,
+                                       self.height, inv_view, inv_proj, state,
+                                       self.settings, what="raygen")
+        with span("bounce", 0):
+            carry = _guard(bounce_once, self.ds, self.tex, self.accel,
+                           start_carry(state, o, d, diff), self.settings, 0,
+                           what="bounce 0")
         flat = self.accum.view(-1, 3)
         if g == 1:
             subs = [carry]
@@ -736,8 +748,9 @@ class Renderer:
         for r, sub in enumerate(subs):
             full = self._trace_tail(sub, n_full,
                                     observe_ok=observe_ok and r == 0)
-            flat.index_add_(0, self._film_perm,
-                            _finite_or_zero(full.radiance))
+            with span("accumulate"):
+                flat.index_add_(0, self._film_perm,
+                                _finite_or_zero(full.radiance))
             self._rays_chunks.append(full.rays)
 
     def _trace_tail(self, carry: BounceCarry, n_lanes: int,
@@ -775,23 +788,32 @@ class Renderer:
         alive = [] if observe else None
         last = self.settings.bounce_count - 1
         for bounce in range(first, last + 1):
-            carry = _guard(bounce_once, self.ds, self.tex, self.accel, carry,
-                           self.settings, bounce, what=f"bounce {bounce}")
+            with span("bounce", bounce):
+                carry = _guard(bounce_once, self.ds, self.tex, self.accel,
+                               carry, self.settings, bounce,
+                               what=f"bounce {bounce}")
             if alive is not None:
                 alive.append(torch.sum(carry.alive))
             j = bounce - first
             k = plan[j] if plan and j < len(plan) else None
             if k is not None and k <= cur_n // 2 and bounce < last:
-                full = carry if perm is None else _scatter(full, carry, perm)
-                carry, perm = _compact(full, k)
+                with span("compact"):
+                    full = (carry if perm is None
+                            else _scatter(full, carry, perm))
+                    carry, perm = _compact(full, k)
                 cur_n = k
-        full = carry if perm is None else _scatter(full, carry, perm)
+        if perm is None:
+            full = carry
+        else:
+            with span("compact"):
+                full = _scatter(full, carry, perm)
         if alive:
-            counts = torch.stack(alive)
-            if self.mesh is not None:   # each rank compacts by the largest
-                counts = dmesh.all_reduce(counts, self._group,
-                                          dist.ReduceOp.MAX)
-            alive = counts.cpu().tolist()
+            with span("observe"):
+                counts = torch.stack(alive)
+                if self.mesh is not None:   # each rank compacts by the largest
+                    counts = dmesh.all_reduce(counts, self._group,
+                                              dist.ReduceOp.MAX)
+                alive = counts.cpu().tolist()
         return full, alive
 
     @property
@@ -907,7 +929,7 @@ class Renderer:
         expo = float(self.post.exposure)
         deadline = (time.perf_counter() + max_seconds
                     if max_seconds is not None else None)
-        with Timer("Render"):     # host time, as render()'s
+        with Timer("Render", self.device, step=True):
             while deadline is None or not self.any_rank(
                     time.perf_counter() >= deadline)[0]:
                 deficit = self._adaptive_deficit(tol, target_mse, pool,
@@ -965,11 +987,12 @@ class Renderer:
         n = len(px_np)
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         px, py = t(px_np), t(py_np)
-        state = init_rng_state(px, py, self.width,
-                               t(frames_np.astype(np.int64) & _MASK32))
-        state, o, d, diff = _guard(raygen, px, py, self.width, self.height,
-                                   inv_view, inv_proj, state, self.settings,
-                                   what="raygen")
+        with span("raygen"):
+            state = init_rng_state(px, py, self.width,
+                                   t(frames_np.astype(np.int64) & _MASK32))
+            state, o, d, diff = _guard(raygen, px, py, self.width,
+                                       self.height, inv_view, inv_proj, state,
+                                       self.settings, what="raygen")
         key = ("full", n)
         plan = self._plans.get(key)
         full, obs = self._bounces(start_carry(state, o, d, diff), 0, plan,
@@ -977,10 +1000,11 @@ class Renderer:
         rad = _finite_or_zero(full.radiance)
         lum = torch.sum(rad * torch.as_tensor(_LUM, device=dev), dim=-1)
         flat = self.accum.view(-1, 3)
-        for sel in passes:
-            lanes, pix = t(sel), t(pixels[sel])
-            flat.index_add_(0, pix, rad[lanes])
-            self._accum_sq.index_add_(0, pix, lum[lanes] * lum[lanes])
+        with span("accumulate"):
+            for sel in passes:
+                lanes, pix = t(sel), t(pixels[sel])
+                flat.index_add_(0, pix, rad[lanes])
+                self._accum_sq.index_add_(0, pix, lum[lanes] * lum[lanes])
         self._rays_chunks.append(full.rays)
         if obs:
             new_plan = _plan_of(obs)
@@ -1033,13 +1057,16 @@ class Renderer:
         the film is gathered first, and every rank gets the whole image."""
         accum = (self.accum if self.mesh is None else torch.as_tensor(
             self._whole_film(self.accum), device=self.device))
-        if self._spp_map is not None:
-            mean = accum / torch.as_tensor(self._counts_image(),
-                                           device=self.device)
-            return postprocess(mean, 1.0, self.post, hdr).cpu().numpy()
-        out = postprocess(accum, float(max(self.total_samples, 1)),
-                          self.post, hdr)
-        return out.cpu().numpy()
+        with span("post"):
+            if self._spp_map is not None:
+                mean = accum / torch.as_tensor(self._counts_image(),
+                                               device=self.device)
+                out = postprocess(mean, 1.0, self.post, hdr)
+            else:
+                out = postprocess(accum, float(max(self.total_samples, 1)),
+                                  self.post, hdr)
+        with span("readback"):
+            return out.cpu().numpy()
 
     def _fold_rays(self, keep: int = 64, limit: int = 512) -> None:
         """Bound the ray-chunk list: fold the chunks older than the last

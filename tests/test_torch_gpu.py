@@ -1391,3 +1391,63 @@ def test_cuda_viewer_serves_a_frame(cuda_device):
         viewer.ViewerServer = orig
     assert jpeg[:2] == b"\xff\xd8" and len(jpeg) > 200
     assert state["total_samples"] >= 1 and state["size"] == [64, 64]
+
+
+@pytest.mark.gpu
+def test_cuda_trace_spans_hold_their_traversal_kernels(cuda_device):
+    """One profiled step of a static Heightfield (K1/K2) with the recorder
+    of `pt_torch.core.stats` on: each "trace" span's device interval, put
+    on the unix clock through the recorder's anchor, holds the K1 launch it
+    made, and each "nee" span its K2 launch, to within 50 us of the
+    profiler's kernel times; the stat board's "Render", timed by the
+    timer's own two events inside the span's, is the step's device time to
+    within 200 us (and the board's rounding to 0.01 ms): on an idle stream
+    an event runs as it is recorded, so the two pairs lie apart by the host
+    time between their records, 54-75 us under the profiler."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pt_torch.core import stats
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.renderer import Renderer
+    from pt_torch.scene.examples import make_heightfield_scene
+
+    r = Renderer(PathTracingSettings(sample_count=1, bounce_count=3),
+                 device=cuda_device)
+    r.set_scene(make_heightfield_scene(64), stream_textures=False)
+    r.on_resize(256, 256)
+    r.render(1)
+    r.render(1)
+    assert type(r.accel.bvh).__name__ == "BF8BVH"
+    stats.Stats.clear()
+    stats.start_trace(cuda_device)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r.render(1)
+            torch.cuda.synchronize(cuda_device)
+    finally:
+        records = stats.stop_trace()
+    kernels = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    slack = 50_000
+    for span_name, kernel in (("trace", "closest_kernel"),
+                              ("nee", "occluded_kernel")):
+        launched = [(s, e) for s, e, n in kernels
+                    if re.search(rf"(?<!\w){kernel}(?!\w)", n)]
+        spans = [s for s in records.spans if s.name == span_name]
+        assert len(spans) == 3 and len(launched) == 3, (span_name, launched)
+        for sp, (k0, k1) in zip(spans, launched):
+            assert sp.device_start_ns - slack <= k0, (span_name, sp, k0)
+            assert k1 <= sp.device_end_ns + slack, (span_name, sp, k1)
+    assert [s.name for s in records.spans].count("Render") == 1
+    stats.Stats.flush_timers()
+    board = float(stats.Stats.get_stats()["Render"].split()[0])
+    step_ms = records.device_ms("Render")
+    assert 0 < step_ms and -0.006 <= step_ms - board <= 0.2, (board,
+                                                              step_ms)
+    stats.Stats.clear()

@@ -170,6 +170,31 @@ def test_ray_fold_keeps_the_count():
     assert len(r._rays_chunks) == 64 and r._rays_host == sum(range(536))
 
 
+def test_compaction_frees_its_permutation_without_the_collector():
+    """A compaction's permutation (a view of a full-width argsort) goes with
+    the carries that use it, not at the cyclic collector's next run."""
+    import gc
+    import weakref
+
+    from pt_torch.render.differentials import DiffRays
+    from pt_torch.render.integrator import start_carry
+    n = 4096
+    o, d = torch.zeros(n, 3), torch.ones(n, 3)
+    carry = start_carry(torch.zeros(n, dtype=torch.int64), o, d,
+                        DiffRays(o, d, o, d))
+    carry = carry._replace(alive=torch.arange(n) % 3 == 0)
+    gc.disable()
+    try:
+        sub, perm = TR._compact(carry, 2048)
+        back = TR._scatter(carry, sub, perm)
+        assert torch.equal(back.alive, carry.alive)
+        alive = weakref.ref(perm)
+        del sub, perm, back
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("which", ["Default", "Heightfield"])
 def test_film_through_the_loop_matches_pt_renderer(which):
     t_scene, j_scene = {
