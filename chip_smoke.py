@@ -87,8 +87,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
    kernels');
 6. alpha variants at 256², 3 bounces: the animated one (the ground plus
    5,200 alpha-tested card triangles: single-tree re-trace loops over K3)
-   and the static one (split trees, K1/K2), with checks that decals and
-   accepted alpha hits occur;
+   and the static one (split trees, K1/K2, and one round kernel a round,
+   `alpha_closest_round` / `alpha_shadow_round`), with checks that decals
+   and accepted alpha hits occur;
 7. main path, instanced: 64 instances of one 6,050-triangle grid over a
    ground slab (387,202 flattened triangles) with `instancing="auto"`, opaque
    and with an alpha-tested foliage card per instance, at 512², 5 bounces, 4
@@ -133,7 +134,13 @@ Phases, each fatal on failure (nothing is caught and passed over):
    at 64², card against CPU;
 9. the Courtyard at 512², 5 bounces: detail 0.85 with `instancing="shared"`
    (985 segments; three instanced trees) and detail 1.0 with "auto" (1135
-   segments, above the cap: the flat BF8 path with split trees); the Default
+   segments, above the cap: the flat BF8 path with split trees); then the
+   latter at the 4K still's 3840x2160, 1 spp: each call of the two split
+   loops at bounce 0 and bounce 2 runs once through the round kernels and
+   once through their plain twins (`_round_kernel_args` patched to None)
+   on the same inputs, hits, decals and occlusion bit-equal, one round
+   kernel a round, each round timed by CUDA events in both arms beside its
+   bytes bound from its lanes (the kernels line's two R1 rows); the Default
    scene (embedded PNG textures) at 512², written to a PNG;
 10. cross-device film, card (kernels) against CPU (plain versions), MSE <
     1e-3 each: the Heightfield (n=64) at 64², 1 spp, 3 bounces; two animated
@@ -2066,9 +2073,11 @@ def phase_alpha():
     names = {type(b).__name__ for b in (r.accel.bvh, sp.bvh_opaque,
                                         sp.bvh_alpha)}
     # per bounce: 1 opaque + 4 alpha closest traces, then 1 opaque occlusion
-    # + 4 alpha closest traces
+    # + 4 alpha closest traces, and a round kernel after each alpha trace
     check(names == {"BF8BVH"} and counts["closest_bf8"] == 3 * 9
-          and counts["occluded_bf8"] == 3 and counts["closest_v4"] == 0,
+          and counts["occluded_bf8"] == 3 and counts["closest_v4"] == 0
+          and counts["alpha_closest_round"] == 3 * 4
+          and counts["alpha_shadow_round"] == 3 * 4,
           f"static alpha: trees {names}, launches {counts}")
     decals, accepted = _alpha_hits(r)
     check(decals > 0 and accepted > 0,
@@ -2128,9 +2137,12 @@ def _failed_subset_trees():
             ("BF8BVH", "closest_bf8", "occluded_bf8") if arm == "bf8" else
             ("PacketBVH", "closest_v4", "occluded_v4"))
         # per bounce 1 opaque + 4 alpha closest traces, then 1 opaque
-        # occlusion + 4 alpha closest traces, all on the subset trees
+        # occlusion + 4 alpha closest traces, all on the subset trees, and
+        # a round kernel after each alpha trace
         check(names == (want_tree, want_tree)
-              and counts == {closest: 3 * 9, occluded: 3}
+              and counts == {closest: 3 * 9, occluded: 3,
+                             "alpha_closest_round": 3 * 4,
+                             "alpha_shadow_round": 3 * 4}
               and brute.calls == 0,
               f"failed subsets, {arm} arm: trees {names}, launches "
               f"{counts}, {brute.calls} brute calls")
@@ -2249,10 +2261,16 @@ def phase_instanced():
             # scene 9 closest (1 opaque + 4 alpha, 4 alpha for the shadow
             # rays) and 1 occlusion
             per = (9, 1) if alpha else (1, 1)
+            # and on the alpha scene one round kernel a round, 4 + 4
+            rounds = {"alpha_closest_round": 51 * 4,
+                      "alpha_shadow_round": 51 * 4} if alpha else {}
+            check(all(every[k] == v for k, v in rounds.items()),
+                  f"{tag} {mode}: round kernels {every}")
             if mode == "auto":
                 check(counts == {"closest_bf8i": 51 * per[0],
                                  "occluded_bf8i": 51 * per[1]}
-                      and sum(every.values()) == sum(counts.values()),
+                      and sum(every.values()) == sum(counts.values())
+                      + sum(rounds.values()),
                       f"{tag}: launches {every}")
                 log(f"[{tag}] BF8Instanced {_describe_instanced(r.accel.bvh)}"
                     + ("" if sp is None else
@@ -2261,7 +2279,8 @@ def phase_instanced():
             else:
                 check(every["closest_bf8"] == 51 * per[0]
                       and every["occluded_bf8"] == 51 * per[1]
-                      and sum(every.values()) == 51 * sum(per),
+                      and sum(every.values()) == 51 * sum(per)
+                      + sum(rounds.values()),
                       f"{tag} flatten: launches {every}")
             arms[mode] = dict(r=r, build_s=build_s, ms=dt / 3 * 1e3,
                               mrays=rays / dt / 1e6, peak=peak,
@@ -2863,9 +2882,12 @@ def phase_courtyard():
             used = ("closest_bf8", "occluded_bf8")
         r.render()                                        # warm step
         dt, counts, every, rays, peak = _counted_steps(r, used, steps=2)
-        # a step: the 2 samples' bounce 0 merged, then 2 tails of 4
+        # a step: the 2 samples' bounce 0 merged, then 2 tails of 4; a
+        # round kernel after each of a bounce's 8 alpha traces
         check(counts == {used[0]: 2 * 9 * 9, used[1]: 2 * 9}
-              and sum(every.values()) == sum(counts.values()),
+              and every["alpha_closest_round"] == 2 * 9 * 4
+              and every["alpha_shadow_round"] == 2 * 9 * 4
+              and sum(every.values()) == sum(counts.values()) + 2 * 9 * 8,
               f"{tag}: launches {every}")
         _check_film(r, tag)
         decals, accepted = _alpha_hits(r)
@@ -2885,7 +2907,159 @@ def phase_courtyard():
             f"steps {counts}; bounce 0: {decals} decals, {accepted} accepted "
             f"alpha hits")
         _write_png(r, f"courtyard_{detail}_512.png", tag)
+        if mode == "auto":
+            rounds = _round_kernels_4k(r)
         del r
+    return rounds
+
+
+# least bytes of a round (alpha_round_kernels.cu): N + a P + b H with bf16
+# texels, b + 32 with f32
+ROUND_BYTES = {"closest": (45, 120), "shadow": (33, 93)}
+
+
+def _round_kernels_4k(r):
+    """The split loops' round kernels on the 4K still's wavefronts: `r`
+    (the flat Courtyard) at 3840x2160, one sample. Each call of a split loop
+    at bounce 0 and bounce 2 runs with the round kernels and again with the
+    plain twins on the same inputs (the launch counts reset before each);
+    its hits, decals and occlusion must be bit-equal. Each round is timed
+    between two CUDA events behind a device sleep in both arms, with its N
+    lanes, P pending and H that fetch a texel, and its bytes bound. Returns
+    the kernels line's R1 rows, by kernel."""
+    import torch
+    from pt_torch.accel import kernels
+    from pt_torch.render import integrator as integ
+    r.on_resize(3840, 2160)
+    kernels.reset_launch_counts()
+    r.render(1)                                   # warm at this size
+    torch.cuda.synchronize()
+    per_sample = dict(kernels.launches)
+    check(per_sample["alpha_closest_round"] == 5 * integ.ALPHA_ROUNDS
+          and per_sample["alpha_shadow_round"] == 5 * integ.ALPHA_ROUNDS,
+          f"[rounds] a 4K sample launched {per_sample}")
+    extra = 0 if r.tex.data.dtype == torch.bfloat16 else 32
+    loops = {"closest": integ._trace_closest_alpha_split,
+             "shadow": integ._trace_occluded_alpha_split}
+    rounds = {"closest": integ._closest_round,
+              "shadow": integ._shadow_round}
+    kernel_args = integ._round_kernel_args
+    calls = {"closest": 0, "shadow": 0}
+    armed = []          # the rounds of the arm that runs, while one runs
+    res = {}
+
+    def timed_round(loop):
+        def run(ds, tex, accel, sp, st, dirs, hit, last):
+            if not armed:
+                return rounds[loop](ds, tex, accel, sp, st, dirs, hit, last)
+            fetch = st.pending & (hit.tri >= 0)
+            if loop == "closest":
+                fetch &= st.t_accum + hit.t < st.bound
+            lanes = torch.stack([st.pending.sum(), fetch.sum()])
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            # as in cuda_ms: the host queues the round before it starts
+            torch.cuda._sleep(40_000_000)
+            e0.record()
+            out = rounds[loop](ds, tex, accel, sp, st, dirs, hit, last)
+            e1.record()
+            armed[-1].append((lanes, e0, e1))
+            return out
+        return run
+
+    def bits(a):
+        return a.view(torch.int32) if a.dtype == torch.float32 else \
+            a.to(torch.int32)
+
+    def twice(loop):
+        def run(*a, **k):
+            bounce = calls[loop]
+            calls[loop] += 1
+            if bounce not in (0, 2):
+                return loops[loop](*a, **k)
+            arms = {}
+            for arm in ("kernel", "plain"):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                armed.append([])
+                if arm == "plain":
+                    integ._round_kernel_args = lambda *x: None
+                try:
+                    out = loops[loop](*a, **k)
+                finally:
+                    integ._round_kernel_args = kernel_args
+                torch.cuda.synchronize()
+                arms[arm] = (out, armed.pop(),
+                             kernels.launches[f"alpha_{loop}_round"])
+            (got, k_rounds, k_n), (want, p_rounds, p_n) = \
+                arms["kernel"], arms["plain"]
+            flat = ((lambda o: (*o[0], *o[1:])) if loop == "closest" else
+                    (lambda o: (o,)))
+            differ = [int((bits(x) != bits(y)).sum())
+                      for x, y in zip(flat(got), flat(want))]
+            n = a[4].shape[0]
+            check(k_n == integ.ALPHA_ROUNDS and p_n == 0
+                  and not any(differ),
+                  f"[rounds] {loop} loop, bounce {bounce} ({n} lanes): "
+                  f"{k_n} and {p_n} round launches, lanes differing "
+                  f"{differ}")
+            a_p, b_h = ROUND_BYTES[loop]
+            rows = []
+            for (lanes, e0, e1), (_, q0, q1) in zip(k_rounds, p_rounds):
+                pend, fetch = (int(x) for x in lanes)
+                nbytes = n + a_p * pend + (b_h + extra) * fetch
+                rows.append(dict(pending=pend, fetch=fetch,
+                                 ms=e0.elapsed_time(e1),
+                                 plain_ms=q0.elapsed_time(q1),
+                                 bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3))
+            res[(loop, bounce)] = dict(n=n, rounds=rows)
+            return got
+        return run
+
+    integ._trace_closest_alpha_split = twice("closest")
+    integ._trace_occluded_alpha_split = twice("shadow")
+    integ._closest_round = timed_round("closest")
+    integ._shadow_round = timed_round("shadow")
+    try:
+        r.render(1)
+        torch.cuda.synchronize()
+    finally:
+        integ._trace_closest_alpha_split = loops["closest"]
+        integ._trace_occluded_alpha_split = loops["shadow"]
+        integ._closest_round = rounds["closest"]
+        integ._shadow_round = rounds["shadow"]
+    check(set(res) == {(lp, b) for lp in loops for b in (0, 2)},
+          f"[rounds] split loop calls {calls}, checked {sorted(res)}")
+    _check_film(r, "rounds")
+    out = {}
+    for loop in loops:
+        name = f"alpha_{loop}_round"
+        b0, b2 = res[(loop, 0)], res[(loop, 2)]
+        for bounce, b in ((0, b0), (2, b2)):
+            log(f"[rounds] {loop} loop, bounce {bounce}, {b['n']} lanes, "
+                "bit-equal to the plain twin; by round pending/fetching, "
+                "kernel ms, plain ms, bound ms: " + "; ".join(
+                    f"{x['pending']}/{x['fetch']} {x['ms']:.4f} "
+                    f"{x['plain_ms']:.3f} {x['bound_ms']:.5f}"
+                    for x in b["rounds"]))
+        first, first2 = b0["rounds"][0], b2["rounds"][0]
+        out[name] = {
+            "name": name, "id": "R1", "route": "cuda",
+            "source": "pt_torch/accel/csrc/alpha_round_kernels.cu",
+            "replaces": "none: pt/render/integrator.py "
+                        f"{loops[loop].__name__}'s rounds, tensor code",
+            "launches": per_sample[name], "launches_per": "4K sample",
+            "max_abs_err": 0.0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "wavefront": "4K still, bounce 0, round 1", "lanes": b0["n"],
+            "pending": first["pending"], "fetch": first["fetch"],
+            "ms_bounce2": first2["ms"],
+            "plain_ms_bounce2": first2["plain_ms"],
+            "bound_ms_bounce2": first2["bound_ms"], "lanes_bounce2": b2["n"],
+            "rounds": {str(b): res[(loop, b)]["rounds"] for b in (0, 2)}}
+    log("[rounds] " + json.dumps(list(out.values())))
+    return out
 
 
 def phase_default():
@@ -3653,8 +3827,10 @@ def phase_import():
           f"[import] the CLI's PNG decodes to {decoded.shape}")
     check(not any(plain.calls.values()),
           f"[import] plain versions ran on the card: {plain.calls}")
-    flat = {"closest_bf8", "occluded_bf8"}
-    shared = {"closest_bf8i", "occluded_bf8i"}
+    # the foliage's MASK materials keep the alpha split: its round kernels
+    rounds = {"alpha_closest_round", "alpha_shadow_round"}
+    flat = {"closest_bf8", "occluded_bf8"} | rounds
+    shared = {"closest_bf8i", "occluded_bf8i"} | rounds
     check(set(cli_launches) in (flat, shared),
           f"[import] the glb render launched {cli_launches}")
     route = "K1/K2 (flat)" if set(cli_launches) == flat else \
@@ -4891,7 +5067,7 @@ def main() -> None:
     fresh(phase_alpha)
     i_counts, i_times, inst_stats = fresh(phase_instanced)
     ar_launches, ar_rows, ar_stats = fresh(phase_archive)
-    fresh(phase_courtyard)
+    round_rows = fresh(phase_courtyard)
     fresh(phase_default)
     fresh(phase_cross_device)
     entry = fresh(phase_entry)
@@ -4977,6 +5153,7 @@ def main() -> None:
                      "per_ray_k1_ms_bounce2": tm["per_ray_k1_ms_bounce2"],
                      "plain_ms_bounce2": tm["plain_ms_bounce2"],
                      "bound_ms_bounce2": tm["bound_ms_bounce2"]})
+    rows.extend(round_rows.values())
     log(f"[done] {time.perf_counter() - t_start:.1f} s; static main path "
         f"{json.dumps(main_stats)}; render loop against the per-sample "
         f"loop {json.dumps(loop_stats)}; animated main path "

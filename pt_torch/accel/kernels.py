@@ -75,6 +75,15 @@ lockstep of a one-thread-per-ray schedule. Its plain version is
 `closest_bf8_walk_plain`, a vectorised stack walk over all lanes that
 repeats the kernel step by step.
 
+Beside the traversal kernels sit the round kernels of the integrator's
+split any-hit loops (csrc/alpha_round_kernels.cu over
+csrc/alpha_round.cuh; `alpha_closest_round`, `alpha_shadow_round`): one
+launch a round does what a round does besides its trace, in place. Their
+plain twins are the integrator's tensor round bodies
+(`pt_torch.render.integrator._closest_round_plain` / `_shadow_round_plain`),
+which the integrator runs for CPU tensors; the launchers here take CUDA
+tensors only.
+
 The wrappers check device, dtype, shape and contiguity. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises. Each
 launch adds one to `launches[name]` (a pops launch to
@@ -142,6 +151,9 @@ _CUDA_LIBS = {
             (CSRC / "v6_warp_kernels.cu", CSRC / "warp_leaf.cuh",
              CSRC / "v6_traverse.cuh", CSRC / "bf8_traverse.cuh",
              CSRC / "page_leaf.cuh", _COMMON)),
+    "alpha": (BUILD_DIR / "libpt_alpha_sm90a.so",
+              (CSRC / "alpha_round_kernels.cu", CSRC / "alpha_round.cuh",
+               _COMMON)),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -158,7 +170,8 @@ launches = {"closest_bf8": 0, "closest_bf8_per_ray": 0,
             "closest_v6_per_ray": 0, "closest_v6k2": 0,
             "closest_v6k2_per_ray": 0, "closest_v7": 0,
             "closest_v7_per_ray": 0, "occluded_v6": 0,
-            "occluded_v6_per_ray": 0}
+            "occluded_v6_per_ray": 0, "alpha_closest_round": 0,
+            "alpha_shadow_round": 0}
 # per-thread stack entries of the archive kernels (ordered_traverse.cuh,
 # v6_traverse.cuh); the wrappers raise on a tree that could overflow them
 ORDERED_STACK = 64
@@ -302,6 +315,11 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.pt_v6w_blocks_per_sm.argtypes = [i]
                 lib.pt_v6w_smem_per_block.restype = i
                 lib.pt_v6w_smem_per_block.argtypes = []
+            elif name == "alpha":       # the split loops' round kernels
+                for fn in (lib.pt_alpha_closest_round,
+                           lib.pt_alpha_shadow_round):
+                    fn.restype = i
+                    fn.argtypes = [p] * 5 + [i, p]   # structs, n, stream
             elif name in _WARP_LIBS:    # no counted variant
                 # v4w: five pointers, three ints; bf8iw: nine pointers, two
                 # ints, and an int flag (raw_ids, opaque_only)
@@ -1062,6 +1080,231 @@ def occluded_v6_per_ray(bvh6, origins: torch.Tensor, dirs: torch.Tensor,
         return occluded_v6_plain(bvh6, origins, dirs, dist, tmin)
     return _launch_occluded("occluded_v6_per_ray", "v6", _tree_args_v6(bvh6),
                             bvh6, origins, dirs, dist, tmin, n, counts)
+
+
+# ------------------------------------------- the split loops' round kernels
+
+# alpha_round.cuh's structs, field for field; the launchers take pointers
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class RoundHits(ctypes.Structure):
+    """alpha::Hits: the round's trace of the alpha subset tree."""
+    _fields_ = [(k, _P) for k in ("t", "tri", "u", "v")]
+
+
+class RoundTables(ctypes.Structure):
+    """alpha::Tables: the alpha subset and the material tables."""
+    _fields_ = ([(k, _P) for k in ("sel", "tri_uv", "tri_mat", "mat_tex",
+                                   "mat_params")]
+                + [(k, _I) for k in ("mat_tex_cols", "t_color",
+                                     "mat_params_cols", "f_color")])
+
+
+class RoundPool(ctypes.Structure):
+    """alpha::Pool: a DeviceTextures and its layout."""
+    _fields_ = [("data", _P), ("rows", ctypes.c_int64), ("width", _I),
+                ("offsets", _P), ("sizes", _P), ("count", _I),
+                ("max_mips", _I), ("layout", _I), ("bf16", _I)]
+
+
+class RoundRay(ctypes.Structure):
+    """alpha::NextRay: the loop's directions and the next round's ray."""
+    _fields_ = [(k, _P) for k in ("dirs", "o", "d", "t", "root_hi")]
+
+
+class ClosestRoundState(ctypes.Structure):
+    """alpha::ClosestState."""
+    _fields_ = [(k, _P) for k in ("pending", "t_accum", "bound", "final_t",
+                                  "final_tri", "final_u", "final_v",
+                                  "decal_color", "decal_alpha", "has_decal")]
+
+
+class ShadowRoundState(ctypes.Structure):
+    """alpha::ShadowState."""
+    _fields_ = [(k, _P) for k in ("pending", "occluded")]
+
+
+class RoundArgs(NamedTuple):
+    """A split loop's arguments to its round kernel besides the round's
+    hit, made once a loop (`closest_round_args`, `shadow_round_args`).
+    `held`: the lane tensors the structs point into, kept alive with them
+    (the tables' tensors belong to the scene and its accel)."""
+    state: ctypes.Structure      # ClosestRoundState or ShadowRoundState
+    ray: RoundRay
+    tables: RoundTables
+    pool: RoundPool
+    n: int
+    held: tuple
+
+
+# alpha_round.cuh's pool layouts: (layout, values a row)
+_ALPHA_LAYOUTS = {"quad": (0, 16), "paired": (1, 8), "flat": (2, 4),
+                  "constant": (3, 4)}
+
+
+def _check_lanes(device, *named) -> None:
+    """Each (name, tensor, shape, dtype) must be a contiguous tensor of that
+    shape and dtype on `device`."""
+    for name, a, shape, dtype in named:
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise TypeError(f"{name}: expected {shape} {dtype}, got "
+                            f"{tuple(a.shape)} {a.dtype}")
+        if a.device != device or not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}, "
+                             f"not {a.device}")
+
+
+def alpha_round_tables(sel, tri_uv, tri_mat, mat_tex, t_color: int,
+                       mat_params, f_color: int,
+                       tex) -> tuple[RoundTables, RoundPool]:
+    """The round kernels' arguments that stay fixed through a loop, checked
+    once: the alpha subset's global ids `sel` (K,) int32, the per-triangle
+    uv rows `tri_uv` (T, 6) and materials `tri_mat` (T,) int32, the material
+    tables `mat_tex` (M, *) int32 with its color column `t_color` and
+    `mat_params` (M, *) f32 with its color factor's first column `f_color`,
+    and the texture pool `tex` (a DeviceTextures: quad, paired or flat rows,
+    or all 1x1 constants, in bf16 or f32), all on the device of the
+    rounds."""
+    dev = sel.device
+    t, m = tri_uv.shape[0], mat_tex.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    _check_lanes(dev, ("sel", sel, (sel.shape[0],), i32),
+                 ("tri_uv", tri_uv, (t, 6), f32),
+                 ("tri_mat", tri_mat, (t,), i32),
+                 ("mat_tex", mat_tex, (m, mat_tex.shape[1]), i32),
+                 ("mat_params", mat_params, (m, mat_params.shape[1]), f32),
+                 ("offsets", tex.offsets, tuple(tex.offsets.shape), i32),
+                 ("sizes", tex.sizes, tex.offsets.shape + (2,), i32))
+    data = tex.data
+    if data.dtype not in (torch.bfloat16, f32):
+        raise TypeError(f"texture pool: bf16 or f32 rows, not {data.dtype}")
+    if data.device != dev or not data.is_contiguous() or data.dim() != 2:
+        raise ValueError("texture pool: rows must be a contiguous 2-D tensor "
+                         f"on {dev}")
+    layout, width = _ALPHA_LAYOUTS[
+        "constant" if tex.all_constant else "quad" if tex.quad else
+        "paired" if tex.paired else "flat"]
+    if data.shape[1] < width or (not tex.all_constant
+                                 and data.shape[1] != width):
+        raise ValueError(f"texture pool: rows of {data.shape[1]} values do "
+                         "not fit its layout")
+    return (RoundTables(sel.data_ptr(), tri_uv.data_ptr(), tri_mat.data_ptr(),
+                        mat_tex.data_ptr(), mat_params.data_ptr(),
+                        mat_tex.shape[1], int(t_color), mat_params.shape[1],
+                        int(f_color)),
+            RoundPool(data.data_ptr(), data.shape[0], data.shape[1],
+                      tex.offsets.data_ptr(), tex.sizes.data_ptr(),
+                      tex.offsets.shape[0], tex.offsets.shape[1], layout,
+                      int(data.dtype == torch.bfloat16)))
+
+
+def _next_ray(n: int, dev, dirs, ray, root_hi) -> RoundRay:
+    """The next ray `ray` (o (N, 3), d (N, 3), t (N,)), which the kernel
+    writes in place; with no root box (`root_hi` None) it writes neither
+    `d` nor a degenerate ray."""
+    o, d, t = ray
+    f32 = torch.float32
+    named = [("dirs", dirs, (n, 3), f32), ("ray origins", o, (n, 3), f32),
+             ("ray limits", t, (n,), f32)]
+    if root_hi is not None:
+        named += [("ray directions", d, (n, 3), f32),
+                  ("root_hi", root_hi, (3,), f32)]
+    _check_lanes(dev, *named)
+    if root_hi is None:
+        return RoundRay(dirs.data_ptr(), o.data_ptr(), None, t.data_ptr(),
+                       None)
+    return RoundRay(dirs.data_ptr(), o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                   root_hi.data_ptr())
+
+
+def closest_round_args(pending, t_accum, bound, final: Hit, decal_color,
+                       decal_alpha, has_decal, dirs, ray, root_hi,
+                       tables) -> RoundArgs:
+    """The closest loop's arguments to `alpha_closest_round`, checked once
+    a loop: its state on N lanes (`pending` (N,) bool, `t_accum`, the opaque
+    hit's t `bound`, the `final` hit (global ids), `decal_color` (N, 3),
+    `decal_alpha`, `has_decal` bool), its directions `dirs`, the next
+    round's `ray`, the root box's upper corner `root_hi` (or None) and
+    `tables` from `alpha_round_tables`. The kernel writes the state and the
+    ray in place, and reads a lane's all before it writes any: the buffers
+    it writes are the caller's to set up (the integrator's
+    `_closest_rounds_start`)."""
+    dev, n = pending.device, pending.shape[0]
+    f32, b = torch.float32, torch.bool
+    _check_lanes(dev, ("pending", pending, (n,), b),
+                 ("t_accum", t_accum, (n,), f32), ("bound", bound, (n,), f32),
+                 ("final t", final.t, (n,), f32),
+                 ("final tri", final.tri, (n,), torch.int32),
+                 ("final u", final.u, (n,), f32),
+                 ("final v", final.v, (n,), f32),
+                 ("decal_color", decal_color, (n, 3), f32),
+                 ("decal_alpha", decal_alpha, (n,), f32),
+                 ("has_decal", has_decal, (n,), b))
+    state = ClosestRoundState(pending.data_ptr(), t_accum.data_ptr(),
+                         bound.data_ptr(), *(a.data_ptr() for a in final),
+                         decal_color.data_ptr(), decal_alpha.data_ptr(),
+                         has_decal.data_ptr())
+    return RoundArgs(state, _next_ray(n, dev, dirs, ray, root_hi), *tables,
+                     n, (pending, t_accum, bound, *final, decal_color,
+                         decal_alpha, has_decal, dirs, *ray, root_hi))
+
+
+def shadow_round_args(pending, occluded, dirs, ray, root_hi,
+                      tables) -> RoundArgs:
+    """The shadow loop's arguments to `alpha_shadow_round`: `pending` and
+    `occluded` (N,) bool, and the rest as `closest_round_args`."""
+    dev, n = pending.device, pending.shape[0]
+    _check_lanes(dev, ("pending", pending, (n,), torch.bool),
+                 ("occluded", occluded, (n,), torch.bool))
+    return RoundArgs(ShadowRoundState(pending.data_ptr(),
+                                      occluded.data_ptr()),
+                     _next_ray(n, dev, dirs, ray, root_hi), *tables, n,
+                     (pending, occluded, dirs, *ray, root_hi))
+
+
+def round_call_args(hit: Hit, args: RoundArgs) -> tuple:
+    """A round launcher's arguments before the stream: pointers to the
+    round's hit (t, tri, u, v over the loop's lanes, checked) and to the
+    loop's structs, and the lane count."""
+    n, f32 = args.n, torch.float32
+    _check_lanes(hit.t.device, ("hit t", hit.t, (n,), f32),
+                 ("hit tri", hit.tri, (n,), torch.int32),
+                 ("hit u", hit.u, (n,), f32), ("hit v", hit.v, (n,), f32))
+    hits = RoundHits(*(a.data_ptr() for a in hit))
+    return (*(ctypes.byref(x) for x in (hits, args.state, args.ray,
+                                        args.tables, args.pool)), n)
+
+
+def _launch_round(name: str, hit: Hit, args: RoundArgs) -> None:
+    """Launch round kernel `name` on the round's `hit` and the loop's `args`
+    on the current stream of the hit's device, which must be a CUDA device
+    (the integrator runs the plain twins on the CPU)."""
+    dev = hit.t.device
+    if dev.type != "cuda":
+        raise ValueError(f"the round kernels run on a CUDA device, not {dev}")
+    call = round_call_args(hit, args)
+    if args.n == 0:
+        return
+    lib = _lib("alpha")
+    code = getattr(lib, "pt_" + name)(
+        *call, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, code, name)
+    launches[name] += 1
+
+
+def alpha_closest_round(hit: Hit, args: RoundArgs) -> None:
+    """One round of the closest split loop, in place: `hit`, the round's
+    trace of the alpha subset tree (subset ids), and `args` from
+    `closest_round_args`. Launches alpha_round_kernels.cu's closest kernel
+    on the current stream, or raises."""
+    _launch_round("alpha_closest_round", hit, args)
+
+
+def alpha_shadow_round(hit: Hit, args: RoundArgs) -> None:
+    """One round of the shadow split loop, in place: `hit` and `args` from
+    `shadow_round_args`; as `alpha_closest_round`."""
+    _launch_round("alpha_shadow_round", hit, args)
 
 
 # ---------------------------------------------------------------- plain

@@ -27,6 +27,11 @@ Alpha-tested geometry runs the any-hit emulation loops
 (`trace_closest_alpha`, `trace_occluded_alpha`): up to ALPHA_ROUNDS
 closest-hit traces per query, over the whole tree, or over the opaque and
 alpha subset trees when the accel carries an `AlphaSplit` (static scenes).
+In the split loops, what a round does besides its trace is on the card one
+launch of a hand-written kernel that updates the loop's state in place
+(`kernels.alpha_closest_round` / `alpha_shadow_round`), on the CPU its
+plain twin (`_closest_round_plain` / `_shadow_round_plain`); the
+whole-tree loops keep their tensor code.
 
 Features mirrored from `pt`: next-event estimation with uniform light pick
 + disk softening, 4-lobe BSDF importance sampling, Russian roulette on max
@@ -41,7 +46,8 @@ trace's width), "closest_live" and "shadow_live" (the live lanes of the
 closest and the shadow trace: the sums the ray counter adds already). The
 alpha loops record an "alpha" span around their rounds, and per round the
 counters "alpha_lanes" (the round's width) and "alpha_pending" (its pending
-lanes: one reduction a round, made only while the recorder is on).
+lanes: one reduction a round, made only while the recorder is on), and
+"alpha_kernel_rounds" (one for each round the round kernel ran).
 """
 
 from __future__ import annotations
@@ -54,8 +60,11 @@ import torch
 from pt_torch import default_device
 from pt_torch.accel.bvh8 import BF8BVH, PacketBVH, build_packet_bvh
 from pt_torch.accel.intersect import Hit, intersect_brute
-from pt_torch.accel.kernels import (closest_bf8, closest_v4, occluded_bf8,
-                                    occluded_v4)
+from pt_torch.accel.kernels import (RoundArgs, alpha_closest_round,
+                                    alpha_round_tables, alpha_shadow_round,
+                                    closest_bf8, closest_round_args,
+                                    closest_v4, occluded_bf8, occluded_v4,
+                                    shadow_round_args)
 from pt_torch.accel.lbvh import ThreadedBVH, _expand_bits_10, build_bvh
 from pt_torch.accel.traverse import bvh_closest, bvh_occluded
 from pt_torch.core.stats import count, span, tracing
@@ -416,6 +425,148 @@ def _count_round(pending):
         count("alpha_pending", torch.sum(pending))
 
 
+class ClosestRounds(NamedTuple):
+    """The closest split loop's state between its rounds. `ray` is the next
+    round's masked ray (origins, directions, limits), None after the last
+    round; `kernel` the round kernel's arguments besides the hit
+    (`kernels.RoundArgs`), None where the plain twin runs. On the card the
+    kernel updates every tensor in place, and they share memory: the
+    pending lanes' current origins are the ray's origins (`cur_origin` is
+    that buffer) and the final hit's t starts as `bound`'s buffer
+    (`_closest_rounds_start` sets them up)."""
+    pending: torch.Tensor        # (N,) bool
+    t_accum: torch.Tensor        # (N,) t of the current origin on the ray
+    cur_origin: torch.Tensor     # (N, 3)
+    bound: torch.Tensor          # (N,) the opaque hit's t
+    final: Hit                   # global triangle ids
+    decal_color: torch.Tensor    # (N, 3)
+    decal_alpha: torch.Tensor    # (N,)
+    has_decal: torch.Tensor      # (N,) bool
+    ray: Optional[tuple]
+    kernel: Optional[RoundArgs] = None
+
+
+class ShadowRounds(NamedTuple):
+    """The shadow split loop's state between its rounds, as ClosestRounds:
+    on the card the pending lanes' current origins and remaining distances
+    are the next ray's origins and limits."""
+    pending: torch.Tensor        # (N,) bool
+    occluded: torch.Tensor       # (N,) bool
+    cur_origin: torch.Tensor     # (N, 3)
+    remaining: torch.Tensor      # (N,)
+    ray: Optional[tuple]
+    kernel: Optional[RoundArgs] = None
+
+
+def _round_kernel_args(ds: DeviceScene, tex: DeviceTextures, accel,
+                       sp: AlphaSplit, origins):
+    """The round kernel's table and pool arguments on the card
+    (`kernels.alpha_round_tables`), None on the CPU."""
+    if origins.device.type == "cpu":
+        return None
+    return alpha_round_tables(sp.sel_alpha, accel.tri_uv, ds.tri_mat,
+                              ds.mat_tex, T_COLOR, ds.mat_params, F_COLOR,
+                              tex)
+
+
+def _own_ray(ray, origins, limits):
+    """The first masked ray, in buffers of the loop's own for the round
+    kernel to write: without a root box `_degenerate_masked` hands back the
+    caller's origins (and, in the shadow loop, its distances), and its
+    directions, which the kernel then leaves alone."""
+    o, d, t = ray
+    return (o.clone() if o is origins else o, d,
+            t.clone() if t is limits else t)
+
+
+def _root_hi(bvh):
+    """The structure's root box's upper corner, None where it has none."""
+    bounds = _root_bounds(bvh)
+    return None if bounds is None else bounds[1]
+
+
+def _closest_rounds_start(sp: AlphaSplit, hit_o: Hit, final_tri, origins,
+                          dirs, alive, tables) -> ClosestRounds:
+    """The closest loop's state before its first round: every live lane
+    pending at the origin, the opaque hit as the final one, no decal, and
+    the first round's masked ray. `tables`: the round kernel's
+    (`_round_kernel_args`), or None for the plain twin."""
+    if tables is not None:         # the kernel reads rows in lane order
+        origins, dirs = origins.contiguous(), dirs.contiguous()
+    n = origins.shape[0]
+    dev = origins.device
+    t_accum = torch.zeros((n,), dtype=torch.float32, device=dev)
+    decal_color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    decal_alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
+    has_decal = torch.zeros((n,), dtype=torch.bool, device=dev)
+    bound = hit_o.t
+    rem = torch.clamp(bound - t_accum, min=0.0)
+    ray = _degenerate_masked(sp.bvh_alpha, origins, dirs, rem, alive)
+    final = Hit(bound, final_tri, hit_o.u, hit_o.v)
+    if tables is None:
+        return ClosestRounds(alive, t_accum, origins, bound, final,
+                             decal_color, decal_alpha, has_decal, ray)
+    ray = _own_ray(ray, origins, None)
+    pending = alive.clone(memory_format=torch.contiguous_format)
+    return ClosestRounds(pending, t_accum, ray[0], bound, final, decal_color,
+                         decal_alpha, has_decal, ray, closest_round_args(
+                             pending, t_accum, bound, final, decal_color,
+                             decal_alpha, has_decal, dirs, ray,
+                             _root_hi(sp.bvh_alpha), tables))
+
+
+def _closest_round_plain(ds: DeviceScene, tex: DeviceTextures, accel,
+                         sp: AlphaSplit, st: ClosestRounds, dirs, hit_a: Hit,
+                         last: bool) -> ClosestRounds:
+    """One round of the closest loop after its trace, in tensor code: the
+    plain twin of `alpha_closest_round`, which the CPU runs."""
+    (pending, t_accum, cur_origin, bound, final, decal_color, decal_alpha,
+     has_decal, _, kernel) = st
+    final_t, final_tri, final_u, final_v = final
+    tri_g = _remap_subset_tri(sp.sel_alpha, hit_a.tri)
+    valid = pending & hit_a.is_hit & (t_accum + hit_a.t < bound)
+    rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g, hit_a.u, hit_a.v)
+    alpha = rgba[:, 3]
+    accepts = valid & (alpha >= 0.5)
+    skips = valid & (alpha < 0.5)
+
+    record = skips & ~has_decal
+    decal_color = torch.where(record[:, None], rgba[:, :3], decal_color)
+    decal_alpha = torch.where(record, alpha, decal_alpha)
+    has_decal = has_decal | record
+
+    final_t = torch.where(accepts, t_accum + hit_a.t, final_t)
+    final_tri = torch.where(accepts, tri_g, final_tri)
+    final_u = torch.where(accepts, hit_a.u, final_u)
+    final_v = torch.where(accepts, hit_a.v, final_v)
+
+    step = hit_a.t + 1e-4
+    cur_origin = torch.where(skips[:, None], cur_origin + dirs * step[:, None],
+                             cur_origin)
+    t_accum = torch.where(skips, t_accum + step, t_accum)
+    pending = skips
+    ray = None
+    if not last:
+        rem = torch.clamp(bound - t_accum, min=0.0)
+        ray = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs, rem, pending)
+    return ClosestRounds(pending, t_accum, cur_origin, bound,
+                         Hit(final_t, final_tri, final_u, final_v),
+                         decal_color, decal_alpha, has_decal, ray, kernel)
+
+
+def _closest_round(ds: DeviceScene, tex: DeviceTextures, accel,
+                   sp: AlphaSplit, st: ClosestRounds, dirs, hit_a: Hit,
+                   last: bool) -> ClosestRounds:
+    """One round of the closest loop after its trace: on the card one
+    launch of the round kernel, which updates `st` in place; on the CPU its
+    plain twin."""
+    if st.kernel is None:
+        return _closest_round_plain(ds, tex, accel, sp, st, dirs, hit_a, last)
+    count("alpha_kernel_rounds", 1)
+    alpha_closest_round(hit_a, st.kernel)
+    return st
+
+
 def _trace_closest_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
                                sp: AlphaSplit, origins, dirs, alive):
     """Split-tree any-hit emulation:
@@ -427,58 +578,23 @@ def _trace_closest_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
        α≥0.5 candidate nearer than t_opq wins, else the opaque hit does.
 
     Rays still pending after ALPHA_ROUNDS transparent layers resolve to the
-    opaque bound hit."""
-    n = origins.shape[0]
-    dev = origins.device
+    opaque bound hit. What a round does besides its trace is
+    `_closest_round`: on the card one kernel launch."""
     o_t, d_t, t_t = _degenerate_masked(sp.bvh_opaque, origins, dirs,
                                        TMAX, alive)
     hit_o = trace_closest(sp.bvh_opaque, o_t, d_t, t_t)
-    bound = hit_o.t
-    final_t = hit_o.t
     final_tri = _remap_subset_tri(sp.sel_opaque, hit_o.tri)
-    final_u, final_v = hit_o.u, hit_o.v
-
-    pending = alive
-    cur_origin = origins
-    t_accum = torch.zeros((n,), dtype=torch.float32, device=dev)
-    decal_color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    decal_alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
-    has_decal = torch.zeros((n,), dtype=torch.bool, device=dev)
 
     with span("alpha"):
-        for _ in range(ALPHA_ROUNDS):
-            _count_round(pending)
-            rem = torch.clamp(bound - t_accum, min=0.0)
-            o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
-                                               rem, pending)
-            hit_a = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
-            tri_g = _remap_subset_tri(sp.sel_alpha, hit_a.tri)
-            valid = pending & hit_a.is_hit & (t_accum + hit_a.t < bound)
-            rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g,
-                                            hit_a.u, hit_a.v)
-            alpha = rgba[:, 3]
-            accepts = valid & (alpha >= 0.5)
-            skips = valid & (alpha < 0.5)
-
-            record = skips & ~has_decal
-            decal_color = torch.where(record[:, None], rgba[:, :3],
-                                      decal_color)
-            decal_alpha = torch.where(record, alpha, decal_alpha)
-            has_decal = has_decal | record
-
-            final_t = torch.where(accepts, t_accum + hit_a.t, final_t)
-            final_tri = torch.where(accepts, tri_g, final_tri)
-            final_u = torch.where(accepts, hit_a.u, final_u)
-            final_v = torch.where(accepts, hit_a.v, final_v)
-
-            step = hit_a.t + 1e-4
-            cur_origin = torch.where(skips[:, None],
-                                     cur_origin + dirs * step[:, None],
-                                     cur_origin)
-            t_accum = torch.where(skips, t_accum + step, t_accum)
-            pending = skips
-    return (Hit(final_t, final_tri, final_u, final_v), decal_color,
-            decal_alpha, has_decal)
+        st = _closest_rounds_start(sp, hit_o, final_tri, origins, dirs,
+                                   alive, _round_kernel_args(ds, tex, accel,
+                                                             sp, origins))
+        for r in range(ALPHA_ROUNDS):
+            _count_round(st.pending)
+            hit_a = trace_closest(sp.bvh_alpha, *st.ray)
+            st = _closest_round(ds, tex, accel, sp, st, dirs, hit_a,
+                                r == ALPHA_ROUNDS - 1)
+    return st.final, st.decal_color, st.decal_alpha, st.has_decal
 
 
 def trace_closest_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
@@ -540,6 +656,60 @@ def trace_closest_alpha(ds: DeviceScene, tex: DeviceTextures, accel,
     return final, decal_color, decal_alpha, has_decal
 
 
+def _shadow_rounds_start(sp: AlphaSplit, occluded, origins, dirs, dist,
+                         alive, tables) -> ShadowRounds:
+    """The shadow loop's state before its first round: the live lanes that
+    the opaque tree leaves unoccluded pending at the surface, with the
+    whole distance left, and the first round's masked ray; `tables` as for
+    `_closest_rounds_start`."""
+    if tables is not None:         # the kernel reads rows in lane order
+        origins, dirs = origins.contiguous(), dirs.contiguous()
+        dist = dist.contiguous()
+    pending = alive & ~occluded
+    ray = _degenerate_masked(sp.bvh_alpha, origins, dirs, dist, pending)
+    if tables is None:
+        return ShadowRounds(pending, occluded, origins, dist, ray)
+    ray = _own_ray(ray, origins, dist)
+    return ShadowRounds(pending, occluded, ray[0], ray[2], ray,
+                        shadow_round_args(pending, occluded, dirs, ray,
+                                          _root_hi(sp.bvh_alpha), tables))
+
+
+def _shadow_round_plain(ds: DeviceScene, tex: DeviceTextures, accel,
+                        sp: AlphaSplit, st: ShadowRounds, dirs, hit: Hit,
+                        last: bool) -> ShadowRounds:
+    """One round of the shadow loop after its trace, in tensor code: the
+    plain twin of `alpha_shadow_round`, which the CPU runs."""
+    pending, occluded, cur_origin, remaining, _, kernel = st
+    tri_g = _remap_subset_tri(sp.sel_alpha, hit.tri)
+    rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g, hit.u, hit.v)
+    translucent = hit.is_hit & (rgba[:, 3] < 1.0)
+    occluded = occluded | (pending & hit.is_hit & ~translucent)
+    cont = pending & translucent
+    step = hit.t + 1e-4
+    cur_origin = torch.where(cont[:, None], cur_origin + dirs * step[:, None],
+                             cur_origin)
+    remaining = torch.where(cont, remaining - step, remaining)
+    pending = cont
+    ray = None
+    if not last:
+        ray = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs, remaining,
+                                 pending)
+    return ShadowRounds(pending, occluded, cur_origin, remaining, ray, kernel)
+
+
+def _shadow_round(ds: DeviceScene, tex: DeviceTextures, accel,
+                  sp: AlphaSplit, st: ShadowRounds, dirs, hit: Hit,
+                  last: bool) -> ShadowRounds:
+    """One round of the shadow loop after its trace: on the card one launch
+    of the round kernel, in place; on the CPU its plain twin."""
+    if st.kernel is None:
+        return _shadow_round_plain(ds, tex, accel, sp, st, dirs, hit, last)
+    count("alpha_kernel_rounds", 1)
+    alpha_shadow_round(hit, st.kernel)
+    return st
+
+
 def _trace_occluded_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
                                 sp: AlphaSplit, origins, dirs, dist, alive,
                                 reverse=None):
@@ -548,7 +718,8 @@ def _trace_occluded_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
     with α ≥ 1 within dist (closest-hit rounds over the alpha tree).
     `reverse` marks lanes whose opaque-tree query runs light→surface
     (segment-symmetric). The alpha rounds need closest-hit ordering from
-    the surface, so they always run unreversed."""
+    the surface, so they always run unreversed. What a round does besides
+    its trace is `_shadow_round`: on the card one kernel launch."""
     o_o, d_o, t_o = origins, dirs, dist
     if reverse is not None:
         rev = alive & reverse
@@ -559,28 +730,16 @@ def _trace_occluded_alpha_split(ds: DeviceScene, tex: DeviceTextures, accel,
     o_t, d_t, t_t = _degenerate_masked(sp.bvh_opaque, o_o, d_o, t_o, alive)
     occluded = alive & trace_occluded(sp.bvh_opaque, o_t, d_t, t_t)
 
-    pending = alive & ~occluded
-    cur_origin = origins
-    remaining = dist
     with span("alpha"):
-        for _ in range(ALPHA_ROUNDS):
-            _count_round(pending)
-            o_t, d_t, t_t = _degenerate_masked(sp.bvh_alpha, cur_origin, dirs,
-                                               remaining, pending)
-            hit = trace_closest(sp.bvh_alpha, o_t, d_t, t_t)
-            tri_g = _remap_subset_tri(sp.sel_alpha, hit.tri)
-            rgba = _surface_color_alpha_tri(ds, tex, accel, tri_g, hit.u,
-                                            hit.v)
-            translucent = hit.is_hit & (rgba[:, 3] < 1.0)
-            occluded = occluded | (pending & hit.is_hit & ~translucent)
-            cont = pending & translucent
-            step = hit.t + 1e-4
-            cur_origin = torch.where(cont[:, None],
-                                     cur_origin + dirs * step[:, None],
-                                     cur_origin)
-            remaining = torch.where(cont, remaining - step, remaining)
-            pending = cont
-    return occluded
+        st = _shadow_rounds_start(sp, occluded, origins, dirs, dist, alive,
+                                  _round_kernel_args(ds, tex, accel, sp,
+                                                     origins))
+        for r in range(ALPHA_ROUNDS):
+            _count_round(st.pending)
+            hit = trace_closest(sp.bvh_alpha, *st.ray)
+            st = _shadow_round(ds, tex, accel, sp, st, dirs, hit,
+                               r == ALPHA_ROUNDS - 1)
+    return st.occluded
 
 
 def trace_occluded_alpha(ds: DeviceScene, tex: DeviceTextures, accel,

@@ -17,7 +17,9 @@ K3/K4, K5/K6 and closest_ordered give the per-ray arm's bits on every lane
 (K1/K2, the v6 walks, K5/K6 and closest_ordered also the plain warp
 schedule's), and K1/K2, the v6 walks and closest_ordered raise on a tree
 whose pages cannot be staged; closest_ordered also on a tree deeper than
-its stack.
+its stack. The split any-hit loops' round kernels give their plain twins'
+hits, decals and occlusion bit for bit, and Courtyard and brute-force
+films bit-equal to the tensor rounds', one launch a round.
 """
 
 import numpy as np
@@ -260,7 +262,9 @@ def test_cuda_animated_alpha_film_matches_cpu_film(cuda_device):
             if dev != "cpu":
                 used = {k for k, v in kernels.launches.items() if v}
                 assert used == ({"closest_v4"} if animate else
-                                {"closest_bf8", "occluded_bf8"}), used
+                                {"closest_bf8", "occluded_bf8",
+                                 "alpha_closest_round",
+                                 "alpha_shadow_round"}), used
             films[str(dev)] = r.film_mean()
         a, b = films.values()
         assert np.isfinite(a).all()
@@ -531,7 +535,9 @@ def test_cuda_instanced_film_matches_cpu_film(cuda_device):
                                            sp.bvh_alpha)} == {"BF8Instanced"}
         if dev != "cpu":
             used = {k: v for k, v in kernels.launches.items() if v}
-            assert used == {"closest_bf8i": 27, "occluded_bf8i": 3}, used
+            assert used == {"closest_bf8i": 27, "occluded_bf8i": 3,
+                            "alpha_closest_round": 12,
+                            "alpha_shadow_round": 12}, used
         films.append(r.film_mean())
     assert np.isfinite(films[0]).all() and films[0].max() > 0
     assert float(np.mean((films[0] - films[1]) ** 2)) < 1e-3
@@ -1451,3 +1457,163 @@ def test_cuda_trace_spans_hold_their_traversal_kernels(cuda_device):
     assert 0 < step_ms and -0.006 <= step_ms - board <= 0.2, (board,
                                                               step_ms)
     stats.Stats.clear()
+
+
+def _courtyard(device, size, bounces, spp=1):
+    """A small Courtyard (detail 0.5, textures at 1/20), flattened: the BF8
+    tree with its opaque/alpha split, K1/K2 and the round kernels."""
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.renderer import Renderer
+    from pt_torch.scene.standin import make_courtyard_scene
+    r = Renderer(PathTracingSettings(sample_count=spp, bounce_count=bounces),
+                 device=device, instancing="flatten")
+    r.set_scene(make_courtyard_scene(0.5, 0.05), stream_textures=False)
+    r.on_resize(size, size)
+    return r
+
+
+def _plain_rounds(fn, *args):
+    """`fn` with the split loops' rounds run by their plain twins."""
+    from pt_torch.render import integrator
+    real = integrator._round_kernel_args
+    integrator._round_kernel_args = lambda *a: None
+    try:
+        return fn(*args)
+    finally:
+        integrator._round_kernel_args = real
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_alpha_round_kernels_match_plain_twins(cuda_device,
+                                                    monkeypatch):
+    """Every call of the two split loops in a 256x256 Courtyard step (65,536
+    lanes at bounce 0, bounces 0-2) runs once through the round kernels and
+    once through their plain twins on the same inputs: the hits, decals and
+    occlusion are bit-equal, each kernel launches once a round, and the
+    caller's origins, directions, distances and masks are left as they
+    were."""
+    from pt_torch.render import integrator
+    real_c = integrator._trace_closest_alpha_split
+    real_s = integrator._trace_occluded_alpha_split
+    widths = {"closest": [], "shadow": []}
+
+    def inputs(*a):
+        return [x.clone() for x in a if isinstance(x, torch.Tensor)]
+
+    def check(loop, fn, args, flat):
+        kept = inputs(*args)
+        before = kernels.launches[f"alpha_{loop}_round"]
+        got = fn(*args)
+        torch.cuda.synchronize(cuda_device)
+        assert (kernels.launches[f"alpha_{loop}_round"]
+                == before + integrator.ALPHA_ROUNDS)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(kept, inputs(*args))), f"{loop}: inputs changed"
+        want = _plain_rounds(fn, *args)
+        for i, (a, b) in enumerate(zip(flat(got), flat(want))):
+            assert _same_bits(a, b), (loop, i, int((a != b).sum()))
+        widths[loop].append(args[4].shape[0])
+        return got
+
+    monkeypatch.setattr(
+        integrator, "_trace_closest_alpha_split",
+        lambda *a: check("closest", real_c, a,
+                         lambda g: (*g[0], g[1], g[2], g[3])))
+    monkeypatch.setattr(
+        integrator, "_trace_occluded_alpha_split",
+        lambda *a, **k: check("shadow", lambda *x: real_s(*x, **k), a,
+                              lambda g: (g,)))
+    r = _courtyard(cuda_device, 256, 3)
+    r.render(1)
+    assert r.accel.alpha_split is not None
+    assert len(widths["closest"]) == len(widths["shadow"]) == 3, widths
+    assert widths["closest"][0] == 256 * 256, widths
+
+
+@pytest.mark.gpu
+def test_cuda_courtyard_film_with_round_kernels_equals_tensor_rounds(
+        cuda_device):
+    """A 512x512 2-spp Courtyard film through the round kernels is the film
+    of the tensor rounds (the plain twins on the card), bit for bit."""
+    films = {}
+    for arm in ("kernel", "plain"):
+        r = _courtyard(cuda_device, 512, 5, spp=2)
+        kernels.reset_launch_counts()
+        if arm == "kernel":
+            r.render()
+        else:
+            _plain_rounds(r.render)
+        torch.cuda.synchronize(cuda_device)
+        rounds = (kernels.launches["alpha_closest_round"]
+                  + kernels.launches["alpha_shadow_round"])
+        assert (rounds > 0) == (arm == "kernel"), (arm, rounds)
+        films[arm] = r.film_mean()
+    assert np.isfinite(films["kernel"]).all() and films["kernel"].max() > 0
+    assert np.array_equal(films["kernel"].view(np.int32),
+                          films["plain"].view(np.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_brute_split_rounds_equal_tensor_rounds(cuda_device):
+    """The brute backend's split (alpha trees without a root box, whose
+    rays the rounds leave as they are): the film through the round kernels
+    is the tensor rounds' film, bit for bit."""
+    import chip_smoke
+    from pt_torch.render.integrator import PathTracingSettings
+    from pt_torch.run.renderer import Renderer
+    films = {}
+    for arm in ("kernel", "plain"):
+        scene = chip_smoke.build_animated_scene(chip_smoke.port_namespace(),
+                                                12, 40, False)
+        r = Renderer(PathTracingSettings(bounce_count=3, backend="brute"),
+                     device=cuda_device)
+        r.set_scene(scene, stream_textures=False)
+        r.on_resize(32, 32)
+        kernels.reset_launch_counts()
+        if arm == "kernel":
+            r.render(1)
+        else:
+            _plain_rounds(r.render, 1)
+        torch.cuda.synchronize(cuda_device)
+        assert type(r.accel.alpha_split.bvh_alpha).__name__ == \
+            "BruteTriangles"
+        used = {k: v for k, v in kernels.launches.items() if v}
+        assert used == ({"alpha_closest_round": 12, "alpha_shadow_round": 12}
+                        if arm == "kernel" else {}), (arm, used)
+        films[arm] = r.film_mean()
+    assert np.isfinite(films["kernel"]).all() and films["kernel"].max() > 0
+    assert np.array_equal(films["kernel"].view(np.int32),
+                          films["plain"].view(np.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_alpha_round_kernel_launches_once_a_round(cuda_device):
+    """A 3-bounce Courtyard step with the recorder on: one round-kernel
+    launch per alpha round of each loop (4 a loop, one closest and one
+    shadow loop a bounce), none of any other new kind, and the counter
+    `alpha_kernel_rounds` equal to the rounds the loops ran."""
+    from pt_torch.core import stats
+    from pt_torch.render.integrator import ALPHA_ROUNDS
+    r = _courtyard(cuda_device, 128, 3)
+    r.render(1)
+    kernels.reset_launch_counts()
+    stats.start_trace(cuda_device)
+    try:
+        r.render(1)
+        torch.cuda.synchronize(cuda_device)
+    finally:
+        records = stats.stop_trace()
+    loops = [s for s in records.spans if s.name == "alpha"]
+    assert len(loops) == 2 * 3
+    used = {k: v for k, v in kernels.launches.items() if v}
+    assert used == {"closest_bf8": 3 * 9, "occluded_bf8": 3,
+                    "alpha_closest_round": 3 * ALPHA_ROUNDS,
+                    "alpha_shadow_round": 3 * ALPHA_ROUNDS}, used
+    assert (records.counter("alpha_kernel_rounds")
+            == ALPHA_ROUNDS * len(loops))
